@@ -1,0 +1,82 @@
+"""SECOND/VoxelNet 7-DoF box codec, smooth_dim variant.
+
+Counterpart of detection_3d_tpu/ops/box_coder.py (reference:
+second/pytorch/core/box_torch_ops.py:15-88 and
+maskrcnn_benchmark/modeling/box_coder_3d.py:8-65, which always runs
+smooth_dim=True, so sizes are encoded linearly and clipped at 10000).
+Boxes and anchors are yx_zb ``[xc, yc, z_bot, y_size, x_size, z_size,
+yaw]``; w=y_size, l=x_size, h=z_size.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass, field
+
+import torch
+
+from detection_3d_tpu_torch.ops.geometry import limit_period
+
+BBOX_XFORM_CLIP = 10000.0
+
+
+def second_box_encode(boxes, anchors):
+    """(..., 7) targets vs (..., 7) anchors -> (..., 7) regression deltas."""
+    xa, ya, za, wa, la, ha, ra = anchors.split(1, dim=-1)
+    xg, yg, zg, wg, lg, hg, rg = boxes.split(1, dim=-1)
+    diagonal = torch.sqrt(la * la + wa * wa)
+    xt = (xg - xa) / diagonal
+    yt = (yg - ya) / diagonal
+    zt = (zg - za) / ha
+    lt = lg / la - 1.0
+    wt = wg / wa - 1.0
+    ht = hg / ha - 1.0
+    rt = rg - ra
+    return torch.cat([xt, yt, zt, wt, lt, ht, rt], dim=-1)
+
+
+def second_box_decode(encodings, anchors):
+    """Inverse of :func:`second_box_encode`."""
+    xa, ya, za, wa, la, ha, ra = anchors.split(1, dim=-1)
+    xt, yt, zt, wt, lt, ht, rt = encodings.split(1, dim=-1)
+    diagonal = torch.sqrt(la * la + wa * wa)
+    xg = xt * diagonal + xa
+    yg = yt * diagonal + ya
+    zg = zt * ha + za
+    lg = (lt + 1.0) * la
+    wg = (wt + 1.0) * wa
+    hg = (ht + 1.0) * ha
+    rg = rt + ra
+    return torch.cat([xg, yg, zg, wg, lg, hg, rg], dim=-1)
+
+
+@dataclass(frozen=True)
+class BoxCoder3D:
+    """Encode/decode with per-column weights, yaw wrapped to
+    [-pi/2, pi/2] and sizes clipped."""
+
+    weights: tuple = field(default=(1.0,) * 7)
+
+    def encode(self, targets, anchors):
+        w = torch.tensor(self.weights, dtype=targets.dtype,
+                         device=targets.device)
+        enc = second_box_encode(targets, anchors)
+        yaw = limit_period(enc[..., -1:], 0.5, math.pi)
+        return torch.cat([enc[..., :-1], yaw], dim=-1) * w
+
+    def decode(self, encodings, anchors):
+        """``encodings``: (N, 7*C); ``anchors``: (N, 7). Returns (N, 7*C):
+        each anchor is tiled across its C class slots."""
+        num_classes = encodings.shape[-1] // 7
+        lead = encodings.shape[:-1]
+        enc = encodings.reshape(lead + (num_classes, 7))
+        anc = anchors[..., None, :].expand(lead + (num_classes, 7))
+
+        w = torch.tensor(self.weights, dtype=enc.dtype, device=enc.device)
+        enc = enc / w
+        sizes = torch.clamp(enc[..., 3:6], max=BBOX_XFORM_CLIP)
+        enc = torch.cat([enc[..., :3], sizes, enc[..., 6:]], dim=-1)
+        dec = second_box_decode(enc, anc)
+        yaw = limit_period(dec[..., -1:], 0.5, math.pi)
+        dec = torch.cat([dec[..., :-1], yaw], dim=-1)
+        return dec.reshape(lead + (num_classes * 7,))

@@ -1,0 +1,148 @@
+"""Build, load and count the port's hand-written CUDA kernels.
+
+Each source under ``detection_3d_tpu_torch/csrc/`` has a plain C
+interface and compiles on its own with ``nvcc`` into a shared library
+that is loaded with :mod:`ctypes` (no PyTorch headers, so a build takes
+seconds). Libraries go to ``detection_3d_tpu_torch/build/`` under a name
+that carries a digest of the source and flags, so an edited source is
+rebuilt and a stale library is never loaded. Nothing is built or loaded
+at import time: :func:`library` builds on first use, and
+:func:`build` compiles several sources at once (one ``nvcc`` process
+each, all started together).
+
+``launches`` counts, per kernel, the launches its wrapper made. A wrapper
+adds one exactly where it launches its kernel; a run can then show that
+the main path went through every kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict, Iterable
+
+import torch
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "build"
+
+KERNELS = ("gather_conv", "subm_match", "rotated_iou")
+_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+          "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+# the IoU kernel's strict orientation tests must round like the plain
+# version: no contracted multiply-adds (csrc/rotated_iou.cu)
+_EXTRA_FLAGS = {"rotated_iou": ["--fmad=false"]}
+
+# the C entry points of each library: name -> argument types (pointers
+# and the stream as c_void_p, sizes as c_int); every one returns the
+# cudaError_t of its launch as an int
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ENTRY_POINTS = {
+    "gather_conv": {"gather_conv_f32": [_P] * 5 + [_I] * 5 + [_P],
+                    "gather_conv_bf16": [_P] * 5 + [_I] * 5 + [_P]},
+    "subm_match": {"subm_match_3x3x3": [_P] * 3 + [_I] * 4 + [_P] * 2},
+    "rotated_iou": {"rotated_iou_matrix": [_P] * 2 + [_I] * 3 + [_P] * 2},
+}
+
+launches: Dict[str, int] = {name: 0 for name in KERNELS}
+
+_libs: Dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(path):
+        return path
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _flags(name: str):
+    return _FLAGS + _EXTRA_FLAGS.get(name, [])
+
+
+def lib_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha1(src + " ".join(_flags(name)).encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+
+
+def build(names: Iterable[str] = KERNELS) -> Dict[str, float]:
+    """Compile every named kernel whose library is missing, in parallel.
+
+    Returns {name: seconds} for the sources compiled by this call. Raises
+    RuntimeError with the compiler's output when a build fails. The
+    compiler's resource report (registers, shared memory, spills) is
+    kept beside each library as ``<lib>.log``.
+    """
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        out = lib_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *_flags(name), "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT),
+                       tmp, out, time.perf_counter())
+    seconds, errors = {}, []
+    for name, (proc, tmp, out, t0) in procs.items():
+        log, _ = proc.communicate()
+        seconds[name] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            errors.append(f"nvcc {name}.cu failed ({proc.returncode}):\n"
+                          + log.decode(errors="replace"))
+            continue
+        out.with_suffix(".log").write_bytes(log)
+        os.replace(tmp, out)
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return seconds
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of one kernel, built on first use."""
+    with _lock:
+        if name not in _libs:
+            build([name])
+            lib = ctypes.CDLL(str(lib_path(name)))
+            for fn_name, argtypes in _ENTRY_POINTS[name].items():
+                fn = getattr(lib, fn_name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            err = getattr(lib, f"{name}_error_string")
+            err.argtypes = [ctypes.c_int]
+            err.restype = ctypes.c_char_p
+            _libs[name] = lib
+        return _libs[name]
+
+
+def check(name: str, status: int) -> None:
+    """Raise when a kernel's C entry point returned a CUDA error."""
+    if status != 0:
+        msg = getattr(library(name), f"{name}_error_string")(status)
+        raise RuntimeError(f"{name}: CUDA error {status}: "
+                           f"{msg.decode(errors='replace')}")
+
+
+def stream_ptr(device) -> int:
+    """The current CUDA stream of ``device`` as a pointer for ctypes."""
+    return torch.cuda.current_stream(device).cuda_stream

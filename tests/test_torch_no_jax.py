@@ -1,0 +1,68 @@
+"""The port stands alone: no module of detection_3d_tpu_torch, and not
+chip_smoke.py, imports jax, flax or the JAX package; and its entry points
+run on the card unless the caller asks for the CPU.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "detection_3d_tpu_torch"
+FORBIDDEN = ("jax", "flax", "detection_3d_tpu")
+
+
+def _sources():
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def test_no_forbidden_import_statement():
+    for path in _sources():
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                assert name.split(".")[0] not in FORBIDDEN, (path, name)
+
+
+def test_every_module_imports_with_jax_blocked():
+    code = (
+        "import sys, importlib, pkgutil\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'detection_3d_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "import detection_3d_tpu_torch as pkg\n"
+        "names = [m.name for m in pkgutil.walk_packages(pkg.__path__,\n"
+        "         'detection_3d_tpu_torch.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "import chip_smoke\n"
+        "print(len(names))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert int(res.stdout.split()[-1]) >= 20     # every module was reached
+
+
+def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
+    from detection_3d_tpu_torch.config.defaults import Config
+    from detection_3d_tpu_torch.engine.inference import (
+        make_predict_fn, run_inference,
+    )
+    from detection_3d_tpu_torch.utils.device import resolve_device
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = Config()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_predict_fn(cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run_inference(cfg, None, [])
+    assert resolve_device("cpu") == torch.device("cpu")
