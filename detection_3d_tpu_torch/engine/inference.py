@@ -17,45 +17,11 @@ import numpy as np
 import torch
 
 from detection_3d_tpu_torch.config.defaults import Config
+from detection_3d_tpu_torch.engine.trainer import pad_scene  # noqa: F401
 from detection_3d_tpu_torch.models.detector import SparseRCNN, voxelize_points
 from detection_3d_tpu_torch.utils.device import resolve_device
 
 _LOG = logging.getLogger(__name__)
-
-
-def pad_scene(cfg: Config, scene: Dict) -> Dict[str, np.ndarray]:
-    """Host-side: pad a scene dict to the static capacities, warning when
-    points or gt boxes exceed them (a copy of the JAX package's
-    engine/trainer.pad_scene)."""
-    n = cfg.caps.max_points
-    pts = np.zeros((n, 3), np.float32)
-    fts = np.zeros((n, cfg.in_channels), np.float32)
-    m = min(scene["points"].shape[0], n)
-    if scene["points"].shape[0] > n:
-        _LOG.warning(
-            "pad_scene: %d points exceed caps.max_points=%d — dropping "
-            "%.1f%% of the input (raise caps.max_points)",
-            scene["points"].shape[0], n,
-            100.0 * (1 - n / scene["points"].shape[0]))
-    pts[:m] = scene["points"][:m]
-    fts[:m] = scene["feats"][:m, :cfg.in_channels]
-    pvalid = np.arange(n) < m
-
-    g = cfg.caps.max_gt
-    gtb = np.zeros((g, 7), np.float32)
-    gtb[:, 3:6] = 0.1  # harmless nonzero sizes on padding rows
-    gtl = np.zeros((g,), np.int32)
-    mg = min(scene["gt_boxes"].shape[0], g)
-    gtb[:mg] = scene["gt_boxes"][:mg]
-    gtl[:mg] = scene["gt_labels"][:mg]
-    gvalid = np.arange(g) < mg
-    if scene["gt_boxes"].shape[0] > g:
-        _LOG.warning(
-            "pad_scene: %d gt boxes exceed caps.max_gt=%d — dropping %d "
-            "targets (raise caps.max_gt)",
-            scene["gt_boxes"].shape[0], g, scene["gt_boxes"].shape[0] - g)
-    return {"points": pts, "feats": fts, "points_valid": pvalid,
-            "gt_boxes": gtb, "gt_labels": gtl, "gt_valid": gvalid}
 
 
 def make_predict_fn(cfg: Config, model: Optional[SparseRCNN] = None,
@@ -77,7 +43,7 @@ def make_predict_fn(cfg: Config, model: Optional[SparseRCNN] = None,
         pts, fts, valid = (torch.as_tensor(batch[k]).to(dev)
                            for k in ("points", "feats", "points_valid"))
         table = voxelize_points(cfg, pts, fts, valid)
-        det = model(table, phases)
+        det = model(table, phases=phases)
         packed_out = torch.cat(
             [det.boxes, det.fields["scores"][:, None],
              det.fields["labels"].to(torch.float32)[:, None],

@@ -1,5 +1,5 @@
-"""ROI box head, eval path: level mapping, rotated pooling, MLP head and
-post-processing.
+"""ROI box head: level mapping, rotated pooling, MLP head, targets and
+loss, post-processing.
 
 Counterpart of detection_3d_tpu/models/roi_head.py:
   * LevelMapper_3d: size = sqrt(max(y_size, x_size)), rate = size /
@@ -8,9 +8,11 @@ Counterpart of detection_3d_tpu/models/roi_head.py:
     batch axis is the level;
   * extractor: conv3d [1,1,os2] (one matmul) + BN + ReLU, fc6, fc7;
   * predictor: linear cls + 7*C box regression;
+  * targets and loss (box_head_3d/loss.py:22-237): matcher FG = BG =
+    0.5 without low-quality rescue, a balanced sample, CE + per-class
+    smooth-L1 (beta 1/5) over positives / the sampled count;
   * postprocess: softmax, per-class score threshold + rotated NMS, then
     the global top detections by score.
-Matching, sampling and losses belong to training and are not ported yet.
 """
 
 from __future__ import annotations
@@ -22,6 +24,12 @@ import torch
 from torch import nn
 
 from detection_3d_tpu_torch.config.defaults import Config
+from detection_3d_tpu_torch.models.losses import (
+    cross_entropy, smooth_l1_box_loss,
+)
+from detection_3d_tpu_torch.models.matcher import (
+    BETWEEN, balanced_sample, match_boxes,
+)
 from detection_3d_tpu_torch.models.rpn import top_k
 from detection_3d_tpu_torch.models.structures import Boxes3D
 from detection_3d_tpu_torch.ops.box_coder import BoxCoder3D
@@ -29,6 +37,7 @@ from detection_3d_tpu_torch.ops.geometry import yx_zb_to_standard
 from detection_3d_tpu_torch.ops.nms import nms_boxes
 from detection_3d_tpu_torch.ops.norm import batch_norm_leaky_relu
 from detection_3d_tpu_torch.ops.roi_align import roi_align_rotated_sparse
+from detection_3d_tpu_torch.ops.rotated_iou import boxes_iou_3d
 from detection_3d_tpu_torch.ops.sparse import (
     SparseTensor, build_sparse_tensor,
 )
@@ -156,6 +165,71 @@ class ROIPredictor(nn.Module):
         cls = (x @ self.cls_w.to(dt) + self.cls_b.to(dt)).to(torch.float32)
         box = (x @ self.box_w.to(dt) + self.box_b.to(dt)).to(torch.float32)
         return cls, box
+
+
+def roi_targets(cfg: Config, proposals: Boxes3D, gt: Boxes3D, gt_labels):
+    """Per-proposal class label (0 background, -1 ignore) and regression
+    target (box_head_3d/loss.py:47-118): IoU criterion -1 with the
+    label-generation thickness floors."""
+    aug = {"target_Y": cfg.roi.label_aug_thickness_y_tar_anc[0],
+           "anchor_Y": cfg.roi.label_aug_thickness_y_tar_anc[1],
+           "target_Z": cfg.roi.label_aug_thickness_z_tar_anc[0],
+           "anchor_Z": cfg.roi.label_aug_thickness_z_tar_anc[1]}
+    quality = boxes_iou_3d(gt.boxes, proposals.boxes, aug_thickness=aug,
+                           criterion=-1)
+    matches = match_boxes(quality, gt.valid, proposals.valid,
+                          high=cfg.roi.fg_iou_threshold,
+                          low=cfg.roi.bg_iou_threshold,
+                          allow_low_quality=False)
+    safe = torch.clamp(matches, min=0).to(torch.int64)
+    labels = gt_labels[safe].to(torch.int32)
+    labels = torch.where(matches == -1, 0, labels)
+    labels = torch.where(matches == BETWEEN, -1, labels)
+    labels = torch.where(proposals.valid, labels, -1)
+    coder = BoxCoder3D(weights=cfg.roi.bbox_reg_weights)
+    return labels, coder.encode(gt.boxes[safe], proposals.boxes)
+
+
+def subsample_proposals(cfg: Config, priorities, proposals: Boxes3D,
+                        gt: Boxes3D, gt_labels) -> Boxes3D:
+    """Balanced sample of the proposals, gathered into a static set of
+    roi_batch_size_per_image rows with the fields labels,
+    regression_targets and is_gt (box_head_3d/loss.py:121-166).
+
+    ``priorities`` (R,) serves the sampler AND breaks the ties of the
+    gather order, as in the JAX package, where both draw
+    ``jax.random.uniform`` from one key at one shape."""
+    labels, reg_targets = roi_targets(cfg, proposals, gt, gt_labels)
+    pos_mask, neg_mask = balanced_sample(
+        labels, priorities, cfg.roi_batch_size_per_image,
+        cfg.roi.positive_fraction)
+    sampled = pos_mask | neg_mask
+    pri = torch.where(sampled, 1.0, 0.0) + priorities * 0.5
+    _, idx = top_k(pri, cfg.roi_batch_size_per_image)
+    is_gt = proposals.fields.get(
+        "is_gt", torch.zeros(labels.shape, device=labels.device))
+    out = Boxes3D(proposals.boxes, proposals.valid & sampled,
+                  {"labels": labels, "regression_targets": reg_targets,
+                   "is_gt": is_gt})
+    return out.gather(idx)
+
+
+def roi_loss(cfg: Config, sampled: Boxes3D, class_logits, box_regression):
+    """(loss_classifier_roi, loss_box_reg_roi): CE over the sampled rows
+    and the smooth-L1 of each positive row's own class slot
+    (box_head_3d/loss.py:196-237)."""
+    labels = sampled.fields["labels"]
+    valid = sampled.valid & (labels >= 0)
+    cls_loss = cross_entropy(class_logits, labels, valid)
+    pos = valid & (labels > 0)
+    reg = box_regression.reshape(box_regression.shape[0], -1, 7)
+    slot = torch.clamp(labels, min=0).to(torch.int64)[:, None, None]
+    reg_pos = torch.gather(reg, 1, slot.expand(-1, 1, 7))[:, 0]
+    n_sampled = torch.clamp(valid.to(torch.float32).sum(), min=1.0)
+    box_l = smooth_l1_box_loss(
+        reg_pos, sampled.fields["regression_targets"], sampled.boxes, pos,
+        beta=1.0 / 5, yaw_loss_mode=cfg.rpn.yaw_loss_mode) / n_sampled
+    return cls_loss, box_l
 
 
 def postprocess(cfg: Config, proposals: Boxes3D, class_logits,

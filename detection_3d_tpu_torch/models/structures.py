@@ -36,3 +36,12 @@ class Boxes3D:
         valid = self.valid[safe] & (idx >= 0)
         fields = {k: v[safe] for k, v in self.fields.items()}
         return Boxes3D(self.boxes[safe], valid, fields)
+
+
+def concat_boxes(a: Boxes3D, b: Boxes3D, fields=()) -> Boxes3D:
+    """Static concat of two padded box sets (both keep their masks and
+    the named fields)."""
+    return Boxes3D(torch.cat([a.boxes, b.boxes], 0),
+                   torch.cat([a.valid, b.valid], 0),
+                   {k: torch.cat([a.fields[k], b.fields[k]], 0)
+                    for k in fields})

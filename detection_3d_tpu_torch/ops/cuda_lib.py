@@ -10,9 +10,10 @@ at import time: :func:`library` builds on first use, and
 :func:`build` compiles several sources at once (one ``nvcc`` process
 each, all started together).
 
-``launches`` counts, per kernel, the launches its wrapper made. A wrapper
-adds one exactly where it launches its kernel; a run can then show that
-the main path went through every kernel.
+``launches`` counts, per kernel (one name per kernel, so the two
+entries of csrc/gather_conv_bwd.cu count apart), the launches its
+wrapper made. A wrapper adds one exactly where it launches its kernel; a
+run can then show that a path went through every kernel.
 """
 
 from __future__ import annotations
@@ -33,7 +34,12 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 
-KERNELS = ("gather_conv", "subm_match", "rotated_iou")
+# one library per source file under csrc/
+KERNELS = ("gather_conv", "gather_conv_bwd", "subm_match", "rotated_iou",
+           "multi_match")
+# one launch counter per kernel: the backward source holds two kernels
+COUNTERS = ("gather_conv", "gather_conv_dfeats", "gather_conv_dw",
+            "subm_match", "rotated_iou", "multi_match")
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 # the IoU kernel's strict orientation tests must round like the plain
@@ -47,11 +53,17 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _ENTRY_POINTS = {
     "gather_conv": {"gather_conv_f32": [_P] * 5 + [_I] * 5 + [_P],
                     "gather_conv_bf16": [_P] * 5 + [_I] * 5 + [_P]},
+    "gather_conv_bwd": {
+        "gather_conv_dfeats_f32": [_P] * 6 + [_I] * 5 + [_P],
+        "gather_conv_dfeats_bf16": [_P] * 6 + [_I] * 5 + [_P],
+        "gather_conv_dw_f32": [_P] * 6 + [_I] * 5 + [_P],
+        "gather_conv_dw_bf16": [_P] * 6 + [_I] * 5 + [_P]},
     "subm_match": {"subm_match_3x3x3": [_P] * 3 + [_I] * 4 + [_P] * 2},
     "rotated_iou": {"rotated_iou_matrix": [_P] * 2 + [_I] * 3 + [_P] * 2},
+    "multi_match": {"multi_match": [_P] * 3 + [_I] * 2 + [_P]},
 }
 
-launches: Dict[str, int] = {name: 0 for name in KERNELS}
+launches: Dict[str, int] = {name: 0 for name in COUNTERS}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

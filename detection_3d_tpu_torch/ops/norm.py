@@ -19,7 +19,10 @@ def batch_norm_leaky_relu(feats, valid, scale, bias, leakiness: float = 0.0,
     w = valid.to(torch.float32)[:, None]
     n = torch.clamp(w.sum(), min=1.0)
     mean = (f32 * w).sum(0) / n
-    var = torch.clamp((f32.square() * w).sum(0) / n - mean.square(), min=0.0)
+    var = (f32.square() * w).sum(0) / n - mean.square()
+    # torch.maximum: at a tie its gradient splits in halves, as
+    # jnp.maximum's does (clamp would pass all of it)
+    var = torch.maximum(var, torch.zeros_like(var))
     inv = torch.reciprocal(torch.sqrt(var + eps))
     out = (f32 - mean) * (inv * scale) + bias
     out = torch.where(out > 0, out, out * leakiness)

@@ -92,8 +92,14 @@ def roi_align_rotated_sparse(table: SparseTensor, rois, roi_valid,
     fx, fy, fz = px - x0, py - y0, pz - z0
     inb_f = inb.to(fx.dtype)
 
-    feats_pad = torch.cat([table.feats, table.feats.new_zeros((1, c))], 0)
+    feats = table.feats
     acc = torch.zeros((r, os0, os1, os2, c), dtype=torch.float32, device=dev)
+    # a missing corner reads a zero: it gathers some real row with weight
+    # 0. The row is its sample's position modulo V, so the gradient's
+    # scatter (index_select's backward adds with atomics) spreads the
+    # zeros instead of piling every missing corner onto one row
+    spread = torch.arange(px.numel(), device=dev).reshape(shape) % \
+        table.capacity
     # one corner at a time: the sr^3 sub-samples are summed into the bin
     # grid inside the loop, so the full sample grid of features is never
     # held for all 8 corners at once
@@ -101,10 +107,11 @@ def roi_align_rotated_sparse(table: SparseTensor, rois, roi_valid,
         for cy, wy in ((y0, 1 - fy), (y1, fy)):
             for cz, wz in ((z0, 1 - fz), (z1, fz)):
                 idx, found = table.lookup(torch.stack([cx, cy, cz, pb], -1))
-                idx = torch.where(found, idx, table.capacity)
-                w = (wx * wy * wz * inb_f).to(feats_pad.dtype)
-                g = feats_pad[idx.to(torch.int64)] * w[..., None]
+                idx = torch.where(found, idx.to(torch.int64), spread)
+                w = (wx * wy * wz * inb_f * found).to(feats.dtype)
+                g = feats.index_select(0, idx.reshape(-1)).reshape(
+                    shape + (c,)) * w[..., None]
                 acc += g.reshape(r, os0, sr, os1, sr, os2, sr, c).sum(
                     dim=(2, 4, 6), dtype=torch.float32)
-    pooled = (acc * (1.0 / (sr * sr * sr))).to(feats_pad.dtype)
+    pooled = (acc * (1.0 / (sr * sr * sr))).to(feats.dtype)
     return torch.where(roi_valid[:, None, None, None, None], pooled, 0.0)
