@@ -7,7 +7,10 @@ SparseConvNet fpn_net.py:13-265):
     forward once: the strided/deconv books come as scatters from the
     downsample dedup sort, the 27-offset submanifold book of every scale
     from kernel B, and the BEV books as scatters from the z-collapse sort;
-  * every sparse conv goes through kernel A (ops/sparse_conv.py);
+  * every rulebook gets its row order grouped by offset mask
+    (ops/sparse_conv.rulebook_row_order), once per pyramid;
+  * every sparse conv goes through kernel A (ops/sparse_conv.py), with
+    its rulebook's row order;
   * BN runs on batch statistics (ops/norm.py) fused with (leaky) ReLU.
 
 Module and parameter names follow the Flax modules of the JAX package, so
@@ -31,7 +34,7 @@ from detection_3d_tpu_torch.ops.sparse import (
     neighbor_match_3x3x3,
 )
 from detection_3d_tpu_torch.ops.sparse_conv import (
-    deconv, nin_conv, strided_conv, submanifold_conv,
+    deconv, nin_conv, rulebook_row_order, strided_conv, submanifold_conv,
 )
 
 
@@ -73,7 +76,9 @@ def build_pyramid(table0: SparseTensor, cfg: Config) -> Dict[str, Any]:
       subm_idx: per-scale (27, V) submanifold rulebooks (kernel B);
       down_rb: per-downsample (K, V_k) conv rulebooks;
       up_rb: per-upsample (K, V_{k-1}) deconv rulebooks, decoder order;
-      bev: {slot: (bev_table, (Z, V_bev) rulebook)} for the RPN 2D maps.
+      bev: {slot: (bev_table, (Z, V_bev) rulebook)} for the RPN 2D maps;
+      subm_order, down_order, up_order, bev_order: the RowOrder of each
+      rulebook above, in the same layout (kernel A's row order).
     """
     s3d = cfg.sparse3d
     n_scales = s3d.num_scales
@@ -87,12 +92,23 @@ def build_pyramid(table0: SparseTensor, cfg: Config) -> Dict[str, Any]:
         up_rb_by_scale.append(drb)
         tables.append(t)
     subm_idx = [neighbor_match_3x3x3(t) for t in tables]
-    bev = {}
+    bev, bev_order = {}, {}
     for slot, i_from_top in enumerate(cfg.rpn.rpn_scales_from_top):
         t3d = tables[n_scales - 1 - i_from_top]
         bev[slot] = bev_with_rulebook(t3d, t3d.capacity)
+        bev_order[slot] = rulebook_row_order(bev[slot][1], t3d.capacity,
+                                             bev[slot][0].row_valid)
+    valid = [t.row_valid for t in tables]
+    cap = [t.capacity for t in tables]
+    up_order = [rulebook_row_order(rb, cap[k + 1], valid[k])
+                for k, rb in enumerate(up_rb_by_scale)]
     return {"tables": tables, "subm_idx": subm_idx, "down_rb": down_rb,
-            "up_rb": up_rb_by_scale[::-1], "bev": bev}
+            "up_rb": up_rb_by_scale[::-1], "bev": bev,
+            "subm_order": [rulebook_row_order(rb, cap[k], valid[k])
+                           for k, rb in enumerate(subm_idx)],
+            "down_order": [rulebook_row_order(rb, cap[k], valid[k + 1])
+                           for k, rb in enumerate(down_rb)],
+            "up_order": up_order[::-1], "bev_order": bev_order}
 
 
 class SubmConv(nn.Module):
@@ -105,8 +121,9 @@ class SubmConv(nn.Module):
     def reset_parameters(self, gen):
         he_normal_(self.w, gen)
 
-    def forward(self, feats, nidx, valid):
-        return submanifold_conv(feats, nidx, self.w.to(feats.dtype), valid)
+    def forward(self, feats, nidx, valid, order):
+        return submanifold_conv(feats, nidx, self.w.to(feats.dtype), valid,
+                                order)
 
 
 class NiN(nn.Module):
@@ -149,10 +166,10 @@ class ResidualBlock(nn.Module):
         self.bn2 = BNLeakyReLU(cout)
         self.conv2 = SubmConv(cout, cout)
 
-    def forward(self, feats, nidx, valid):
+    def forward(self, feats, nidx, valid, order):
         sc = feats if self.shortcut is None else self.shortcut(feats, valid)
-        h = self.conv1(self.bn1(feats, valid), nidx, valid)
-        h = self.conv2(self.bn2(h, valid), nidx, valid)
+        h = self.conv1(self.bn1(feats, valid), nidx, valid, order)
+        h = self.conv2(self.bn2(h, valid), nidx, valid, order)
         return sc + h
 
 
@@ -167,17 +184,18 @@ class DownLayer(nn.Module):
     def reset_parameters(self, gen):
         he_normal_(self.w, gen)
 
-    def forward(self, feats, rulebook, in_valid, out_valid):
+    def forward(self, feats, rulebook, in_valid, out_valid, order):
         h = self.bn(feats, in_valid)
-        return strided_conv(h, rulebook, self.w.to(h.dtype), out_valid)
+        return strided_conv(h, rulebook, self.w.to(h.dtype), out_valid,
+                            order)
 
 
 class UpLayer(DownLayer):
     """BN-ReLU + deconv (fpn_net.py:86-92)."""
 
-    def forward(self, feats, rulebook, in_valid, out_valid):
+    def forward(self, feats, rulebook, in_valid, out_valid, order):
         h = self.bn(feats, in_valid)
-        return deconv(h, rulebook, self.w.to(h.dtype), out_valid)
+        return deconv(h, rulebook, self.w.to(h.dtype), out_valid, order)
 
 
 class BEVConv(nn.Module):
@@ -190,9 +208,9 @@ class BEVConv(nn.Module):
     def reset_parameters(self, gen):
         he_normal_(self.w, gen)
 
-    def forward(self, feats, rulebook, out_valid):
+    def forward(self, feats, rulebook, out_valid, order):
         return strided_conv(feats, rulebook, self.w.to(feats.dtype),
-                            out_valid)
+                            out_valid, order)
 
 
 def _kernel_volume(k):
@@ -244,7 +262,7 @@ class SparseFPN(nn.Module):
         s3d = cfg.sparse3d
         n = s3d.num_scales
         tables: List[SparseTensor] = pyramid["tables"]
-        subm_idx = pyramid["subm_idx"]
+        subm_idx, subm_order = pyramid["subm_idx"], pyramid["subm_order"]
         valids = [t.row_valid for t in tables]
         n3d = len(cfg.rpn.rpn_scales_from_top)
         sel = cfg.rpn.rpn_3d_2d_selector
@@ -252,20 +270,21 @@ class SparseFPN(nn.Module):
         used = {cfg.rpn.rpn_scales_from_top[i % n3d] for i in sel}
         used |= set(cfg.roi.pooler_scales_from_top)
 
-        h = self.conv_in(table0.feats, subm_idx[0], valids[0])
+        h = self.conv_in(table0.feats, subm_idx[0], valids[0], subm_order[0])
         downs = []
         for k in range(n):
             if k > 0:
                 h = getattr(self, f"down{k}")(
-                    h, pyramid["down_rb"][k - 1], valids[k - 1], valids[k])
+                    h, pyramid["down_rb"][k - 1], valids[k - 1], valids[k],
+                    pyramid["down_order"][k - 1])
             for r in range(s3d.block_reps):
                 if s3d.residual_block:
-                    h = getattr(self, f"block{k}_{r}")(h, subm_idx[k],
-                                                       valids[k])
+                    h = getattr(self, f"block{k}_{r}")(
+                        h, subm_idx[k], valids[k], subm_order[k])
                 else:
                     hh = getattr(self, f"vgg_bn{k}_{r}")(h, valids[k])
-                    h = getattr(self, f"vgg_conv{k}_{r}")(hh, subm_idx[k],
-                                                          valids[k])
+                    h = getattr(self, f"vgg_conv{k}_{r}")(
+                        hh, subm_idx[k], valids[k], subm_order[k])
             downs.append(h)
 
         net = getattr(self, f"shortcut{n - 1}")(downs[-1], valids[-1])
@@ -275,9 +294,11 @@ class SparseFPN(nn.Module):
                 break
             j = k - 1
             net = getattr(self, f"up{j}")(net, pyramid["up_rb"][i],
-                                          valids[k], valids[j])
+                                          valids[k], valids[j],
+                                          pyramid["up_order"][i])
             net = net + getattr(self, f"shortcut{j}")(downs[j], valids[j])
-            net = getattr(self, f"merge{j}")(net, subm_idx[j], valids[j])
+            net = getattr(self, f"merge{j}")(net, subm_idx[j], valids[j],
+                                             subm_order[j])
             ups.append(net)
 
         maps = {}
@@ -290,7 +311,8 @@ class SparseFPN(nn.Module):
             else:
                 bev_t, bev_rb = pyramid["bev"][slot]
                 f2d = getattr(self, f"pro2d{slot}")(
-                    ups[i_from_top], bev_rb, bev_t.row_valid)
+                    ups[i_from_top], bev_rb, bev_t.row_valid,
+                    pyramid["bev_order"][slot])
                 maps[i] = bev_t.with_feats(f2d)
         rpn_maps = [maps[i] for i in sel]
         roi_maps = [tables[n - 1 - i].with_feats(ups[i])

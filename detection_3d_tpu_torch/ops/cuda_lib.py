@@ -51,15 +51,15 @@ _EXTRA_FLAGS = {"rotated_iou": ["--fmad=false"]}
 # cudaError_t of its launch as an int
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ENTRY_POINTS = {
-    "gather_conv": {"gather_conv_f32": [_P] * 5 + [_I] * 5 + [_P],
-                    "gather_conv_bf16": [_P] * 5 + [_I] * 5 + [_P]},
+    "gather_conv": {"gather_conv_f32": [_P] * 7 + [_I] * 5 + [_P],
+                    "gather_conv_bf16": [_P] * 7 + [_I] * 5 + [_P]},
     "gather_conv_bwd": {
         "gather_conv_dfeats_f32": [_P] * 6 + [_I] * 5 + [_P],
         "gather_conv_dfeats_bf16": [_P] * 6 + [_I] * 5 + [_P],
         "gather_conv_dw_f32": [_P] * 6 + [_I] * 5 + [_P],
         "gather_conv_dw_bf16": [_P] * 6 + [_I] * 5 + [_P]},
     "subm_match": {"subm_match_3x3x3": [_P] * 3 + [_I] * 4 + [_P] * 2},
-    "rotated_iou": {"rotated_iou_matrix": [_P] * 2 + [_I] * 3 + [_P] * 2},
+    "rotated_iou": {"rotated_iou_matrix": [_P] * 2 + [_I] * 4 + [_P] * 2},
     "multi_match": {"multi_match": [_P] * 3 + [_I] * 2 + [_P]},
 }
 

@@ -17,7 +17,9 @@ IoU criteria (rbox1 = query, rbox2 = target box):
 :func:`rotated_iou_matrix` launches the hand-written CUDA kernel
 (csrc/rotated_iou.cu) for tensors on the card and takes the plain
 :func:`rotated_iou_plain` for tensors on the CPU. The plain version
-works on explicit (N, K) pair matrices in the kernel's operation order.
+works on explicit (N, K) pair matrices in the kernel's operation order
+and computes every pair; the kernel skips the pairs that
+:func:`iou_may_meet` rules out, and gives them the same bits.
 """
 
 from __future__ import annotations
@@ -43,8 +45,64 @@ def _point_in_quad(px, py, qx, qy):
     return (abab >= abap) & (abap >= 0.0) & (adad >= adap) & (adap >= 0.0)
 
 
-def rotated_iou_plain(boxes, query_boxes, criterion: int = -1):
-    """Plain version of kernel C: (N, 5) x (K, 5) -> (N, K) f32."""
+_GAP = 1e-3      # extents further apart than this cannot meet
+_SAME = 1e-6     # check_same_boxes' tolerance on each of the 5 numbers
+
+
+def _extents(boxes):
+    """(lo_x, hi_x, lo_y, hi_y) per box from its corners, each (N,), or
+    (-inf, inf) for a box that must never be culled: a non-finite corner,
+    or a zero edge (its point-in-quad test accepts a whole strip)."""
+    c = rbbox_corners_2d(boxes)
+    px, py = c[..., 0], c[..., 1]
+    abx, aby = px[:, 1] - px[:, 0], py[:, 1] - py[:, 0]
+    adx, ady = px[:, 3] - px[:, 0], py[:, 3] - py[:, 0]
+    abab = abx * abx + aby * aby
+    adad = adx * adx + ady * ady
+    ok = (torch.isfinite(c).flatten(1).all(1) & torch.isfinite(abab)
+          & torch.isfinite(adad) & (abab > 0.0) & (adad > 0.0))
+    inf = torch.full_like(abab, float("inf"))
+    return (torch.where(ok, px.amin(1), -inf), torch.where(ok, px.amax(1), inf),
+            torch.where(ok, py.amin(1), -inf), torch.where(ok, py.amax(1), inf))
+
+
+def iou_may_meet(boxes, query_boxes):
+    """(N, K) bool: False where kernel C skips the pair because the two
+    boxes' extents are more than 1e-3 apart in x or in y (such a pair has
+    no valid candidate vertex, so its intersection is +0). A comparison
+    that sees a NaN never rules a pair out."""
+    b = _extents(boxes.to(torch.float32))
+    q = _extents(query_boxes.to(torch.float32))
+    apart = ((b[0][:, None] - q[1][None, :] > _GAP)
+             | (q[0][None, :] - b[1][:, None] > _GAP)
+             | (b[2][:, None] - q[3][None, :] > _GAP)
+             | (q[2][None, :] - b[3][:, None] > _GAP))
+    return ~apart
+
+
+def _same_boxes(boxes, query_boxes):
+    """(N, K) bool: all five |differences| < 1e-6, one (N, K) plane at a
+    time."""
+    same = None
+    for t in range(5):
+        s = torch.abs(boxes[:, t][:, None] - query_boxes[:, t][None, :]) < _SAME
+        same = s if same is None else same & s
+    return same
+
+
+def rotated_iou_plain(boxes, query_boxes, criterion: int = -1,
+                      same_box_fix: bool = False):
+    """Plain version of kernel C: (N, 5) x (K, 5) -> (N, K) f32.
+
+    ``same_box_fix`` forces pairs whose five numbers all differ by less
+    than 1e-6 to 1 (the reference's check_same_boxes)."""
+    iou = _iou_all_pairs(boxes, query_boxes, criterion)
+    if same_box_fix:
+        iou = torch.where(_same_boxes(boxes, query_boxes), 1.0, iou)
+    return iou
+
+
+def _iou_all_pairs(boxes, query_boxes, criterion):
     n, k = boxes.shape[0], query_boxes.shape[0]
     bc = rbbox_corners_2d(boxes)                     # (N, 4, 2)
     qc = rbbox_corners_2d(query_boxes)               # (K, 4, 2)
@@ -150,8 +208,10 @@ def rotated_iou_plain(boxes, query_boxes, criterion: int = -1):
     return inter
 
 
-def rotated_iou_cuda(boxes, query_boxes, criterion: int = -1):
-    """Kernel C on the card: same contract as :func:`rotated_iou_plain`."""
+def rotated_iou_cuda(boxes, query_boxes, criterion: int = -1,
+                     same_box_fix: bool = False):
+    """Kernel C on the card: same contract as :func:`rotated_iou_plain`,
+    bit for bit."""
     if (boxes.dtype != torch.float32 or query_boxes.dtype != torch.float32
             or boxes.ndim != 2 or boxes.shape[1] != 5
             or query_boxes.ndim != 2 or query_boxes.shape[1] != 5
@@ -166,7 +226,7 @@ def rotated_iou_cuda(boxes, query_boxes, criterion: int = -1):
         return out
     status = cuda_lib.library("rotated_iou").rotated_iou_matrix(
         boxes.data_ptr(), query_boxes.data_ptr(), n, k, criterion,
-        out.data_ptr(), cuda_lib.stream_ptr(boxes.device))
+        int(same_box_fix), out.data_ptr(), cuda_lib.stream_ptr(boxes.device))
     cuda_lib.check("rotated_iou", status)
     cuda_lib.launches["rotated_iou"] += 1
     return out
@@ -174,17 +234,15 @@ def rotated_iou_cuda(boxes, query_boxes, criterion: int = -1):
 
 def rotated_iou_matrix(boxes, query_boxes, criterion: int = -1):
     """(N, 5) x (K, 5) -> (N, K) rotated IoU: kernel C on the card, the
-    plain version on the CPU. (Near-)identical 5-DoF boxes are then forced
-    to IoU 1 (the reference's check_same_boxes): the inclusive corner
-    tests can give an identical pair IoU 0."""
+    plain version on the CPU. (Near-)identical 5-DoF boxes are forced to
+    IoU 1 (the reference's check_same_boxes, ``same_box_fix``): the
+    inclusive corner tests can give an identical pair IoU 0."""
     boxes = boxes.to(torch.float32)
     query_boxes = query_boxes.to(torch.float32)
     if boxes.is_cuda:
-        iou = rotated_iou_cuda(boxes, query_boxes, criterion)
-    else:
-        iou = rotated_iou_plain(boxes, query_boxes, criterion)
-    dif = torch.abs(boxes[:, None, :] - query_boxes[None, :, :])
-    return torch.where(torch.all(dif < 1e-6, dim=-1), 1.0, iou)
+        return rotated_iou_cuda(boxes, query_boxes, criterion,
+                                same_box_fix=True)
+    return rotated_iou_plain(boxes, query_boxes, criterion, same_box_fix=True)
 
 
 def z_interval_iou(targets_z, anchors_z):

@@ -6,11 +6,11 @@ skip it there):
 
     python -m pytest --noconftest -p no:randomly -q tests/test_torch_kernels_cuda.py
 
-Tolerances: kernels B and D are bit exact; kernel A and its two
-backward kernels within 1e-4 of the largest output in f32 (sum order;
-the backward adds with atomics, in an order that changes from run to
-run) and 1e-2 in bf16 (one bf16 rounding of the f32 sum); kernel C
-within 1e-5 absolute.
+Tolerances: kernels B, C and D are bit exact (C: every float32 bit,
+two NaNs counted equal); kernel A and its two backward kernels within
+1e-4 of the largest output in f32 (sum order; the backward adds with
+atomics, in an order that changes from run to run) and 1e-2 in bf16
+(one bf16 rounding of the f32 sum).
 """
 
 import numpy as np
@@ -24,14 +24,17 @@ from detection_3d_tpu_torch.ops.multi_match import (
 from detection_3d_tpu_torch.ops.rotated_iou import (
     rotated_iou_cuda, rotated_iou_plain,
 )
+from detection_3d_tpu_torch.models.backbone import bev_with_rulebook
 from detection_3d_tpu_torch.ops.sparse import (
     build_sparse_tensor, downsample_with_rulebooks, neighbor_indices,
     neighbor_match_3x3x3, submanifold_offsets,
 )
 from detection_3d_tpu_torch.ops.sparse_conv import (
-    gather_conv, gather_conv_backward, gather_conv_cuda,
-    gather_conv_dfeats_cuda, gather_conv_dw_cuda, sparse_conv,
+    RowOrder, gather_conv, gather_conv_backward, gather_conv_cuda,
+    gather_conv_dfeats_cuda, gather_conv_dw_cuda, row_masks,
+    rulebook_row_order, sparse_conv,
 )
+from torch_iou_cases import adversarial_bev
 
 pytestmark = pytest.mark.cuda
 
@@ -103,6 +106,90 @@ def test_gather_conv_rejects_mixed_dtypes(dev):
         gather_conv_cuda(feats, idx, w, valid)
 
 
+def _book(dev, kind, seed=2):
+    """(idx, V_in, out_valid) of one rulebook kind over a random table."""
+    t = _table(dev, 3000, 4096, seed)
+    if kind == "subm":
+        return neighbor_match_3x3x3(t), t.capacity, t.row_valid
+    if kind == "bev":
+        bev, rb = bev_with_rulebook(t, t.capacity)
+        return rb, t.capacity, bev.row_valid
+    coarse, crb, drb = downsample_with_rulebooks(t, (2, 2, 2), (2, 2, 2),
+                                                 2048)
+    if kind == "down":
+        return crb, t.capacity, coarse.row_valid
+    return drb, coarse.capacity, t.row_valid
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind,cin,cout", [("subm", 9, 32), ("subm", 32, 32),
+                                           ("subm", 64, 64),
+                                           ("subm", 128, 128),
+                                           ("subm", 256, 256),
+                                           ("subm", 80, 24), ("down", 32, 64),
+                                           ("up", 128, 128),
+                                           ("bev", 128, 128)])
+@pytest.mark.parametrize("ordering", ["grouped", "scrambled", "none"])
+def test_gather_conv_row_order_matches_plain(dev, dtype, kind, cin, cout,
+                                             ordering):
+    """Kernel A with the rulebook's row order, with rows in a random order
+    (tiles then mix masks), and without an order, against the plain
+    version without one."""
+    idx, v_in, valid = _book(dev, kind)
+    gen = torch.Generator(device=dev).manual_seed(cin * 7 + cout)
+    feats = torch.randn((v_in, cin), generator=gen, device=dev).to(dtype)
+    w = (torch.randn((idx.shape[0], cin, cout), generator=gen, device=dev)
+         * (2.0 / (idx.shape[0] * cin)) ** 0.5).to(dtype)
+    order = None
+    if ordering == "grouped":
+        order = rulebook_row_order(idx, v_in, valid)
+    elif ordering == "scrambled":
+        perm = torch.randperm(idx.shape[1], generator=gen, device=dev)
+        order = RowOrder(perm.to(torch.int32),
+                         row_masks(idx, v_in, valid)[perm])
+    got = gather_conv_cuda(feats, idx, w, valid, order)
+    want = gather_conv(feats, idx, w, valid)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == want.shape
+    _close(got, want, dtype)
+    assert bool((got[~valid] == 0).all())
+
+
+def _bits_equal(got, want):
+    same = got.view(torch.int32) == want.view(torch.int32)
+    return bool((same | (torch.isnan(got) & torch.isnan(want))).all())
+
+
+@pytest.mark.parametrize("criterion", [-1, 0, 1, 2, 3])
+@pytest.mark.parametrize("same_box_fix", [False, True])
+def test_rotated_iou_adversarial_bit_exact(dev, criterion, same_box_fix):
+    b = torch.from_numpy(adversarial_bev()).to(dev)
+    got = rotated_iou_cuda(b, b, criterion, same_box_fix)
+    want = rotated_iou_plain(b, b, criterion, same_box_fix)
+    torch.cuda.synchronize()
+    assert _bits_equal(got, want)
+
+
+def test_rotated_iou_spread_layout_bit_exact(dev):
+    """Many targets against a wide, ordered anchor grid: most blocks cull
+    whole targets, the rest mix culled and computed pairs."""
+    rng = np.random.RandomState(11)
+    xs, ys = np.meshgrid(np.arange(0, 40, 0.25), np.arange(0, 40, 0.5))
+    grid = np.c_[xs.ravel(), ys.ravel(),
+                 np.full((xs.size, 2), [0.4, 1.5]),
+                 np.where(np.arange(xs.size) % 2, np.pi / 2, 0.0)]
+    gt = np.c_[rng.uniform(0, 40, (150, 2)), rng.uniform(0.1, 6, (150, 2)),
+               rng.uniform(-1.6, 1.6, (150, 1))]
+    gt = np.r_[gt, np.tile([[0, 0, 0.1, 0.1, 0]], (50, 1))]
+    g = torch.from_numpy(gt.astype(np.float32)).to(dev)
+    a = torch.from_numpy(grid.astype(np.float32)).to(dev)
+    for criterion in (-1, 2):
+        got = rotated_iou_cuda(g, a, criterion, True)
+        want = rotated_iou_plain(g, a, criterion, True)
+        torch.cuda.synchronize()
+        assert _bits_equal(got, want)
+
+
 @pytest.mark.parametrize("criterion", [-1, 0, 1, 2])
 def test_rotated_iou_matches_plain(dev, criterion):
     rng = np.random.RandomState(7)
@@ -115,7 +202,8 @@ def test_rotated_iou_matches_plain(dev, criterion):
     b = torch.from_numpy(np.r_[boxes, special]).to(dev)
     got = rotated_iou_cuda(b, b, criterion)
     want = rotated_iou_plain(b, b, criterion)
-    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+    torch.cuda.synchronize()
+    assert _bits_equal(got, want)
 
 
 def _close(got, want, dtype):
