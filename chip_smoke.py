@@ -8,15 +8,13 @@
    (one nvcc per source, all started together) and prints the build time.
 3. Holds each kernel against its plain PyTorch version on the card, at
    the main paths' shapes taken from a full-size synthetic building:
-   A (gather-conv, with and without the rulebook's row order) and its
-   two backward kernels A' (dFeats, dW) on the scale-0 and scale-1
-   rulebooks in f32 and bf16; B (submanifold match) on the 524288-row
-   scale-0 table, bit exact; C (rotated IoU) bit for bit on an
-   adversarial box set (every criterion, with and without the same-box
-   fix), on 2000 x 2000 boxes for criteria -1/0/1/2 with identical
-   greedy NMS keep sets, and at the training shapes on every pair (max_gt
-   x all anchors, criterion 2, in 4096-column chunks; max_gt x
-   proposals, criterion -1); D (query-key match) on the scale-0 ->
+   A (gather-conv, with the rulebook's row order and with rows in a
+   random order) and its two backward kernels A' (dFeats, dW) on the
+   scale-0 and scale-1 rulebooks in f32 and bf16; B (submanifold match)
+   on the 524288-row scale-0 table, bit exact; C (rotated IoU) bit for
+   bit on an adversarial box set (every criterion, with and without the
+   same-box fix) and on 2000 x 2000 boxes for criteria -1/0/1/2 with
+   identical greedy NMS keep sets; D (query-key match) on the scale-0 ->
    scale-1 conv and deconv books, bit exact against its plain version
    and the scatter-derived books. Prints kernel, plain and bound times.
 4. Serving path at full width: full_scale_config(), seeded random
@@ -24,13 +22,18 @@
    points; checks finite outputs, true_num > 0 and that every serving
    kernel was launched. Prints s/building, a breakdown of one more, and
    kernel A at every distinct shape that building launched (against its
-   plain version, with its launches, bound, time without the row order
-   and mean offsets per tile with and without it).
+   plain version, with its launches, bound and mean offsets per tile
+   with and without the row order).
 5. Training path at full width: a Trainer on the card takes 6 steps over
    6 such buildings (bf16 compute, SparseRCNN(cfg, seed=0)); checks
    finite losses, applied steps, moved parameters and that A, both A'
    kernels, B and C were launched. Prints s/step, peak memory, the losses
-   of each step and a device profile of one more step.
+   of each step and a device profile of one more step. One step more
+   keeps the inputs of its kernel C calls (RPN targets: max_gt x every
+   anchor, criterion 2; the RPN's NMS; ROI targets: max_gt x decoded
+   proposals and gt, criterion -1), and each call is held bit for bit
+   against its plain version on every pair, in 4096-column chunks, and
+   timed.
 6. D's own path: conv_rulebook_match / deconv_rulebook_match over every
    downsample of a full-size building's pyramid, bit exact against the
    scatter-derived books.
@@ -50,6 +53,7 @@ import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -147,12 +151,13 @@ def conv_bound(feats, idx, w, valid):
 
 def check_gather_conv(dev, table0, table1, crb, idx0, idx1, gen):
     """Kernel A against gather_conv on the card at main-path shapes, with
-    the rulebook's row order (as the paths call it) and without one (rows
-    in their own order, masks built by the kernel); the bf16 scale-0
-    32->32 case (the backbone's commonest) is reported. The bound is
+    the rulebook's row order (as the paths call it) and with the rows in
+    a random order (tiles then mix masks); the bf16 scale-0 32->32 case
+    (the backbone's commonest) is reported. The bound is
     :func:`conv_bound`."""
     from detection_3d_tpu_torch.ops.sparse_conv import (
-        gather_conv, gather_conv_cuda, rulebook_row_order)
+        RowOrder, gather_conv, gather_conv_cuda, row_masks,
+        rulebook_row_order)
     cases = [("s0 subm 9->32", table0, table0, idx0, 9, 32),
              ("s0 subm 32->32", table0, table0, idx0, 32, 32),
              ("s0->s1 down 32->64", table0, table1, crb, 32, 64),
@@ -168,25 +173,26 @@ def check_gather_conv(dev, table0, table1, crb, idx0, idx1, gen):
                  * (2.0 / (k * cin)) ** 0.5).to(dtype)
             valid = tout.row_valid
             order = rulebook_row_order(idx, tin.capacity, valid)
+            perm = torch.randperm(idx.shape[1], generator=gen, device=dev)
+            scrambled = RowOrder(perm.to(torch.int32),
+                                 row_masks(idx, tin.capacity, valid)[perm])
             want = gather_conv(feats, idx, w, valid).float()
             scale = float(want.abs().max())
             tol = (1e-4 if dtype == torch.float32 else 1e-2) * max(scale, 1.0)
             err = 0.0
-            for o in (order, None):
+            for o in (order, scrambled):
                 got = gather_conv_cuda(feats, idx, w, valid, o).float()
                 err = max(err, float((got - want).abs().max()))
             check(err <= tol, f"kernel A {name} {dtype}: max abs err {err} "
                   f"> {tol}")
             ms = time_ms(lambda: gather_conv_cuda(feats, idx, w, valid,
                                                   order))
-            ms_unordered = time_ms(lambda: gather_conv_cuda(feats, idx, w,
-                                                            valid))
             plain = time_ms(lambda: gather_conv(feats, idx, w, valid), 3)
             b_ms, b_by, _ = conv_bound(feats, idx, w, valid)
             line = {"case": name, "dtype": str(dtype).split(".")[-1],
                     "K": k, "V_in": tin.capacity, "V_out": tout.capacity,
                     "max_abs_err": err, "tolerance": tol, "ms": ms,
-                    "ms_without_order": ms_unordered, "plain_ms": plain,
+                    "plain_ms": plain,
                     "bound_ms": b_ms, "bound_by": b_by}
             print("kernel A", json.dumps(line))
             if name == "s0 subm 32->32" and dtype == torch.bfloat16:
@@ -231,9 +237,8 @@ def gather_conv_serving_shapes(predict, batch):
     beside its plain version. ``launches`` is the number of calls of that
     shape per building. The bound is :func:`conv_bound` (a lower bound:
     the kernel reads the order and masks, and idx only at the offsets a
-    tile runs).
-    Each shape also gets the kernel's time without the row order and the
-    mean offsets its tiles run with and without it.
+    tile runs). Each shape also gets the mean offsets its tiles run with
+    and without the row order.
     """
     from detection_3d_tpu_torch.ops import sparse_conv as sc
     calls = []
@@ -275,14 +280,12 @@ def gather_conv_serving_shapes(predict, batch):
             v_in, cin = feats.shape
             k, v_out = idx.shape
             cout = w.shape[2]
-            ms_unordered = time_ms(lambda: orig(*args[:4]))
             b_ms, b_by, nnz = conv_bound(feats, idx, w, valid)
             offs = offsets_per_tile(idx, v_in, valid, args[4], cout)
             line = {"kind": key[0], "K": k, "V_in": v_in, "V_out": v_out,
                     "Cin": cin, "Cout": cout, "dtype": key[6],
                     "launches": n, "nnz": nnz, "max_abs_err": err,
-                    "tolerance": tol, "ms": ms, "ms_without_order":
-                    ms_unordered, "plain_ms": plain,
+                    "tolerance": tol, "ms": ms, "plain_ms": plain,
                     "bound_ms": b_ms, "bound_by": b_by, **offs}
             print("kernel A serving shape", json.dumps(line))
             rows.append(line)
@@ -455,46 +458,6 @@ def _nms_boxes_np(n, seed):
     return boxes.astype(np.float32)
 
 
-def adversarial_bev(seed=0):
-    """(N, 5) BEV boxes that stress kernel C's cull and hull: random
-    boxes, identical, touching (edge, corner), nested, thin, 45-degree,
-    turned copies, zero-size and zero-edge boxes, pad_scene's 0.1-size
-    padding boxes, collinear walls with gaps around the 1e-3 cull margin
-    at several angles, near-duplicates around the same-box margin, boxes
-    at 80 m, and non-finite and negative sizes."""
-    rng = np.random.RandomState(seed)
-    rand = np.c_[rng.uniform(-4, 4, (160, 2)), rng.uniform(0.05, 3, (160, 2)),
-                 rng.uniform(-3.2, 3.2, (160, 1))]
-    base = [0.0, 0.0, 2.0, 1.0, 0.0]
-    q4 = np.pi / 4
-    special = [
-        base, base, [2, 0, 2, 1, 0], [2, 1, 2, 1, 0], [0, 0, 1, 0.5, 0],
-        [0, 0, 4, 0.095, 0.3], [0, 0, 0.09, 3, 0], [0, 0, 2, 1, q4],
-        [0.5, 0.5, 1, 1, q4], [0, 0, 2, 1, np.pi / 2], [0, 0, 1, 2, 0],
-        [0, 0, 0, 0, 0], [1, 0, 0, 1, 0], [0, 1, 2, 0, 0.3],
-        [0, 0, 0.1, 0.1, 0], [0, 0, 0.1, 0.1, 0], [0, 0, 0.1, 0.1, 0],
-        [5e-7, 0, 2, 1, 0], [2e-6, 0, 2, 1, 0], [0, 0, 2, 1, 5e-7],
-        [80, 80, 0.2, 3, 0], [80.1, 80, 0.2, 3, 0], [80, 83.0009, 0.2, 3, 0],
-        [80, 80, 1e-5, 1e-5, 0.3], [80, 80.5, 1e-9, 2, 0],
-        [np.nan, 0, 1, 1, 0], [np.inf, 0, 1, 1, 0], [0, 0, np.inf, 1, 0],
-        [0, 0, -1, 1, 0], [0, 0, 1e4, 1e4, 0.1], [0, 0, 1, 1, np.nan]]
-    walls = []
-    for ang in (0.0, np.pi / 2, np.pi, -np.pi / 2, 0.3, 1.2):
-        c, s = np.cos(ang), np.sin(ang)
-        for gap in (0.0, 5e-4, 9.99e-4, 1e-3, 1.0001e-3, 1.5e-3, 1e-2):
-            cx, cy = rng.uniform(-10, 10, 2)
-            walls.append([cx, cy, 4.0, 0.1, ang])
-            d = 4.0 + gap
-            walls.append([cx + d * c, cy - d * s, 4.0, 0.1, ang])
-            # the same wall beside it (gap across its thin side)
-            d = 0.1 + gap
-            walls.append([cx + d * s, cy + d * c, 4.0, 0.1, ang])
-    for gap in (5e-4, 1e-3, 1.5e-3):     # gaps along x and y to the base
-        walls.append([2 + gap, 0, 2, 1, 0])
-        walls.append([0, 1 + gap, 2, 1, 0])
-    return np.r_[rand, np.array(special), np.array(walls)].astype(np.float32)
-
-
 def _bit_mismatches(got, want):
     """Entries whose float32 bits differ (two NaNs count as equal)."""
     diff = got.view(torch.int32) != want.view(torch.int32)
@@ -514,20 +477,6 @@ def _hold_c(name, got, want):
     return _max_abs_err(got, want)
 
 
-def distinct_pairs_meeting(boxes, query, cols=4096):
-    """Pairs of distinct (target, query) boxes (by their float32 bits)
-    whose plain intersection is > 0: the pairs whose hull the IoU must
-    compute at least once."""
-    from detection_3d_tpu_torch.ops.rotated_iou import rotated_iou_plain
-
-    def distinct(b):
-        return torch.unique(b.contiguous().view(torch.int32), dim=0).view(
-            torch.float32)
-    ub, uq = distinct(boxes), distinct(query)
-    return sum(int((rotated_iou_plain(ub, uq[c0:c0 + cols], 3) > 0).sum())
-               for c0 in range(0, uq.shape[0], cols))
-
-
 def check_rotated_iou(dev):
     """Kernel C against rotated_iou_plain, bit for bit: on the adversarial
     set (all pairs, criteria -1/0/1/2 and the raw intersection, with and
@@ -537,6 +486,8 @@ def check_rotated_iou(dev):
     from detection_3d_tpu_torch.ops.nms import greedy_suppress
     from detection_3d_tpu_torch.ops.rotated_iou import (
         iou_may_meet, rotated_iou_cuda, rotated_iou_plain, z_interval_iou)
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    from torch_iou_cases import adversarial_bev      # shared with the tests
     adv = torch.from_numpy(adversarial_bev()).to(dev)
     errs = {}
     for crit in (-1, 0, 1, 2, 3):
@@ -573,15 +524,13 @@ def check_rotated_iou(dev):
             plain = time_ms(lambda: rotated_iou_plain(bev, bev, crit, True),
                             2)
             meeting = int((rotated_iou_plain(bev, bev, 3) > 0).sum())
-            distinct = distinct_pairs_meeting(bev, bev)
             nbytes = 2 * n * 5 * 4 + n * n * 4
-            b_ms, b_by = bound(nbytes, float(IOU_OPS_PER_PAIR) * distinct,
+            b_ms, b_by = bound(nbytes, float(IOU_OPS_PER_PAIR) * meeting,
                                SCALAR_OPS)
             all_ms, _ = bound(nbytes, float(IOU_OPS_PER_PAIR) * n * n,
                               SCALAR_OPS)
             report = {"N": n, "K": n, "kept": int(k_keep[1]), "ms": ms,
                       "plain_ms": plain, "pairs_meeting": meeting,
-                      "distinct_pairs_meeting": distinct,
                       "pairs_may_meet": int(iou_may_meet(bev, bev).sum()),
                       "bound_ms": b_ms, "bound_by": b_by,
                       "bound_all_pairs_ms": all_ms,
@@ -593,92 +542,79 @@ def check_rotated_iou(dev):
     return report
 
 
-def check_rotated_iou_training(cfg, table0, batch):
-    """Kernel C at the training shapes, as the targets call it (same-box
-    fix on): criterion 2 between max_gt gt boxes and every anchor of a
-    full-size building (RPN targets), and criterion -1 between max_gt gt
-    boxes and post-NMS + max_gt proposals (ROI targets), both with the
-    label thickness floors. Both are held bit for bit against the plain
-    version on every pair (the RPN call in chunks of 4096 anchor
-    columns) and timed. The RPN call's bound counts the operations of
-    the distinct box pairs whose plain intersection is > 0 only (the
-    kernel computes a repeated pair once); the all-pairs bound stands
-    beside it."""
-    from detection_3d_tpu_torch.models.anchors import generate_anchors
-    from detection_3d_tpu_torch.models.backbone import build_pyramid
+def capture_iou_calls(fn):
+    """Runs ``fn`` with kernel C's wrapper wrapped to keep the inputs of
+    each call: [(boxes, query, criterion, same_box_fix), ...]."""
+    from detection_3d_tpu_torch.ops import rotated_iou as ri
+    calls = []
+    orig = ri.rotated_iou_cuda
+
+    def recorder(boxes, query, criterion=-1, same_box_fix=False):
+        calls.append((boxes, query, criterion, same_box_fix))
+        return orig(boxes, query, criterion, same_box_fix)
+
+    ri.rotated_iou_cuda = recorder
+    try:
+        fn()
+    finally:
+        ri.rotated_iou_cuda = orig
+    return calls
+
+
+def check_rotated_iou_training(calls, cols=4096):
+    """Kernel C at the shapes a full-width training step calls it with,
+    on the inputs that step gave it (:func:`capture_iou_calls`): RPN
+    targets (max_gt gt boxes x every anchor, criterion 2), the RPN's NMS
+    and ROI targets (max_gt gt boxes x decoded proposals and gt,
+    criterion -1), with the pad rows parked as the targets park them.
+    Each call is held bit for bit against the plain version on every
+    pair, in chunks of ``cols`` query columns, and timed (its plain
+    version too where it fits one chunk). The bound counts the
+    operations of the pairs whose plain intersection is > 0 only (the
+    kernel culls the others); the all-pairs bound stands beside it."""
     from detection_3d_tpu_torch.ops.rotated_iou import (
-        iou_may_meet, rotated_iou_cuda, rotated_iou_plain)
-    dev = table0.device
-    pyr = build_pyramid(table0, cfg)
-    n = cfg.sparse3d.num_scales
-    slots = cfg.rpn.rpn_scales_from_top
-    maps = []
-    for i in cfg.rpn.rpn_3d_2d_selector:
-        slot = i % len(slots)
-        maps.append(pyr["tables"][n - 1 - slots[slot]] if i < len(slots)
-                    else pyr["bev"][slot][0])
-    anchors = generate_anchors(cfg, maps)
-    gt = torch.as_tensor(batch["gt_boxes"]).to(dev)
+        PARK_QUERIES, PARK_TARGETS, iou_may_meet, rotated_iou_cuda,
+        rotated_iou_plain)
 
-    def bev(boxes, y_floor):
-        b = boxes[:, [0, 1, 3, 4, 6]].clone()
-        b[:, 2] = torch.clamp(b[:, 2], min=y_floor)
-        return b.contiguous()
+    def parked(b, at):
+        return int(((b[:, 0] == at[0]) & (b[:, 1] == at[1])).sum())
 
-    gt_rpn = bev(gt, cfg.rpn.label_aug_thickness_y_tar_anc[0])
-    anc = bev(anchors.boxes, cfg.rpn.label_aug_thickness_y_tar_anc[1])
-    n_anchors = anc.shape[0]
-    full = rotated_iou_cuda(gt_rpn, anc, 2, True)
-    err_rpn, meeting, may_meet, chunks = 0.0, 0, 0, 0
-    for c0 in range(0, n_anchors, 4096):
-        cols = anc[c0:c0 + 4096]
-        err_rpn = max(err_rpn, _hold_c(
-            f"criterion 2 at the RPN-target shape, columns {c0}..",
-            full[:, c0:c0 + 4096].contiguous(),
-            rotated_iou_plain(gt_rpn, cols, 2, True)))
-        meeting += int((rotated_iou_plain(gt_rpn, cols, 3) > 0).sum())
-        may_meet += int(iou_may_meet(gt_rpn, cols).sum())
-        chunks += 1
-    ms = time_ms(lambda: rotated_iou_cuda(gt_rpn, anc, 2, True), 5)
-    m = gt_rpn.shape[0]
-    distinct = distinct_pairs_meeting(gt_rpn, anc)
-    nbytes = 2 * 5 * 4 * (m + n_anchors) + m * n_anchors * 4
-    b_ms, b_by = bound(nbytes, float(IOU_OPS_PER_PAIR) * distinct,
-                       SCALAR_OPS)
-    all_ms, _ = bound(nbytes, float(IOU_OPS_PER_PAIR) * m * n_anchors,
-                      SCALAR_OPS)
-    # ROI targets: max_gt x (post-NMS top-n + max_gt) proposals, here the
-    # first anchors standing in for proposals
-    r = cfg.rpn_post_nms_top_n_train + cfg.caps.max_gt
-    gt_roi = bev(gt, cfg.roi.label_aug_thickness_y_tar_anc[0])
-    props = bev(anchors.boxes[:r], cfg.roi.label_aug_thickness_y_tar_anc[1])
-    err_roi = _hold_c("criterion -1 at the ROI-target shape",
-                      rotated_iou_cuda(gt_roi, props, -1, True),
-                      rotated_iou_plain(gt_roi, props, -1, True))
-    ms_roi = time_ms(lambda: rotated_iou_cuda(gt_roi, props, -1, True))
-    b_roi, b_roi_by = bound(2 * 5 * 4 * (m + r) + m * r * 4,
-                            float(IOU_OPS_PER_PAIR)
-                            * distinct_pairs_meeting(gt_roi, props),
-                            SCALAR_OPS)
-    line = {"rpn": {"N": m, "K": n_anchors, "criterion": 2,
-                    "anchors_valid": int(anchors.valid.sum()),
-                    "distinct_anchor_boxes": int(torch.unique(
-                        anc.view(torch.int32), dim=0).shape[0]),
-                    "gt_rows_real": int(np.asarray(batch["gt_valid"]).sum()),
-                    "max_abs_err": err_rpn, "column_chunks": chunks,
-                    "pairs": m * n_anchors, "pairs_may_meet": may_meet,
-                    "pairs_meeting": meeting,
-                    "distinct_pairs_meeting": distinct, "ms": ms,
-                    "bound_ms": b_ms, "bound_by": b_by,
-                    "bound_all_pairs_ms": all_ms},
-            "roi": {"N": m, "K": r, "criterion": -1,
-                    "max_abs_err": err_roi, "ms": ms_roi, "bound_ms": b_roi,
-                    "bound_by": b_roi_by},
-            "tolerance": "bit exact",
-            "anchors": n_anchors}
-    print(f"anchors of one full-size building: {n_anchors} "
-          f"({[t.capacity for t in maps]} map rows x "
-          f"{cfg.rpn.num_anchors_per_location})")
+    line = {}
+    for boxes, query, crit, fix in calls:
+        n, k = boxes.shape[0], query.shape[0]
+        name = ("rpn_targets" if crit == 2 else "nms" if n == k
+                else "roi_targets")
+        full = rotated_iou_cuda(boxes, query, crit, fix)
+        err, meeting, may_meet, chunks = 0.0, 0, 0, 0
+        for c0 in range(0, k, cols):
+            q = query[c0:c0 + cols]
+            err = max(err, _hold_c(
+                f"criterion {crit} at the {name} shape, columns {c0}..",
+                full[:, c0:c0 + cols].contiguous(),
+                rotated_iou_plain(boxes, q, crit, fix)))
+            meeting += int((rotated_iou_plain(boxes, q, 3) > 0).sum())
+            may_meet += int(iou_may_meet(boxes, q).sum())
+            chunks += 1
+        ms = time_ms(lambda: rotated_iou_cuda(boxes, query, crit, fix))
+        plain = (time_ms(lambda: rotated_iou_plain(boxes, query, crit, fix),
+                         2) if k <= cols else None)
+        nbytes = 5 * 4 * (n + k) + n * k * 4
+        b_ms, b_by = bound(nbytes, float(IOU_OPS_PER_PAIR) * meeting,
+                           SCALAR_OPS)
+        all_ms, _ = bound(nbytes, float(IOU_OPS_PER_PAIR) * n * k,
+                          SCALAR_OPS)
+        line[name] = {"N": n, "K": k, "criterion": crit,
+                      "same_box_fix": bool(fix),
+                      "parked_targets": parked(boxes, PARK_TARGETS),
+                      "parked_queries": parked(query, PARK_QUERIES),
+                      "max_abs_err": err, "column_chunks": chunks,
+                      "pairs": n * k, "pairs_may_meet": may_meet,
+                      "pairs_meeting": meeting, "ms": ms, "plain_ms": plain,
+                      "bound_ms": b_ms, "bound_by": b_by,
+                      "bound_all_pairs_ms": all_ms}
+    check("rpn_targets" in line and "roi_targets" in line,
+          f"kernel C: the training step made the calls {sorted(line)}")
+    line["tolerance"] = "bit exact"
     print("kernel C (training shapes)", json.dumps(line))
     return line
 
@@ -741,7 +677,8 @@ def train_path(cfg, scenes, dev):
     """The training path at full width: a Trainer on the card takes
     TRAIN_STEPS steps (one epoch over TRAIN_STEPS buildings), with launch
     counts set to 0 just before and read just after. Then one more step
-    under the profiler. Returns (launches, report)."""
+    under the profiler, and one that keeps its kernel C inputs. Returns
+    (launches, report, the kept kernel C calls)."""
     import shutil
     from detection_3d_tpu_torch.engine.trainer import Trainer, pad_scene
     from detection_3d_tpu_torch.ops import cuda_lib
@@ -788,9 +725,10 @@ def train_path(cfg, scenes, dev):
     print("device profile of one more training step: "
           + ("not measured (the profiler recorded no device activity)"
              if prof is None else json.dumps(prof)))
+    iou_calls = capture_iou_calls(lambda: trainer.step(state, batch, gen))
     del trainer, state, before
     shutil.rmtree(out_dir, ignore_errors=True)
-    return launches, report
+    return launches, report, iou_calls
 
 
 def match_path(cfg, scene, dev):
@@ -950,8 +888,6 @@ def main():
                                        gen)
         rep_d = check_multi_match(table0, table1, crb, drb)
         rep_c = check_rotated_iou(dev)
-        rep_c["training_shapes"] = check_rotated_iou_training(cfg, table0,
-                                                              batch)
         del table0, table1, crb, drb, idx0, idx1
     torch.cuda.empty_cache()
 
@@ -1000,8 +936,11 @@ def main():
     torch.cuda.empty_cache()
 
     # ---- the training path at full width --------------------------------
-    train, rep_train = train_path(cfg, scenes, dev)
+    train, rep_train, iou_calls = train_path(cfg, scenes, dev)
     torch.cuda.empty_cache()
+    with torch.inference_mode():
+        rep_c["training_shapes"] = check_rotated_iou_training(iou_calls)
+    del iou_calls
 
     # ---- kernel D's own entry points ------------------------------------
     match = match_path(cfg, scenes[0], dev)

@@ -8,11 +8,12 @@
 //   reading a zero row, W (K, Cin, Cout) in the feats type, out_valid
 //   (V_out,) bool. Rows whose out_valid is false are written as zero.
 //   Sums are kept in f32; the output is in the feats type.
-// Optional row order (ops/sparse_conv.py:rulebook_row_order): perm
-// (V_out,) int32, a permutation of the output rows, and masks (V_out,)
-// uint64, masks[p] holding bit k when row perm[p] has a real entry at
-// offset k (K <= 64). Without them the kernel takes the rows in their
-// own order and builds each row's mask from idx.
+// The kernel takes out_valid through the rulebook's row order
+// (ops/sparse_conv.py:rulebook_row_order), which the wrapper always
+// passes: perm (V_out,) int32, a permutation of the output rows, and
+// masks (V_out,) uint64, masks[p] holding bit k when row perm[p] is
+// valid and has a real entry at offset k (K <= 64). A row whose mask is
+// 0 (out_valid false) runs no offset and is written as zero.
 //
 // What bounds it on an H100: bytes at most shapes of the main path (the
 // random row reads and the output write at scale 0, ~1.1 real entries
@@ -56,34 +57,19 @@ namespace {
 // ---- row order and tile mask, shared by both kernels ---------------------
 
 // rows_s[r]: the output row at tile position r (-1 past V_out);
-// masks_s[r]: its real offsets (0 when out_valid is false). Returns the
-// OR of the tile's masks (after a barrier).
+// masks_s[r]: its real offsets. Returns the OR of the tile's masks
+// (after a barrier).
 template <int BM, int THREADS>
 __device__ __forceinline__ uint64_t tile_rows(
-    const int* __restrict__ idx, const uint8_t* __restrict__ out_valid,
     const int* __restrict__ perm, const uint64_t* __restrict__ masks,
-    int v_in, int v_out, int n_off, int m0, int* rows_s, uint64_t* masks_s,
-    uint64_t* or_s) {
+    int v_out, int m0, int* rows_s, uint64_t* masks_s, uint64_t* or_s) {
   if (threadIdx.x == 0) *or_s = 0;
   __syncthreads();
   uint64_t mine = 0;
   for (int r = threadIdx.x; r < BM; r += THREADS) {
     const int p = m0 + r;
-    int row = -1;
-    uint64_t m = 0;
-    if (p < v_out) {
-      row = perm ? perm[p] : p;
-      if (out_valid[row]) {
-        if (masks) {
-          m = masks[p];
-        } else {
-          for (int k = 0; k < n_off; ++k) {
-            const int s = idx[(size_t)k * v_out + row];
-            if (s >= 0 && s < v_in) m |= 1ull << k;
-          }
-        }
-      }
-    }
+    const int row = p < v_out ? perm[p] : -1;
+    const uint64_t m = p < v_out ? masks[p] : 0;
     rows_s[r] = row;
     masks_s[r] = m;
     mine |= m;
@@ -215,11 +201,10 @@ __global__ void __launch_bounds__(Tile<WM, WN>::THREADS)
 gather_conv_bf16_kernel(const __nv_bfloat16* __restrict__ feats,
                         const int* __restrict__ idx,
                         const __nv_bfloat16* __restrict__ w,
-                        const uint8_t* __restrict__ out_valid,
                         const int* __restrict__ perm,
                         const uint64_t* __restrict__ masks,
                         __nv_bfloat16* __restrict__ out, int v_in,
-                        int v_out, int n_off, int cin, int cout) {
+                        int v_out, int cin, int cout) {
   using T = Tile<WM, WN>;
   __shared__ __align__(16) __nv_bfloat16 as[kStages][T::BM * A_STRIDE];
   __shared__ __align__(16) __nv_bfloat16 bs[kStages][BK * T::B_STRIDE];
@@ -235,8 +220,7 @@ gather_conv_bf16_kernel(const __nv_bfloat16* __restrict__ feats,
   const int wn = warp % WN;
 
   const uint64_t tile_or = tile_rows<T::BM, T::THREADS>(
-      idx, out_valid, perm, masks, v_in, v_out, n_off, m0, rows_s, masks_s,
-      &or_s);
+      perm, masks, v_out, m0, rows_s, masks_s, &or_s);
 
   float acc[2][4][4];
 #pragma unroll
@@ -333,17 +317,15 @@ gather_conv_bf16_kernel(const __nv_bfloat16* __restrict__ feats,
 
 template <int WM, int WN>
 void launch_bf16(const void* feats, const void* idx, const void* w,
-                 const void* out_valid, const void* perm, const void* masks,
-                 void* out, int v_in, int v_out, int n_off, int cin,
-                 int cout, cudaStream_t stream) {
+                 const void* perm, const void* masks, void* out, int v_in,
+                 int v_out, int cin, int cout, cudaStream_t stream) {
   using T = Tile<WM, WN>;
   dim3 grid((v_out + T::BM - 1) / T::BM, (cout + T::BN - 1) / T::BN);
   gather_conv_bf16_kernel<WM, WN><<<grid, T::THREADS, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(feats), static_cast<const int*>(idx),
-      static_cast<const __nv_bfloat16*>(w),
-      static_cast<const uint8_t*>(out_valid), static_cast<const int*>(perm),
+      static_cast<const __nv_bfloat16*>(w), static_cast<const int*>(perm),
       static_cast<const uint64_t*>(masks), static_cast<__nv_bfloat16*>(out),
-      v_in, v_out, n_off, cin, cout);
+      v_in, v_out, cin, cout);
 }
 
 // ---- f32: CUDA cores (tests only) -----------------------------------------
@@ -357,11 +339,10 @@ __global__ void __launch_bounds__(kF32Threads)
 gather_conv_f32_kernel(const float* __restrict__ feats,
                        const int* __restrict__ idx,
                        const float* __restrict__ w,
-                       const uint8_t* __restrict__ out_valid,
                        const int* __restrict__ perm,
                        const uint64_t* __restrict__ masks,
                        float* __restrict__ out, int v_in, int v_out,
-                       int n_off, int cin, int cout) {
+                       int cin, int cout) {
   constexpr int BM = 16 * TM;
   constexpr int BN = 16 * TN;
   __shared__ float a_s[BK32][BM + 1];  // gathered rows, channel-major
@@ -377,9 +358,8 @@ gather_conv_f32_kernel(const float* __restrict__ feats,
   const int m0 = blockIdx.x * BM;
   const int n0 = blockIdx.y * BN;
 
-  uint64_t bits = tile_rows<BM, kF32Threads>(idx, out_valid, perm, masks,
-                                             v_in, v_out, n_off, m0, rows_s,
-                                             masks_s, &or_s);
+  uint64_t bits = tile_rows<BM, kF32Threads>(perm, masks, v_out, m0,
+                                             rows_s, masks_s, &or_s);
 
   float acc[TM][TN];
 #pragma unroll
@@ -437,52 +417,48 @@ gather_conv_f32_kernel(const float* __restrict__ feats,
 
 template <int TM, int TN>
 void launch_f32(const void* feats, const void* idx, const void* w,
-                const void* out_valid, const void* perm, const void* masks,
-                void* out, int v_in, int v_out, int n_off, int cin, int cout,
-                cudaStream_t stream) {
+                const void* perm, const void* masks, void* out, int v_in,
+                int v_out, int cin, int cout, cudaStream_t stream) {
   dim3 grid((v_out + 16 * TM - 1) / (16 * TM),
             (cout + 16 * TN - 1) / (16 * TN));
   gather_conv_f32_kernel<TM, TN><<<grid, kF32Threads, 0, stream>>>(
       static_cast<const float*>(feats), static_cast<const int*>(idx),
-      static_cast<const float*>(w), static_cast<const uint8_t*>(out_valid),
-      static_cast<const int*>(perm), static_cast<const uint64_t*>(masks),
-      static_cast<float*>(out), v_in, v_out, n_off, cin, cout);
+      static_cast<const float*>(w), static_cast<const int*>(perm),
+      static_cast<const uint64_t*>(masks), static_cast<float*>(out), v_in,
+      v_out, cin, cout);
 }
 
 }  // namespace
 
-// perm and masks may both be null (rows in their own order, masks built
-// from idx); bf16 needs cin % 16 == 0 and cout % 8 == 0 (the wrapper pads).
+// bf16 needs cin % 16 == 0 and cout % 8 == 0 (the wrapper pads).
 extern "C" int gather_conv_f32(const void* feats, const void* idx,
-                               const void* w, const void* out_valid,
-                               const void* perm, const void* masks,
-                               void* out, int v_in, int v_out, int n_off,
-                               int cin, int cout, void* stream) {
+                               const void* w, const void* perm,
+                               const void* masks, void* out, int v_in,
+                               int v_out, int cin, int cout, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (cout <= 32)
-    launch_f32<8, 2>(feats, idx, w, out_valid, perm, masks, out, v_in, v_out,
-                     n_off, cin, cout, s);
+    launch_f32<8, 2>(feats, idx, w, perm, masks, out, v_in, v_out, cin, cout,
+                     s);
   else
-    launch_f32<4, 4>(feats, idx, w, out_valid, perm, masks, out, v_in, v_out,
-                     n_off, cin, cout, s);
+    launch_f32<4, 4>(feats, idx, w, perm, masks, out, v_in, v_out, cin, cout,
+                     s);
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int gather_conv_bf16(const void* feats, const void* idx,
-                                const void* w, const void* out_valid,
-                                const void* perm, const void* masks,
-                                void* out, int v_in, int v_out, int n_off,
-                                int cin, int cout, void* stream) {
+                                const void* w, const void* perm,
+                                const void* masks, void* out, int v_in,
+                                int v_out, int cin, int cout, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (cout <= 32)
-    launch_bf16<4, 1>(feats, idx, w, out_valid, perm, masks, out, v_in,
-                      v_out, n_off, cin, cout, s);
+    launch_bf16<4, 1>(feats, idx, w, perm, masks, out, v_in, v_out, cin,
+                      cout, s);
   else if (cout <= 64)
-    launch_bf16<2, 2>(feats, idx, w, out_valid, perm, masks, out, v_in,
-                      v_out, n_off, cin, cout, s);
+    launch_bf16<2, 2>(feats, idx, w, perm, masks, out, v_in, v_out, cin,
+                      cout, s);
   else
-    launch_bf16<2, 4>(feats, idx, w, out_valid, perm, masks, out, v_in,
-                      v_out, n_off, cin, cout, s);
+    launch_bf16<2, 4>(feats, idx, w, perm, masks, out, v_in, v_out, cin,
+                      cout, s);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -17,17 +17,16 @@
 //     1 (the reference's check_same_boxes).
 //
 // What bounds it on an H100: a pair that meets costs a few thousand
-// scalar f32 operations, a pair that cannot meet only its 4-byte write.
-// At the RPN-target call (512 gt boxes x 344,064 anchors) a real gt box
-// meets a few hundred anchors on average, but 210,452 of them come from the
-// maps' pad rows: they sit at the INVALID coordinate (~1.4e9 m), where
-// their corners collapse to zero edges, so they cannot be culled and
-// "meet" every gt box; they are copies of a few boxes. Counted once per
-// distinct box pair, the call needs ~187k hulls, so its least time is
-// that of writing the 176 M results. Build with --fmad=false: the
-// orientation tests are strict comparisons, and a contracted
-// multiply-add would round differently from the plain version and can
-// flip a test on touching boxes.
+// scalar f32 operations, a pair that cannot meet only its extent test
+// and its 4-byte write. At the RPN-target call (512 gt boxes x 344,064
+// anchors) a real gt box meets a few hundred anchors, so the call's
+// least time is that of writing the 176 M results. The callers that own
+// validity (rpn_targets, roi_targets) park their pad rows far away
+// before the call (ops/rotated_iou.py:park_invalid), so the cull rules
+// out their pairs too. Build with --fmad=false: the orientation tests
+// are strict comparisons, and a contracted multiply-add would round
+// differently from the plain version and can flip a test on touching
+// boxes.
 //
 // Design:
 //   * cull: every box's axis-aligned extent comes from its own corners.
@@ -42,12 +41,6 @@
 //     a chunk of up to 64 targets staged in shared memory, and a target
 //     separated from the union extent of a warp's 32 queries is culled
 //     for the whole warp at once (the warp is the unit that diverges).
-//   * repeats: a thread that meets the same target bits twice in a row
-//     (pad_scene's padded gt rows) reuses its last result. A block that
-//     holds a query that cannot be culled (the pad-row anchors) finds its
-//     distinct queries; when they are at most 16, it computes each
-//     (distinct query, target) pair once, spread over all its threads,
-//     and each thread writes its leader's results.
 //   * hull: the candidates' validity and centroid are computed for all
 //     24 as before; the valid ones are then compacted in candidate order
 //     (typically <= 8) and the rank and successor searches loop only over
@@ -264,8 +257,6 @@ __device__ __forceinline__ bool same_box(const float* q, const float* b) {
 
 // a staged box: box (5), corners x (4), corners y (4), extent (4)
 constexpr int kStride = 17;
-constexpr int kWarps = kThreads / 32;
-constexpr int kMaxDistinct = 16;
 
 __device__ __forceinline__ void stage(const float* box, float* g) {
 #pragma unroll
@@ -274,40 +265,15 @@ __device__ __forceinline__ void stage(const float* box, float* g) {
   extent(g + 5, g + 9, g + 13);
 }
 
-// iou of query g and target s (both staged); the intersection is taken
-// unless the caller already knows the pair apart (skip) or their extents
-// are apart
-__device__ __forceinline__ float pair_iou(const float* g, const float* s,
-                                          bool skip, int criterion,
-                                          int same_box_fix) {
-  float inter = 0.f;
-  if (!skip && !apart(s + 13, g + 13))
-    inter = intersection(g + 5, g + 9, s + 5, s + 9);
-  float iou = criterion_iou(inter, g, s, criterion);
-  if (same_box_fix && same_box(g, s)) iou = 1.f;
-  return iou;
-}
-
 __global__ void __launch_bounds__(kThreads)
 rotated_iou_kernel(const float* __restrict__ boxes,
                    const float* __restrict__ query, int n, int k,
                    int criterion, int same_box_fix, int chunk,
                    float* __restrict__ out) {
   __shared__ float tgt[kMaxChunk * kStride];
-  __shared__ float res_s[kMaxDistinct * kMaxChunk];
-  __shared__ float distinct_s[kMaxDistinct * kStride];
-  __shared__ unsigned qbits_s[kThreads * 5];
-  __shared__ int slot_s[kThreads];
-  __shared__ int warp_n[kWarps];
-  __shared__ bool warp_open[kWarps];
 
-  const int tid = threadIdx.x;
-  const int lane = tid % 32;
-  const int warp = tid / 32;
-  const int n_live =
-      min(kThreads, k - static_cast<int>(blockIdx.x) * kThreads);
-  const int j = blockIdx.x * kThreads + tid;
-  const bool live = tid < n_live;
+  const int j = blockIdx.x * kThreads + threadIdx.x;
+  const bool live = j < k;
   float g[kStride];
   const float zero[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
   stage(live ? query + (size_t)j * 5 : zero, g);
@@ -322,98 +288,26 @@ rotated_iou_kernel(const float* __restrict__ boxes,
     ue[2] = fminf(ue[2], __shfl_xor_sync(0xffffffffu, ue[2], off));
     ue[3] = fmaxf(ue[3], __shfl_xor_sync(0xffffffffu, ue[3], off));
   }
-  // a warp holds a query that is never culled when its union reaches -inf
-  if (lane == 0) warp_open[warp] = ue[0] == -INFINITY;
-
-  // distinct queries: a thread leads when no earlier thread of the block
-  // holds the same five words; the leaders get slots in thread order
-#pragma unroll
-  for (int t = 0; t < 5; ++t) qbits_s[tid * 5 + t] = __float_as_uint(g[t]);
-  __syncthreads();
-  // only a block holding a query that is never culled looks for repeats:
-  // elsewhere the scan costs more than it saves
-  bool open = false;
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) open = open || warp_open[w];
-  int lead = tid;
-  const bool scan = live && open;
-  for (int o = 0; scan && o < tid; ++o) {
-    bool same = true;
-#pragma unroll
-    for (int t = 0; t < 5; ++t)
-      same = same && qbits_s[o * 5 + t] == qbits_s[tid * 5 + t];
-    if (same) {
-      lead = o;
-      break;
-    }
-  }
-  const bool leads = live && lead == tid;
-  const unsigned ballot = __ballot_sync(0xffffffffu, leads);
-  if (lane == 0) warp_n[warp] = __popc(ballot);
-  __syncthreads();
-  int n_distinct = 0, slot = 0;
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) {
-    slot += (w < warp) ? warp_n[w] : 0;
-    n_distinct += warp_n[w];
-  }
-  slot += __popc(ballot & ((1u << lane) - 1u));
-  // a block of few distinct queries (the anchors of the maps' pad rows)
-  // computes each (distinct query, target) pair once, spread over all
-  // its threads, and every thread copies its leader's results
-  const bool dedupe = n_distinct <= kMaxDistinct && n_distinct < n_live;
-  if (dedupe && leads) {
-    slot_s[tid] = slot;
-#pragma unroll
-    for (int t = 0; t < kStride; ++t) distinct_s[slot * kStride + t] = g[t];
-  }
-
-  // the last target computed and its result: a run of identical targets
-  // (pad_scene pads the gt boxes with copies of one box) is computed once
-  unsigned prev[5] = {0u, 0u, 0u, 0u, 0u};
-  float prev_iou = 0.f;
-  bool have_prev = false;
 
   const int n_chunks = (n + chunk - 1) / chunk;
   for (int ch = blockIdx.y; ch < n_chunks; ch += gridDim.y) {
     const int i0 = ch * chunk;
     const int rows = min(chunk, n - i0);
     __syncthreads();  // the previous chunk's targets are no longer read
-    for (int r = tid; r < rows; r += kThreads)
+    for (int r = threadIdx.x; r < rows; r += kThreads)
       stage(boxes + (size_t)(i0 + r) * 5, tgt + r * kStride);
     __syncthreads();
-    if (dedupe) {
-      for (int p = tid; p < n_distinct * rows; p += kThreads) {
-        const int d = p / rows;
-        const int r = p - d * rows;
-        res_s[d * kMaxChunk + r] =
-            pair_iou(distinct_s + d * kStride, tgt + r * kStride, false,
-                     criterion, same_box_fix);
-      }
-      __syncthreads();
-      if (!live) continue;
-      const float* mine = res_s + slot_s[lead] * kMaxChunk;
-      for (int r = 0; r < rows; ++r) out[(size_t)(i0 + r) * k + j] = mine[r];
-      continue;
-    }
     if (!live) continue;
     for (int r = 0; r < rows; ++r) {
       const float* s = tgt + r * kStride;
-      bool repeat = have_prev;
-#pragma unroll
-      for (int t = 0; t < 5; ++t)
-        repeat = repeat && __float_as_uint(s[t]) == prev[t];
-      // the same bits in, the same bits out
-      const float iou = repeat ? prev_iou
-                               // the whole warp skips a target apart from
-                               // all of its queries (a uniform branch)
-                               : pair_iou(g, s, apart(s + 13, ue), criterion,
-                                          same_box_fix);
+      // the whole warp skips a target apart from all of its queries (a
+      // uniform branch), each thread one apart from its own query
+      float inter = 0.f;
+      if (!apart(s + 13, ue) && !apart(s + 13, g + 13))
+        inter = intersection(g + 5, g + 9, s + 5, s + 9);
+      float iou = criterion_iou(inter, g, s, criterion);
+      if (same_box_fix && same_box(g, s)) iou = 1.f;
       out[(size_t)(i0 + r) * k + j] = iou;
-#pragma unroll
-      for (int t = 0; t < 5; ++t) prev[t] = __float_as_uint(s[t]);
-      prev_iou = iou;
-      have_prev = true;
     }
   }
 }

@@ -37,7 +37,9 @@ from detection_3d_tpu_torch.ops.geometry import yx_zb_to_standard
 from detection_3d_tpu_torch.ops.nms import nms_boxes
 from detection_3d_tpu_torch.ops.norm import batch_norm_leaky_relu
 from detection_3d_tpu_torch.ops.roi_align import roi_align_rotated_sparse
-from detection_3d_tpu_torch.ops.rotated_iou import boxes_iou_3d
+from detection_3d_tpu_torch.ops.rotated_iou import (
+    PARK_QUERIES, PARK_TARGETS, boxes_iou_3d, park_invalid,
+)
 from detection_3d_tpu_torch.ops.sparse import (
     SparseTensor, build_sparse_tensor,
 )
@@ -175,8 +177,12 @@ def roi_targets(cfg: Config, proposals: Boxes3D, gt: Boxes3D, gt_labels):
            "anchor_Y": cfg.roi.label_aug_thickness_y_tar_anc[1],
            "target_Z": cfg.roi.label_aug_thickness_z_tar_anc[0],
            "anchor_Z": cfg.roi.label_aug_thickness_z_tar_anc[1]}
-    quality = boxes_iou_3d(gt.boxes, proposals.boxes, aug_thickness=aug,
-                           criterion=-1)
+    # the matcher reads only valid pairs: parking the pad rows lets the
+    # IoU kernel cull their pairs
+    quality = boxes_iou_3d(park_invalid(gt.boxes, gt.valid, PARK_TARGETS),
+                           park_invalid(proposals.boxes, proposals.valid,
+                                        PARK_QUERIES),
+                           aug_thickness=aug, criterion=-1)
     matches = match_boxes(quality, gt.valid, proposals.valid,
                           high=cfg.roi.fg_iou_threshold,
                           low=cfg.roi.bg_iou_threshold,

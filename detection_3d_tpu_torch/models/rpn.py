@@ -26,7 +26,9 @@ from detection_3d_tpu_torch.models.structures import Boxes3D, concat_boxes
 from detection_3d_tpu_torch.ops.box_coder import BoxCoder3D
 from detection_3d_tpu_torch.ops.geometry import limit_period
 from detection_3d_tpu_torch.ops.nms import nms_boxes
-from detection_3d_tpu_torch.ops.rotated_iou import boxes_iou_3d
+from detection_3d_tpu_torch.ops.rotated_iou import (
+    PARK_QUERIES, PARK_TARGETS, boxes_iou_3d, park_invalid,
+)
 from detection_3d_tpu_torch.ops.sparse import SparseTensor
 
 
@@ -93,8 +95,12 @@ def rpn_targets(cfg: Config, anchors: Boxes3D, gt: Boxes3D):
            "anchor_Y": cfg.rpn.label_aug_thickness_y_tar_anc[1],
            "target_Z": cfg.rpn.label_aug_thickness_z_tar_anc[0],
            "anchor_Z": cfg.rpn.label_aug_thickness_z_tar_anc[1]}
-    quality = boxes_iou_3d(gt.boxes, anchors.boxes, aug_thickness=aug,
-                           criterion=2)
+    # the matcher reads only valid pairs: parking the pad rows lets the
+    # IoU kernel cull their pairs
+    quality = boxes_iou_3d(park_invalid(gt.boxes, gt.valid, PARK_TARGETS),
+                           park_invalid(anchors.boxes, anchors.valid,
+                                        PARK_QUERIES),
+                           aug_thickness=aug, criterion=2)
     # yaw difference wrapped into [-pi/2, pi/2)
     ydif = limit_period(gt.boxes[:, 6][:, None] - anchors.boxes[:, 6][None],
                         0.5, math.pi)

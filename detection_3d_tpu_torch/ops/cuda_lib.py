@@ -51,8 +51,8 @@ _EXTRA_FLAGS = {"rotated_iou": ["--fmad=false"]}
 # cudaError_t of its launch as an int
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ENTRY_POINTS = {
-    "gather_conv": {"gather_conv_f32": [_P] * 7 + [_I] * 5 + [_P],
-                    "gather_conv_bf16": [_P] * 7 + [_I] * 5 + [_P]},
+    "gather_conv": {"gather_conv_f32": [_P] * 6 + [_I] * 4 + [_P],
+                    "gather_conv_bf16": [_P] * 6 + [_I] * 4 + [_P]},
     "gather_conv_bwd": {
         "gather_conv_dfeats_f32": [_P] * 6 + [_I] * 5 + [_P],
         "gather_conv_dfeats_bf16": [_P] * 6 + [_I] * 5 + [_P],

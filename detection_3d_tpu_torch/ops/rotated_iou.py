@@ -259,6 +259,27 @@ def z_interval_iou(targets_z, anchors_z):
 
 _BEV = [0, 1, 3, 4, 6]
 
+# Where :func:`park_invalid` puts rows whose IoU nobody reads: unit boxes
+# far from any scene, targets and queries apart from each other.
+PARK_TARGETS = (-1.0e6, 0.0)
+PARK_QUERIES = (0.0, -1.0e6)
+
+
+def park_invalid(boxes, valid, at):
+    """(N, 7) yx_zb ``boxes`` with every row whose ``valid`` is false
+    replaced by a unit box centred at ``at`` = (x, y).
+
+    For a caller of :func:`boxes_iou_3d` that masks the pairs of invalid
+    rows afterwards: parked targets (at ``PARK_TARGETS``) and parked
+    queries (at ``PARK_QUERIES``) are apart from every real box and from
+    each other, so kernel C's extent cull rules out every pair holding
+    one. A pad row's own box can be degenerate (a map's pad rows sit at
+    the INVALID coordinate with collapsed edges), which the cull must
+    keep."""
+    unit = torch.tensor([at[0], at[1], 0.0, 1.0, 1.0, 1.0, 0.0],
+                        dtype=boxes.dtype, device=boxes.device)
+    return torch.where(valid[:, None], boxes, unit)
+
 
 def boxes_iou_3d(targets, anchors, aug_thickness=None, criterion: int = -1,
                  only_xy: bool = False):

@@ -9,11 +9,11 @@ over a (K, V_out) int32 rulebook whose entry V_in reads a zero row, with
 weights laid out (K, Cin, Cout), f32 sums, output rows with ``out_valid``
 false zeroed, and the output in the feats dtype.
 
-A rulebook may come with a :class:`RowOrder` (:func:`rulebook_row_order`,
-built once per pyramid): its output rows sorted by the mask of offsets
-at which they have a real entry. Kernel A then runs each tile of rows
-over the offsets its rows use, not over all K. The result does not
-depend on the order.
+Kernel A takes every rulebook with a :class:`RowOrder`
+(:func:`rulebook_row_order`, built once per pyramid): its output rows
+sorted by the mask of offsets at which they have a real entry. It runs
+each tile of rows over the offsets its rows use, not over all K. The
+result does not depend on the order.
 
 :func:`sparse_conv` launches the hand-written CUDA kernel
 (csrc/gather_conv.cu) for tensors on the card and takes the plain
@@ -168,9 +168,11 @@ def _aligned16(t):
 
 def gather_conv_cuda(feats, neighbor_idx, weights, out_valid,
                      order: Optional[RowOrder] = None):
-    """Kernel A on the card: same contract as :func:`gather_conv`. In
-    bf16, Cin is zero-padded to a multiple of 16 and Cout to a multiple
-    of 8 when they are not (the input conv's Cin = 9)."""
+    """Kernel A on the card: same contract as :func:`gather_conv`. The
+    kernel takes ``out_valid`` through the row order, built here when
+    none is given. In bf16, Cin is zero-padded to a multiple of 16 and
+    Cout to a multiple of 8 when they are not (the input conv's Cin =
+    9)."""
     feats, neighbor_idx, weights, out_valid = _check_conv_args(
         "gather_conv_cuda", feats, neighbor_idx, weights, out_valid)
     v_in, cin = feats.shape
@@ -180,15 +182,15 @@ def gather_conv_cuda(feats, neighbor_idx, weights, out_valid,
     if n_off > MAX_OFFSETS:
         raise ValueError(f"gather_conv_cuda: at most {MAX_OFFSETS} "
                          f"offsets, got {n_off}")
-    perm = masks = None
-    if order is not None:
-        perm, masks = order.perm.contiguous(), order.masks.contiguous()
-        if (perm.dtype != torch.int32 or masks.dtype != torch.int64
-                or perm.shape != (v_out,) or masks.shape != (v_out,)
-                or perm.device != dev or masks.device != dev):
-            raise ValueError("gather_conv_cuda: order must be int32 perm "
-                             "and int64 masks of shape (V_out,) on the "
-                             "feats' device")
+    if order is None:
+        order = rulebook_row_order(neighbor_idx, v_in, out_valid)
+    perm, masks = order.perm.contiguous(), order.masks.contiguous()
+    if (perm.dtype != torch.int32 or masks.dtype != torch.int64
+            or perm.shape != (v_out,) or masks.shape != (v_out,)
+            or perm.device != dev or masks.device != dev):
+        raise ValueError("gather_conv_cuda: order must be int32 perm and "
+                         "int64 masks of shape (V_out,) on the feats' "
+                         "device")
     cout_k = cout
     if feats.dtype == torch.bfloat16:
         pad_c, pad_o = (-cin) % 16, (-cout) % 8
@@ -204,10 +206,9 @@ def gather_conv_cuda(feats, neighbor_idx, weights, out_valid,
         return out[:, :cout]
     fn = getattr(cuda_lib.library("gather_conv"), _ENTRY[feats.dtype])
     status = fn(feats.data_ptr(), neighbor_idx.data_ptr(),
-                weights.data_ptr(), out_valid.data_ptr(),
-                0 if perm is None else perm.data_ptr(),
-                0 if masks is None else masks.data_ptr(), out.data_ptr(),
-                v_in, v_out, n_off, cin, cout_k, cuda_lib.stream_ptr(dev))
+                weights.data_ptr(), perm.data_ptr(), masks.data_ptr(),
+                out.data_ptr(), v_in, v_out, cin, cout_k,
+                cuda_lib.stream_ptr(dev))
     cuda_lib.check("gather_conv", status)
     cuda_lib.launches["gather_conv"] += 1
     return out if cout_k == cout else out[:, :cout].contiguous()
@@ -304,7 +305,8 @@ def sparse_conv(feats, neighbor_idx, weights, out_valid,
                 order: Optional[RowOrder] = None):
     """Kernel A for tensors on the card, the plain version on the CPU;
     through :class:`GatherConv` when a gradient is wanted. ``order`` is
-    the rulebook's optional :class:`RowOrder`."""
+    the rulebook's :class:`RowOrder` (kernel A's wrapper builds one when
+    it is None)."""
     if torch.is_grad_enabled() and (feats.requires_grad
                                     or weights.requires_grad):
         return GatherConv.apply(feats, neighbor_idx, weights, out_valid,

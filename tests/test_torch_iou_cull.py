@@ -18,7 +18,8 @@ import torch
 
 from detection_3d_tpu.ops.rotated_iou import rotated_iou_matrix as j_iou
 from detection_3d_tpu_torch.ops.rotated_iou import (
-    iou_may_meet, rotated_iou_matrix, rotated_iou_plain,
+    PARK_QUERIES, PARK_TARGETS, _extents, iou_may_meet, park_invalid,
+    rotated_iou_matrix, rotated_iou_plain,
 )
 from torch_iou_cases import adversarial_bev
 
@@ -124,3 +125,32 @@ def test_folded_same_box_fix_matches_jax(criterion):
     old = torch.where(torch.all(dif < 1e-6, dim=-1), 1.0,
                       rotated_iou_plain(tb, tq, criterion))
     assert torch.equal(rotated_iou_matrix(tb, tq, criterion), old)
+
+
+def test_parked_rows_are_culled_against_every_box():
+    """park_invalid keeps the valid rows and moves the others to unit
+    boxes that the cull rules out against every finite, non-degenerate
+    box of the adversarial set and against each other (targets and
+    queries park apart). A map's pad row at the INVALID coordinate, whose
+    edges collapse in float32, is never culled where it stands."""
+    bev = adversarial_bev()
+    boxes = np.zeros((bev.shape[0], 7), np.float32)
+    boxes[:, [0, 1, 3, 4, 6]] = bev
+    boxes[:, 5] = 1.0
+    tb = torch.from_numpy(boxes)
+    valid = torch.from_numpy(np.arange(bev.shape[0]) % 3 != 0)
+    real = torch.from_numpy(bev)
+    real = real[torch.isfinite(_extents(real)[0])]    # cullable boxes
+    bev_cols = [0, 1, 3, 4, 6]
+    for at in (PARK_TARGETS, PARK_QUERIES):
+        parked = park_invalid(tb, valid, at)
+        assert torch.equal(parked[valid].view(torch.int32),      # NaNs too
+                           tb[valid].view(torch.int32))
+        assert not bool(iou_may_meet(parked[~valid][:, bev_cols], real).any())
+        assert not bool(iou_may_meet(real, parked[~valid][:, bev_cols]).any())
+    t = park_invalid(tb, valid, PARK_TARGETS)[~valid][:, bev_cols]
+    q = park_invalid(tb, valid, PARK_QUERIES)[~valid][:, bev_cols]
+    assert not bool(iou_may_meet(t, q).any())
+    pad_anchor = torch.tensor([[2 ** 31 * 32 / 50] * 2 + [0.4, 1.5, 0.0]],
+                              dtype=torch.float32)
+    assert bool(iou_may_meet(pad_anchor, real).all())

@@ -22,7 +22,8 @@ from detection_3d_tpu_torch.ops.multi_match import (
     conv_rulebook_match, deconv_rulebook_match, multi_match_cuda,
     multi_match_plain)
 from detection_3d_tpu_torch.ops.rotated_iou import (
-    rotated_iou_cuda, rotated_iou_plain,
+    PARK_QUERIES, PARK_TARGETS, park_invalid, rotated_iou_cuda,
+    rotated_iou_plain,
 )
 from detection_3d_tpu_torch.models.backbone import bev_with_rulebook
 from detection_3d_tpu_torch.ops.sparse import (
@@ -129,12 +130,13 @@ def _book(dev, kind, seed=2):
                                            ("subm", 80, 24), ("down", 32, 64),
                                            ("up", 128, 128),
                                            ("bev", 128, 128)])
-@pytest.mark.parametrize("ordering", ["grouped", "scrambled", "none"])
+@pytest.mark.parametrize("ordering", ["grouped", "scrambled", "identity",
+                                      "none"])
 def test_gather_conv_row_order_matches_plain(dev, dtype, kind, cin, cout,
                                              ordering):
     """Kernel A with the rulebook's row order, with rows in a random order
-    (tiles then mix masks), and without an order, against the plain
-    version without one."""
+    or in their own order (tiles then mix masks), and with no order given
+    (the wrapper builds one), against the plain version without one."""
     idx, v_in, valid = _book(dev, kind)
     gen = torch.Generator(device=dev).manual_seed(cin * 7 + cout)
     feats = torch.randn((v_in, cin), generator=gen, device=dev).to(dtype)
@@ -143,8 +145,10 @@ def test_gather_conv_row_order_matches_plain(dev, dtype, kind, cin, cout,
     order = None
     if ordering == "grouped":
         order = rulebook_row_order(idx, v_in, valid)
-    elif ordering == "scrambled":
-        perm = torch.randperm(idx.shape[1], generator=gen, device=dev)
+    elif ordering != "none":
+        perm = (torch.randperm(idx.shape[1], generator=gen, device=dev)
+                if ordering == "scrambled"
+                else torch.arange(idx.shape[1], device=dev))
         order = RowOrder(perm.to(torch.int32),
                          row_masks(idx, v_in, valid)[perm])
     got = gather_conv_cuda(feats, idx, w, valid, order)
@@ -188,6 +192,31 @@ def test_rotated_iou_spread_layout_bit_exact(dev):
         want = rotated_iou_plain(g, a, criterion, True)
         torch.cuda.synchronize()
         assert _bits_equal(got, want)
+
+
+def test_rotated_iou_parked_rows_bit_exact(dev):
+    """Targets and anchors with pad rows, as rpn_targets hands them over:
+    parked far away (culled), or left at the maps' pad coordinate with
+    collapsed edges (never culled)."""
+    rng = np.random.RandomState(12)
+    gt = np.c_[rng.uniform(0, 40, (100, 3)), rng.uniform(0.1, 6, (100, 3)),
+               rng.uniform(-1.6, 1.6, (100, 1))].astype(np.float32)
+    anc = np.c_[rng.uniform(0, 40, (3000, 3)),
+                np.tile([0.4, 1.5, 3.0], (3000, 1)),
+                rng.choice([0.0, np.pi / 2], (3000, 1))].astype(np.float32)
+    anc[2500:, :3] = 2 ** 31 * 32 / 50          # pad rows' anchors
+    g, a = torch.from_numpy(gt).to(dev), torch.from_numpy(anc).to(dev)
+    gv = torch.arange(100, device=dev) < 80
+    av = torch.arange(3000, device=dev) < 2500
+    bev = [0, 1, 3, 4, 6]
+    for t, q in ((g, a), (park_invalid(g, gv, PARK_TARGETS),
+                          park_invalid(a, av, PARK_QUERIES))):
+        t, q = t[:, bev].contiguous(), q[:, bev].contiguous()
+        for criterion in (-1, 2):
+            got = rotated_iou_cuda(t, q, criterion, True)
+            want = rotated_iou_plain(t, q, criterion, True)
+            torch.cuda.synchronize()
+            assert _bits_equal(got, want)
 
 
 @pytest.mark.parametrize("criterion", [-1, 0, 1, 2])

@@ -10,7 +10,10 @@ def adversarial_bev(seed=0):
     turned copies, zero-size and zero-edge boxes, pad_scene's 0.1-size
     padding boxes, collinear walls with gaps around the 1e-3 cull margin
     at several angles, near-duplicates around the same-box margin, boxes
-    at 80 m, and non-finite and negative sizes."""
+    at 80 m, boxes near the coordinates of the maps' pad rows (4.3e7 and
+    1.4e9 m, where a float32 step is 4 and 128 m) with edges that do not
+    collapse, touching or one step apart, and non-finite and negative
+    sizes."""
     rng = np.random.RandomState(seed)
     rand = np.c_[rng.uniform(-4, 4, (160, 2)), rng.uniform(0.05, 3, (160, 2)),
                  rng.uniform(-3.2, 3.2, (160, 1))]
@@ -27,6 +30,13 @@ def adversarial_bev(seed=0):
         [80, 80, 1e-5, 1e-5, 0.3], [80, 80.5, 1e-9, 2, 0],
         [np.nan, 0, 1, 1, 0], [np.inf, 0, 1, 1, 0], [0, 0, np.inf, 1, 0],
         [0, 0, -1, 1, 0], [0, 0, 1e4, 1e4, 0.1], [0, 0, 1, 1, np.nan]]
+    for far, step in ((4.294967e7, 4.0), (1.374389e9, 128.0)):
+        for size in (0.4, 64 * step, 1000 * step):
+            for ang in (0.0, 0.3, np.pi / 4):
+                special.append([far, far, size, 1.5 * size, ang])
+                special.append([far + size, far, size, 1.5 * size, ang])
+                special.append([far, far + 1.5 * size + step, size,
+                                1.5 * size, ang])
     walls = []
     for ang in (0.0, np.pi / 2, np.pi, -np.pi / 2, 0.3, 1.2):
         c, s = np.cos(ang), np.sin(ang)
