@@ -2,6 +2,8 @@
 """Smoke run of the PyTorch/CUDA port (detection_3d_tpu_torch) on one card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --bwd-shapes   # only the backward at every
+                                         # training shape (phase 5's)
 
 1. Prints the card's name and power limit (nvidia-smi).
 2. Builds the port's five CUDA sources from detection_3d_tpu_torch/csrc
@@ -9,7 +11,8 @@
 3. Holds each kernel against its plain PyTorch version on the card, at
    the main paths' shapes taken from a full-size synthetic building:
    A (gather-conv, with the rulebook's row order and with rows in a
-   random order) and its two backward kernels A' (dFeats, dW) on the
+   random order) and the backward A' (dFeats through A's code on the
+   transposed book, the dW kernel; the same bits on two calls) on the
    scale-0 and scale-1 rulebooks in f32 and bf16; B (submanifold match)
    on the 524288-row scale-0 table, bit exact; C (rotated IoU) bit for
    bit on an adversarial box set (every criterion, with and without the
@@ -28,12 +31,16 @@
    6 such buildings (bf16 compute, SparseRCNN(cfg, seed=0)); checks
    finite losses, applied steps, moved parameters and that A, both A'
    kernels, B and C were launched. Prints s/step, peak memory, the losses
-   of each step and a device profile of one more step. One step more
-   keeps the inputs of its kernel C calls (RPN targets: max_gt x every
-   anchor, criterion 2; the RPN's NMS; ROI targets: max_gt x decoded
-   proposals and gt, criterion -1), and each call is held bit for bit
-   against its plain version on every pair, in 4096-column chunks, and
-   timed.
+   of each step and a device profile of one more step. One more step
+   keeps the inputs of every backward call: at each distinct shape,
+   dFeats and dW are held against gather_conv_backward, run twice for
+   identical bits and timed beside it, with a per-step sum of each, and
+   build_pyramid is timed with and without the backward books. One
+   step more keeps the inputs of its kernel C calls (RPN targets:
+   max_gt x every anchor, criterion 2; the RPN's NMS; ROI targets:
+   max_gt x decoded proposals and gt, criterion -1), and each call is
+   held bit for bit against its plain version on every pair, in
+   4096-column chunks, and timed.
 6. D's own path: conv_rulebook_match / deconv_rulebook_match over every
    downsample of a full-size building's pyramid, bit exact against the
    scatter-derived books.
@@ -96,6 +103,31 @@ def time_ms(fn, iters=10):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, symbols, iters=10):
+    """Mean device time per call of ``fn`` spent in kernels whose names
+    hold one of ``symbols``, from torch.profiler over ``iters`` calls
+    after a warm-up call. Where those kernels are shorter than the host
+    takes to launch them, :func:`time_ms` measures the launch rate and
+    this the kernels. None when two profiles in a row record none of
+    those kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.events()
+               if getattr(e, "device_type", None) == DeviceType.CUDA
+               and any(sym in e.name for sym in symbols)]
+        if evs:
+            return sum(e.time_range.elapsed_us() for e in evs) / 1e3 / iters
+    return None
 
 
 def bound(nbytes, ops, peak):
@@ -298,16 +330,49 @@ def gather_conv_serving_shapes(predict, batch):
     return rows, summary
 
 
+def bwd_bound(feats, idx, w, valid):
+    """Kernel A′'s bounds on one rulebook, counted on its real entries
+    (idx[k, i] a real row, output row i valid), as :func:`conv_bound`
+    counts A's: dFeats reads each referenced g row, the transposed book's
+    real entries, its row order (int32 + int64 mask per input row) and W
+    once and writes dFeats (V_in, Cin); dW reads each referenced feats row
+    and g row, the entry pairs (two int32) and the offsets' starts once
+    and writes dW. Each does 2 * nnz * Cin * Cout operations. Returns
+    ({"dfeats": (ms, bound_by), "dw": (ms, bound_by)}, nnz)."""
+    v_in, cin = feats.shape
+    k, v_out = idx.shape
+    cout = w.shape[2]
+    eb = feats.element_size()
+    real = (idx >= 0) & (idx < v_in) & valid[None, :]
+    nnz = int(real.sum())
+    in_rows = int(torch.unique(idx[real]).numel())
+    out_rows = int(real.any(0).sum())
+    w_b = k * cin * cout * eb
+    ops = 2.0 * nnz * cin * cout
+    peak = PEAK_OPS[feats.dtype]
+    return {"dfeats": bound(out_rows * cout * eb + nnz * 4 + v_in * 12
+                            + w_b + v_in * cin * eb, ops, peak),
+            "dw": bound(in_rows * cin * eb + out_rows * cout * eb + nnz * 8
+                        + (k + 1) * 4 + w_b, ops, peak)}, nnz
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
 def check_gather_conv_bwd(dev, table0, table1, crb, idx0, idx1, gen):
-    """The two backward kernels against gather_conv_backward at the four
-    main-path shapes of kernel A, f32 and bf16, with a random upstream
-    gradient. The bf16 scale-0 32->32 case is reported.
+    """The backward against gather_conv_backward at the four main-path
+    shapes of kernel A, f32 and bf16, with a random upstream gradient:
+    dFeats (kernel A's code on the transposed book) and dW (the entry-list
+    kernel), each run twice for identical bits. The bf16 scale-0 32->32
+    case is reported; the bound is :func:`bwd_bound`.
 
     Tolerance 1e-4 (f32) and 1e-2 (bf16) of the largest wanted value:
-    both sides sum in f32, the kernels with atomics in an order that
-    changes from run to run, and bf16 results differ by one rounding."""
+    both sides sum in f32 in other orders, and bf16 results differ by one
+    rounding."""
     from detection_3d_tpu_torch.ops.sparse_conv import (
-        gather_conv_backward, gather_conv_dfeats_cuda, gather_conv_dw_cuda)
+        backward_book, gather_conv_backward, gather_conv_dfeats_cuda,
+        gather_conv_dw_cuda)
     cases = [("s0 subm 9->32", table0, table0, idx0, 9, 32),
              ("s0 subm 32->32", table0, table0, idx0, 32, 32),
              ("s0->s1 down 32->64", table0, table1, crb, 32, 64),
@@ -325,11 +390,14 @@ def check_gather_conv_bwd(dev, table0, table1, crb, idx0, idx1, gen):
             g = torch.randn((tout.capacity, cout), generator=gen,
                             device=dev).to(dtype)
             want_f, want_w = gather_conv_backward(feats, idx, w, valid, g)
-            got_f = gather_conv_dfeats_cuda(feats, idx, w, valid, g)
-            got_w = gather_conv_dw_cuda(feats, idx, w, valid, g)
-            errs = {}
-            for part, got, want in (("dfeats", got_f, want_f),
-                                    ("dw", got_w, want_w)):
+            book = backward_book(idx, tin.capacity, valid)
+            run = {"dfeats": lambda: gather_conv_dfeats_cuda(g, w, book),
+                   "dw": lambda: gather_conv_dw_cuda(feats, g, book)}
+            errs, times = {}, {}
+            for part, want in (("dfeats", want_f), ("dw", want_w)):
+                got = run[part]()
+                check(torch.equal(_bits(got), _bits(run[part]())),
+                      f"kernel A' {part} {name} {dtype}: two calls differ")
                 err = float((got.float() - want.float()).abs().max())
                 scale = float(want.float().abs().max())
                 tol = (1e-4 if dtype == torch.float32 else 1e-2) * \
@@ -337,36 +405,133 @@ def check_gather_conv_bwd(dev, table0, table1, crb, idx0, idx1, gen):
                 check(err <= tol, f"kernel A' {part} {name} {dtype}: max "
                       f"abs err {err} > {tol}")
                 errs[part] = (err, tol)
-            ms_f = time_ms(lambda: gather_conv_dfeats_cuda(feats, idx, w,
-                                                           valid, g))
-            ms_w = time_ms(lambda: gather_conv_dw_cuda(feats, idx, w, valid,
-                                                       g))
+                times[part] = time_ms(run[part])
             plain = time_ms(lambda: gather_conv_backward(feats, idx, w,
                                                          valid, g), 3)
-            eb = feats.element_size()
-            nnz = int(((idx < tin.capacity) & valid[None, :]).sum())
-            ops = 2.0 * nnz * cin * cout
-            idx_b = idx.numel() * 4 + valid.numel()
-            g_b = tout.capacity * cout * eb
-            f_b = tin.capacity * cin * eb
-            w_b = k * cin * cout * eb
-            # dFeats reads g, idx, W and writes dFeats; dW reads feats,
-            # g, idx and writes dW
-            bf = bound(g_b + idx_b + w_b + f_b, ops, PEAK_OPS[dtype])
-            bw = bound(f_b + g_b + idx_b + w_b, ops, PEAK_OPS[dtype])
-            for part, ms, (b_ms, b_by) in (("dfeats", ms_f, bf),
-                                           ("dw", ms_w, bw)):
+            bounds, nnz = bwd_bound(feats, idx, w, valid)
+            for part in ("dfeats", "dw"):
+                ms, (b_ms, b_by) = times[part], bounds[part]
                 line = {"case": name, "part": part,
                         "dtype": str(dtype).split(".")[-1], "K": k,
                         "V_in": tin.capacity, "V_out": tout.capacity,
                         "nnz": nnz, "max_abs_err": errs[part][0],
                         "tolerance": errs[part][1], "ms": ms,
                         "plain_ms": plain, "plain_computes": "both parts",
-                        "bound_ms": b_ms, "bound_by": b_by}
+                        "bound_ms": b_ms, "bound_by": b_by,
+                        "same_bits_twice": True}
                 print("kernel A'", json.dumps(line))
                 if name == "s0 subm 32->32" and dtype == torch.bfloat16:
                     report[part] = line
     return report
+
+
+def gather_conv_bwd_training_shapes(step):
+    """Kernel A′ at every distinct shape one training step launches it
+    with.
+
+    ``step()`` runs one training step with GatherConv's backward wrapped
+    to keep, per call, its inputs (feats, idx, W, out_valid, the upstream
+    gradient g) and the calls it makes of the dFeats and dW wrappers.
+    Calls are grouped by (book kind, K, V_in, V_out, Cin, Cout, dtype);
+    for each shape, on the inputs of its first call, dFeats and dW are
+    held against gather_conv_backward (1e-2 of the largest wanted value
+    in bf16, 1e-4 in f32), run twice for identical bits and timed beside
+    the plain version (gather_conv_backward, both parts in one call):
+    ``ms`` with CUDA events, ``device_ms`` the kernels' own time from the
+    profiler (:func:`device_ms`; the symbols of this tree's kernels and of
+    the kernels before them).
+    ``launches`` counts the calls of that shape per step (the input conv
+    forms no dFeats). The bound is :func:`bwd_bound`. The replays work on
+    any version of the wrappers, so the phase can time another tree of
+    the package too (``--bwd-shapes``). Returns (rows, summary)."""
+    from detection_3d_tpu_torch.ops import sparse_conv as sc
+    names = {"dfeats": "gather_conv_dfeats_cuda", "dw": "gather_conv_dw_cuda"}
+    symbols = {"dfeats": ("ConvDFeats", "dfeats_kernel"),
+               "dw": ("gather_dw_", "dw_kernel")}
+    wrappers = {part: getattr(sc, name) for part, name in names.items()}
+    backward = vars(sc.GatherConv)["backward"]
+    groups, made = {}, {}
+
+    def recorder(part):
+        def call(*args, **kw):
+            made[part] = (args, kw)
+            return wrappers[part](*args, **kw)
+        return call
+
+    def keeping(ctx, g):
+        made.clear()
+        out = backward.__func__(ctx, g)
+        feats, idx, w, valid = ctx.saved_tensors[:4]
+        key = (_book_kind(idx.shape[0], feats.shape[0], idx.shape[1]),
+               idx.shape[0], feats.shape[0], idx.shape[1], w.shape[1],
+               w.shape[2], str(feats.dtype).split(".")[-1])
+        entry = groups.setdefault(key, {"inputs": (feats, idx, w, valid, g),
+                                        "calls": {}, "launches": {}})
+        for part, call in made.items():
+            entry["calls"].setdefault(part, call)
+            entry["launches"][part] = entry["launches"].get(part, 0) + 1
+        return out
+
+    for part, name in names.items():
+        setattr(sc, name, recorder(part))
+    sc.GatherConv.backward = staticmethod(keeping)
+    try:
+        step()
+    finally:
+        sc.GatherConv.backward = backward
+        for part, name in names.items():
+            setattr(sc, name, wrappers[part])
+    rows = []
+    sums = {part: {"ms": 0.0, "device_ms": 0.0, "bound_ms": 0.0,
+                   "launches": 0} for part in names}
+    with torch.no_grad():
+        for key, entry in groups.items():
+            feats, idx, w, valid, g = entry["inputs"]
+            wants = dict(zip(("dfeats", "dw"), sc.gather_conv_backward(
+                feats, idx, w, valid, g)))
+            plain = time_ms(lambda: sc.gather_conv_backward(
+                feats, idx, w, valid, g), 2)
+            bounds, nnz = bwd_bound(feats, idx, w, valid)
+            for part, (args, kw) in entry["calls"].items():
+                fn = wrappers[part]
+                got = fn(*args, **kw)
+                same = torch.equal(_bits(got), _bits(fn(*args, **kw)))
+                want = wants[part].float()
+                err = float((got.float() - want).abs().max())
+                tol = ((1e-4 if feats.dtype == torch.float32 else 1e-2)
+                       * max(float(want.abs().max()), 1e-30))
+                check(err <= tol, f"kernel A' {part} at training shape "
+                      f"{key}: max abs err {err} > {tol}")
+                ms = time_ms(lambda: fn(*args, **kw))
+                dev_ms = device_ms(lambda: fn(*args, **kw), symbols[part])
+                n = entry["launches"][part]
+                b_ms, b_by = bounds[part]
+                line = {"part": part, "kind": key[0], "K": key[1],
+                        "V_in": key[2], "V_out": key[3], "Cin": key[4],
+                        "Cout": key[5], "dtype": key[6], "launches": n,
+                        "nnz": nnz, "max_abs_err": err, "tolerance": tol,
+                        "same_bits_twice": same, "ms": ms,
+                        "device_ms": dev_ms,
+                        "plain_ms": plain, "plain_computes": "both parts",
+                        "bound_ms": b_ms, "bound_by": b_by}
+                print("kernel A' training shape", json.dumps(line))
+                rows.append(line)
+                sums[part]["ms"] += n * ms
+                sums[part]["device_ms"] += n * (dev_ms or 0.0)
+                sums[part]["bound_ms"] += n * b_ms
+                sums[part]["launches"] += n
+    summary = {"shapes": len(groups),
+               "same_bits_twice": all(r["same_bits_twice"] for r in rows),
+               **{f"{part}_sum_ms_per_step": v["ms"]
+                  for part, v in sums.items()},
+               **{f"{part}_sum_device_ms_per_step": v["device_ms"]
+                  for part, v in sums.items()},
+               **{f"{part}_sum_bound_ms_per_step": v["bound_ms"]
+                  for part, v in sums.items()},
+               **{f"{part}_launches_per_step": v["launches"]
+                  for part, v in sums.items()}}
+    print("kernel A' per training step:", json.dumps(summary))
+    return rows, summary
 
 
 def check_multi_match(table0, table1, crb, drb):
@@ -619,11 +784,11 @@ def check_rotated_iou_training(calls, cols=4096):
     return line
 
 
-# each launch counter's kernel symbols in a device trace (the backward
-# entries' casts to bf16 run as cast_kernel)
-SYMBOLS = {"gather_conv": "gather_conv_", "gather_conv_dfeats":
-           "dfeats_kernel", "gather_conv_dw": "dw_kernel",
-           "gather_conv_bwd_cast": "cast_kernel",
+# each launch counter's kernel symbols in a device trace (kernel A's
+# body runs under the ConvForward and ConvDFeats tags; dW is a partial
+# kernel and its reduction)
+SYMBOLS = {"gather_conv": "ConvForward", "gather_conv_dfeats": "ConvDFeats",
+           "gather_conv_dw": "gather_dw_",
            "subm_match": "subm_match_kernel",
            "rotated_iou": "rotated_iou_kernel",
            "multi_match": "multi_match_kernel"}
@@ -677,8 +842,10 @@ def train_path(cfg, scenes, dev):
     """The training path at full width: a Trainer on the card takes
     TRAIN_STEPS steps (one epoch over TRAIN_STEPS buildings), with launch
     counts set to 0 just before and read just after. Then one more step
-    under the profiler, and one that keeps its kernel C inputs. Returns
-    (launches, report, the kept kernel C calls)."""
+    under the profiler, one through
+    :func:`gather_conv_bwd_training_shapes` and one that keeps its kernel
+    C inputs. Returns (launches, report, the A′ summary, the kept kernel
+    C calls)."""
     import shutil
     from detection_3d_tpu_torch.engine.trainer import Trainer, pad_scene
     from detection_3d_tpu_torch.ops import cuda_lib
@@ -725,10 +892,45 @@ def train_path(cfg, scenes, dev):
     print("device profile of one more training step: "
           + ("not measured (the profiler recorded no device activity)"
              if prof is None else json.dumps(prof)))
+    _, bwd = gather_conv_bwd_training_shapes(
+        lambda: trainer.step(state, batch, gen))
+    check(bwd["same_bits_twice"], "kernel A': two calls at a training "
+          "shape gave different bits")
     iou_calls = capture_iou_calls(lambda: trainer.step(state, batch, gen))
     del trainer, state, before
     shutil.rmtree(out_dir, ignore_errors=True)
-    return launches, report, iou_calls
+    return launches, report, bwd, iou_calls
+
+
+def pyramid_seconds(cfg, scene, dev, rounds=6):
+    """Host clock (synchronised) of build_pyramid on one full-size
+    building without and with the backward books, alternating over
+    ``rounds`` rounds after a warm-up of each: what a training forward
+    pays for the books. The host clock of this machine varies by run, so
+    the minimum and the median of each stand beside the list."""
+    from detection_3d_tpu_torch.engine.trainer import (
+        batch_to_device, pad_scene)
+    from detection_3d_tpu_torch.models.backbone import build_pyramid
+    from detection_3d_tpu_torch.models.detector import voxelize_points
+    with torch.no_grad():
+        (pts, fts, valid), _, _ = batch_to_device(pad_scene(cfg, scene), dev)
+        table = voxelize_points(cfg, pts, fts, valid)
+        out = {False: [], True: []}
+        for i in range(2 * rounds + 2):
+            backward = bool(i % 2)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            build_pyramid(table, cfg, backward=backward)
+            torch.cuda.synchronize()
+            if i >= 2:
+                out[backward].append(time.perf_counter() - t0)
+    line = {}
+    for backward, key in ((False, "without_books"), (True, "with_books")):
+        secs = sorted(out[backward])
+        line[key] = {"min_s": secs[0], "median_s": float(np.median(secs)),
+                     "seconds": out[backward]}
+    print("pyramid of one building:", json.dumps(line))
+    return line
 
 
 def match_path(cfg, scene, dev):
@@ -775,8 +977,8 @@ def tiny_train_card_vs_cpu(tcfg, scene, card="cuda"):
     """One training step at the tiny config on the CPU (plain versions)
     and on the card (kernels), same weights and sampler draws. Losses
     within 1e-4; each gradient within 1e-3 of its largest entry + 1e-5
-    (the card sums in other orders, the backward kernels with atomics,
-    through ~40 layers and batch norms)."""
+    (the card sums in other orders, through ~40 layers and batch
+    norms)."""
     import copy
     from detection_3d_tpu_torch.engine.trainer import (
         batch_to_device, pad_scene, total_loss)
@@ -936,11 +1138,13 @@ def main():
     torch.cuda.empty_cache()
 
     # ---- the training path at full width --------------------------------
-    train, rep_train, iou_calls = train_path(cfg, scenes, dev)
+    train, rep_train, rep_bwd, iou_calls = train_path(cfg, scenes, dev)
     torch.cuda.empty_cache()
     with torch.inference_mode():
         rep_c["training_shapes"] = check_rotated_iou_training(iou_calls)
     del iou_calls
+
+    pyramid_seconds(cfg, scenes[0], dev)
 
     # ---- kernel D's own entry points ------------------------------------
     match = match_path(cfg, scenes[0], dev)
@@ -970,7 +1174,7 @@ def main():
     pg = "detection_3d_tpu/ops/pallas/"
     spec = [("gather_conv", "gather_conv.cu",
              pg + "gather_conv_kernel.py:245", rep_a, train),
-            ("gather_conv_dfeats", "gather_conv_bwd.cu",
+            ("gather_conv_dfeats", "gather_conv.cu",
              pg + "gather_conv_kernel.py:308", rep_ab["dfeats"], train),
             ("gather_conv_dw", "gather_conv_bwd.cu",
              pg + "gather_conv_kernel.py:308", rep_ab["dw"], train),
@@ -993,6 +1197,12 @@ def main():
             "bound_by": rep["bound_by"], "library_ms": None})
         if "bound_all_pairs_ms" in rep:
             kernels[-1]["bound_all_pairs_ms"] = rep["bound_all_pairs_ms"]
+        part = {"gather_conv_dfeats": "dfeats", "gather_conv_dw": "dw"}.get(
+            name)
+        if part:     # the sums over every shape of one training step
+            for key in ("sum_ms", "sum_device_ms", "sum_bound_ms"):
+                kernels[-1][f"{key}_per_step"] = \
+                    rep_bwd[f"{part}_{key}_per_step"]
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card_line())
     print(json.dumps({"kernels": kernels}))
@@ -1002,5 +1212,43 @@ def main():
     return 0
 
 
+def bwd_shapes_main():
+    """``--bwd-shapes``: only :func:`gather_conv_bwd_training_shapes` at
+    full width (a Trainer on the card takes a warm-up step, then the
+    captured one); to time another tree of the package in the same call,
+    copy this script into it."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    import shutil
+    from detection_3d_tpu_torch.config.defaults import full_scale_config
+    from detection_3d_tpu_torch.data.synthetic import synthetic_multiroom
+    from detection_3d_tpu_torch.engine.trainer import Trainer, pad_scene
+    from detection_3d_tpu_torch.ops import cuda_lib
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"card: {card_line()}")
+    t0 = time.perf_counter()
+    cuda_lib.build()
+    print(f"build: {time.perf_counter() - t0:.1f} s")
+    cfg = full_scale_config()
+    scenes = [synthetic_multiroom(seed=100 + i, num_points=POINTS,
+                                  rooms_xy=(5, 5), room=8.0,
+                                  voxel_scale=cfg.sparse3d.voxel_scale)
+              for i in range(2)]
+    out_dir = cuda_lib.BUILD_DIR / "train_smoke"    # gitignored, removed
+    trainer = Trainer(cfg, output_dir=str(out_dir), device=dev)
+    state = trainer.init_state(seed=0)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    trainer.step(state, pad_scene(cfg, scenes[0]), gen)
+    batch = pad_scene(cfg, scenes[1])
+    gather_conv_bwd_training_shapes(lambda: trainer.step(state, batch, gen))
+    shutil.rmtree(out_dir, ignore_errors=True)
+    print(card_line())
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(bwd_shapes_main() if sys.argv[1:] == ["--bwd-shapes"]
+             else main())

@@ -8,6 +8,12 @@
 //   reading a zero row, W (K, Cin, Cout) in the feats type, out_valid
 //   (V_out,) bool. Rows whose out_valid is false are written as zero.
 //   Sums are kept in f32; the output is in the feats type.
+// The same kernel computes the backward's dFeats: on the transposed book
+// (ops/sparse_conv.py:transpose_rulebook) with W transposed, g takes the
+// place of feats and dFeats that of out (every input row wanted). Its C
+// entries gather_conv_dfeats_{f32,bf16} run the same body under a kernel
+// symbol of its own (the ConvDFeats tag), so a device profile tells the
+// forward and dFeats apart.
 // The kernel takes out_valid through the rulebook's row order
 // (ops/sparse_conv.py:rulebook_row_order), which the wrapper always
 // passes: perm (V_out,) int32, a permutation of the output rows, and
@@ -53,6 +59,10 @@
 #include <stdint.h>
 
 namespace {
+
+// kernel symbol tags: the forward and dFeats run one body under two names
+struct ConvForward {};
+struct ConvDFeats {};
 
 // ---- row order and tile mask, shared by both kernels ---------------------
 
@@ -196,7 +206,7 @@ __device__ __forceinline__ int lowest_bit(uint64_t bits) {
   return bits ? __ffsll(static_cast<long long>(bits)) - 1 : -1;
 }
 
-template <int WM, int WN>
+template <int WM, int WN, typename Role>
 __global__ void __launch_bounds__(Tile<WM, WN>::THREADS)
 gather_conv_bf16_kernel(const __nv_bfloat16* __restrict__ feats,
                         const int* __restrict__ idx,
@@ -315,13 +325,13 @@ gather_conv_bf16_kernel(const __nv_bfloat16* __restrict__ feats,
   }
 }
 
-template <int WM, int WN>
+template <int WM, int WN, typename Role>
 void launch_bf16(const void* feats, const void* idx, const void* w,
                  const void* perm, const void* masks, void* out, int v_in,
                  int v_out, int cin, int cout, cudaStream_t stream) {
   using T = Tile<WM, WN>;
   dim3 grid((v_out + T::BM - 1) / T::BM, (cout + T::BN - 1) / T::BN);
-  gather_conv_bf16_kernel<WM, WN><<<grid, T::THREADS, 0, stream>>>(
+  gather_conv_bf16_kernel<WM, WN, Role><<<grid, T::THREADS, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(feats), static_cast<const int*>(idx),
       static_cast<const __nv_bfloat16*>(w), static_cast<const int*>(perm),
       static_cast<const uint64_t*>(masks), static_cast<__nv_bfloat16*>(out),
@@ -334,7 +344,7 @@ constexpr int kF32Threads = 256;
 constexpr int BK32 = 16;
 
 // 16 x 16 threads; thread (tx, ty) owns tile rows ty*TM.. and cols tx*TN..
-template <int TM, int TN>
+template <int TM, int TN, typename Role>
 __global__ void __launch_bounds__(kF32Threads)
 gather_conv_f32_kernel(const float* __restrict__ feats,
                        const int* __restrict__ idx,
@@ -415,52 +425,66 @@ gather_conv_f32_kernel(const float* __restrict__ feats,
   }
 }
 
-template <int TM, int TN>
+template <int TM, int TN, typename Role>
 void launch_f32(const void* feats, const void* idx, const void* w,
                 const void* perm, const void* masks, void* out, int v_in,
                 int v_out, int cin, int cout, cudaStream_t stream) {
   dim3 grid((v_out + 16 * TM - 1) / (16 * TM),
             (cout + 16 * TN - 1) / (16 * TN));
-  gather_conv_f32_kernel<TM, TN><<<grid, kF32Threads, 0, stream>>>(
+  gather_conv_f32_kernel<TM, TN, Role><<<grid, kF32Threads, 0, stream>>>(
       static_cast<const float*>(feats), static_cast<const int*>(idx),
       static_cast<const float*>(w), static_cast<const int*>(perm),
       static_cast<const uint64_t*>(masks), static_cast<float*>(out), v_in,
       v_out, cin, cout);
 }
 
+template <typename Role>
+int run_f32(const void* feats, const void* idx, const void* w,
+            const void* perm, const void* masks, void* out, int v_in,
+            int v_out, int cin, int cout, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (cout <= 32)
+    launch_f32<8, 2, Role>(feats, idx, w, perm, masks, out, v_in, v_out, cin,
+                           cout, s);
+  else
+    launch_f32<4, 4, Role>(feats, idx, w, perm, masks, out, v_in, v_out, cin,
+                           cout, s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename Role>
+int run_bf16(const void* feats, const void* idx, const void* w,
+             const void* perm, const void* masks, void* out, int v_in,
+             int v_out, int cin, int cout, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (cout <= 32)
+    launch_bf16<4, 1, Role>(feats, idx, w, perm, masks, out, v_in, v_out,
+                            cin, cout, s);
+  else if (cout <= 64)
+    launch_bf16<2, 2, Role>(feats, idx, w, perm, masks, out, v_in, v_out,
+                            cin, cout, s);
+  else
+    launch_bf16<2, 4, Role>(feats, idx, w, perm, masks, out, v_in, v_out,
+                            cin, cout, s);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // bf16 needs cin % 16 == 0 and cout % 8 == 0 (the wrapper pads).
-extern "C" int gather_conv_f32(const void* feats, const void* idx,
-                               const void* w, const void* perm,
-                               const void* masks, void* out, int v_in,
-                               int v_out, int cin, int cout, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (cout <= 32)
-    launch_f32<8, 2>(feats, idx, w, perm, masks, out, v_in, v_out, cin, cout,
-                     s);
-  else
-    launch_f32<4, 4>(feats, idx, w, perm, masks, out, v_in, v_out, cin, cout,
-                     s);
-  return static_cast<int>(cudaGetLastError());
-}
+#define GATHER_CONV_ENTRY(name, run, Role)                                  \
+  extern "C" int name(const void* feats, const void* idx, const void* w,    \
+                      const void* perm, const void* masks, void* out,       \
+                      int v_in, int v_out, int cin, int cout,               \
+                      void* stream) {                                       \
+    return run<Role>(feats, idx, w, perm, masks, out, v_in, v_out, cin,     \
+                     cout, stream);                                         \
+  }
 
-extern "C" int gather_conv_bf16(const void* feats, const void* idx,
-                                const void* w, const void* perm,
-                                const void* masks, void* out, int v_in,
-                                int v_out, int cin, int cout, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (cout <= 32)
-    launch_bf16<4, 1>(feats, idx, w, perm, masks, out, v_in, v_out, cin,
-                      cout, s);
-  else if (cout <= 64)
-    launch_bf16<2, 2>(feats, idx, w, perm, masks, out, v_in, v_out, cin,
-                      cout, s);
-  else
-    launch_bf16<2, 4>(feats, idx, w, perm, masks, out, v_in, v_out, cin,
-                      cout, s);
-  return static_cast<int>(cudaGetLastError());
-}
+GATHER_CONV_ENTRY(gather_conv_f32, run_f32, ConvForward)
+GATHER_CONV_ENTRY(gather_conv_bf16, run_bf16, ConvForward)
+GATHER_CONV_ENTRY(gather_conv_dfeats_f32, run_f32, ConvDFeats)
+GATHER_CONV_ENTRY(gather_conv_dfeats_bf16, run_bf16, ConvDFeats)
 
 extern "C" const char* gather_conv_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -8,9 +8,12 @@ SparseConvNet fpn_net.py:13-265):
     downsample dedup sort, the 27-offset submanifold book of every scale
     from kernel B, and the BEV books as scatters from the z-collapse sort;
   * every rulebook gets its row order grouped by offset mask
-    (ops/sparse_conv.rulebook_row_order), once per pyramid;
+    (ops/sparse_conv.rulebook_row_order), once per pyramid, and, when the
+    pyramid is built for a training forward, its backward book
+    (ops/sparse_conv.BackwardBook: the transposed book, its row order and
+    the per-offset entry lists);
   * every sparse conv goes through kernel A (ops/sparse_conv.py), with
-    its rulebook's row order;
+    its rulebook's row order and backward book;
   * BN runs on batch statistics (ops/norm.py) fused with (leaky) ReLU.
 
 Module and parameter names follow the Flax modules of the JAX package, so
@@ -34,7 +37,8 @@ from detection_3d_tpu_torch.ops.sparse import (
     neighbor_match_3x3x3,
 )
 from detection_3d_tpu_torch.ops.sparse_conv import (
-    deconv, nin_conv, rulebook_row_order, strided_conv, submanifold_conv,
+    BackwardBook, backward_book, deconv, nin_conv, rulebook_entries,
+    rulebook_row_order, strided_conv, submanifold_conv,
 )
 
 
@@ -68,7 +72,8 @@ def bev_with_rulebook(table: SparseTensor, capacity: int):
     return bev_t, rb[:Z * capacity].reshape(Z, capacity)
 
 
-def build_pyramid(table0: SparseTensor, cfg: Config) -> Dict[str, Any]:
+def build_pyramid(table0: SparseTensor, cfg: Config,
+                  backward: bool = False) -> Dict[str, Any]:
     """All tables + rulebooks for one forward pass.
 
     Returns a dict with:
@@ -78,7 +83,10 @@ def build_pyramid(table0: SparseTensor, cfg: Config) -> Dict[str, Any]:
       up_rb: per-upsample (K, V_{k-1}) deconv rulebooks, decoder order;
       bev: {slot: (bev_table, (Z, V_bev) rulebook)} for the RPN 2D maps;
       subm_order, down_order, up_order, bev_order: the RowOrder of each
-      rulebook above, in the same layout (kernel A's row order).
+      rulebook above, in the same layout (kernel A's row order);
+      with ``backward`` (a forward whose gradient is wanted) also
+      subm_bwd, down_bwd, up_bwd, bev_bwd: the BackwardBook of each
+      rulebook, in the same layout.
     """
     s3d = cfg.sparse3d
     n_scales = s3d.num_scales
@@ -92,23 +100,50 @@ def build_pyramid(table0: SparseTensor, cfg: Config) -> Dict[str, Any]:
         up_rb_by_scale.append(drb)
         tables.append(t)
     subm_idx = [neighbor_match_3x3x3(t) for t in tables]
-    bev, bev_order = {}, {}
+    bev, bev_order, bev_v_in = {}, {}, {}
     for slot, i_from_top in enumerate(cfg.rpn.rpn_scales_from_top):
         t3d = tables[n_scales - 1 - i_from_top]
         bev[slot] = bev_with_rulebook(t3d, t3d.capacity)
+        bev_v_in[slot] = t3d.capacity
         bev_order[slot] = rulebook_row_order(bev[slot][1], t3d.capacity,
                                              bev[slot][0].row_valid)
     valid = [t.row_valid for t in tables]
     cap = [t.capacity for t in tables]
     up_order = [rulebook_row_order(rb, cap[k + 1], valid[k])
                 for k, rb in enumerate(up_rb_by_scale)]
-    return {"tables": tables, "subm_idx": subm_idx, "down_rb": down_rb,
-            "up_rb": up_rb_by_scale[::-1], "bev": bev,
-            "subm_order": [rulebook_row_order(rb, cap[k], valid[k])
-                           for k, rb in enumerate(subm_idx)],
-            "down_order": [rulebook_row_order(rb, cap[k], valid[k + 1])
-                           for k, rb in enumerate(down_rb)],
-            "up_order": up_order[::-1], "bev_order": bev_order}
+    down_order = [rulebook_row_order(rb, cap[k], valid[k + 1])
+                  for k, rb in enumerate(down_rb)]
+    subm_order = [rulebook_row_order(rb, cap[k], valid[k])
+                  for k, rb in enumerate(subm_idx)]
+    pyr = {"tables": tables, "subm_idx": subm_idx, "down_rb": down_rb,
+           "up_rb": up_rb_by_scale[::-1], "bev": bev,
+           "subm_order": subm_order, "down_order": down_order,
+           "up_order": up_order[::-1], "bev_order": bev_order}
+    if not backward:
+        return pyr
+    # the transposes come without a scatter where one is known (tests/
+    # test_torch_backward_books.py holds each against transpose_rulebook):
+    # a submanifold book is its own transpose with the offsets reversed
+    # (offset k is the negation of offset K - 1 - k), so dFeats reads it
+    # as it is, with its order, and W reversed; a downsample's conv and
+    # deconv books, two scatters of one mapping, are each other's, row
+    # orders and entries (columns swapped) too. The BEV books take the
+    # scatter.
+    subm_bwd = [BackwardBook(rb, subm_order[k],
+                             *rulebook_entries(rb, cap[k], valid[k]),
+                             reversed=True)
+                for k, rb in enumerate(subm_idx)]
+    down_bwd, up_bwd = [], []
+    for k, rb in enumerate(down_rb):
+        entries, starts = rulebook_entries(rb, cap[k], valid[k + 1])
+        down_bwd.append(BackwardBook(up_rb_by_scale[k], up_order[k],
+                                     entries, starts))
+        up_bwd.append(BackwardBook(rb, down_order[k], entries.flip(1),
+                                   starts))
+    pyr.update(subm_bwd=subm_bwd, down_bwd=down_bwd, up_bwd=up_bwd[::-1],
+               bev_bwd={slot: backward_book(rb, bev_v_in[slot], t.row_valid)
+                        for slot, (t, rb) in bev.items()})
+    return pyr
 
 
 class SubmConv(nn.Module):
@@ -121,9 +156,9 @@ class SubmConv(nn.Module):
     def reset_parameters(self, gen):
         he_normal_(self.w, gen)
 
-    def forward(self, feats, nidx, valid, order):
+    def forward(self, feats, nidx, valid, order, bwd=None):
         return submanifold_conv(feats, nidx, self.w.to(feats.dtype), valid,
-                                order)
+                                order, bwd)
 
 
 class NiN(nn.Module):
@@ -166,10 +201,10 @@ class ResidualBlock(nn.Module):
         self.bn2 = BNLeakyReLU(cout)
         self.conv2 = SubmConv(cout, cout)
 
-    def forward(self, feats, nidx, valid, order):
+    def forward(self, feats, nidx, valid, order, bwd=None):
         sc = feats if self.shortcut is None else self.shortcut(feats, valid)
-        h = self.conv1(self.bn1(feats, valid), nidx, valid, order)
-        h = self.conv2(self.bn2(h, valid), nidx, valid, order)
+        h = self.conv1(self.bn1(feats, valid), nidx, valid, order, bwd)
+        h = self.conv2(self.bn2(h, valid), nidx, valid, order, bwd)
         return sc + h
 
 
@@ -184,18 +219,19 @@ class DownLayer(nn.Module):
     def reset_parameters(self, gen):
         he_normal_(self.w, gen)
 
-    def forward(self, feats, rulebook, in_valid, out_valid, order):
+    def forward(self, feats, rulebook, in_valid, out_valid, order, bwd=None):
         h = self.bn(feats, in_valid)
         return strided_conv(h, rulebook, self.w.to(h.dtype), out_valid,
-                            order)
+                            order, bwd)
 
 
 class UpLayer(DownLayer):
     """BN-ReLU + deconv (fpn_net.py:86-92)."""
 
-    def forward(self, feats, rulebook, in_valid, out_valid, order):
+    def forward(self, feats, rulebook, in_valid, out_valid, order, bwd=None):
         h = self.bn(feats, in_valid)
-        return deconv(h, rulebook, self.w.to(h.dtype), out_valid, order)
+        return deconv(h, rulebook, self.w.to(h.dtype), out_valid, order,
+                      bwd)
 
 
 class BEVConv(nn.Module):
@@ -208,9 +244,9 @@ class BEVConv(nn.Module):
     def reset_parameters(self, gen):
         he_normal_(self.w, gen)
 
-    def forward(self, feats, rulebook, out_valid, order):
+    def forward(self, feats, rulebook, out_valid, order, bwd=None):
         return strided_conv(feats, rulebook, self.w.to(feats.dtype),
-                            out_valid, order)
+                            out_valid, order, bwd)
 
 
 def _kernel_volume(k):
@@ -263,6 +299,11 @@ class SparseFPN(nn.Module):
         n = s3d.num_scales
         tables: List[SparseTensor] = pyramid["tables"]
         subm_idx, subm_order = pyramid["subm_idx"], pyramid["subm_order"]
+        # backward books: only a pyramid built for a training forward has
+        subm_bwd = pyramid.get("subm_bwd") or [None] * n
+        down_bwd = pyramid.get("down_bwd") or [None] * (n - 1)
+        up_bwd = pyramid.get("up_bwd") or [None] * (n - 1)
+        bev_bwd = pyramid.get("bev_bwd") or {}
         valids = [t.row_valid for t in tables]
         n3d = len(cfg.rpn.rpn_scales_from_top)
         sel = cfg.rpn.rpn_3d_2d_selector
@@ -270,21 +311,24 @@ class SparseFPN(nn.Module):
         used = {cfg.rpn.rpn_scales_from_top[i % n3d] for i in sel}
         used |= set(cfg.roi.pooler_scales_from_top)
 
-        h = self.conv_in(table0.feats, subm_idx[0], valids[0], subm_order[0])
+        h = self.conv_in(table0.feats, subm_idx[0], valids[0], subm_order[0],
+                         subm_bwd[0])
         downs = []
         for k in range(n):
             if k > 0:
                 h = getattr(self, f"down{k}")(
                     h, pyramid["down_rb"][k - 1], valids[k - 1], valids[k],
-                    pyramid["down_order"][k - 1])
+                    pyramid["down_order"][k - 1], down_bwd[k - 1])
             for r in range(s3d.block_reps):
                 if s3d.residual_block:
                     h = getattr(self, f"block{k}_{r}")(
-                        h, subm_idx[k], valids[k], subm_order[k])
+                        h, subm_idx[k], valids[k], subm_order[k],
+                        subm_bwd[k])
                 else:
                     hh = getattr(self, f"vgg_bn{k}_{r}")(h, valids[k])
                     h = getattr(self, f"vgg_conv{k}_{r}")(
-                        hh, subm_idx[k], valids[k], subm_order[k])
+                        hh, subm_idx[k], valids[k], subm_order[k],
+                        subm_bwd[k])
             downs.append(h)
 
         net = getattr(self, f"shortcut{n - 1}")(downs[-1], valids[-1])
@@ -295,10 +339,10 @@ class SparseFPN(nn.Module):
             j = k - 1
             net = getattr(self, f"up{j}")(net, pyramid["up_rb"][i],
                                           valids[k], valids[j],
-                                          pyramid["up_order"][i])
+                                          pyramid["up_order"][i], up_bwd[i])
             net = net + getattr(self, f"shortcut{j}")(downs[j], valids[j])
             net = getattr(self, f"merge{j}")(net, subm_idx[j], valids[j],
-                                             subm_order[j])
+                                             subm_order[j], subm_bwd[j])
             ups.append(net)
 
         maps = {}
@@ -312,7 +356,7 @@ class SparseFPN(nn.Module):
                 bev_t, bev_rb = pyramid["bev"][slot]
                 f2d = getattr(self, f"pro2d{slot}")(
                     ups[i_from_top], bev_rb, bev_t.row_valid,
-                    pyramid["bev_order"][slot])
+                    pyramid["bev_order"][slot], bev_bwd.get(slot))
                 maps[i] = bev_t.with_feats(f2d)
         rpn_maps = [maps[i] for i in sel]
         roi_maps = [tables[n - 1 - i].with_feats(ups[i])

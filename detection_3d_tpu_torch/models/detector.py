@@ -104,7 +104,9 @@ class SparseRCNN(nn.Module):
                                         device=table.device)
                           for k, n in self.priority_shapes().items()}
         with timed("pyramid"):
-            pyramid = build_pyramid(table, cfg)
+            # the backward books only where a gradient will be taken
+            wants_grad = gt is not None and torch.is_grad_enabled()
+            pyramid = build_pyramid(table, cfg, backward=wants_grad)
         with timed("backbone"):
             rpn_maps, roi_maps = self.backbone(table, pyramid)
         with timed("rpn"):

@@ -10,9 +10,9 @@ at import time: :func:`library` builds on first use, and
 :func:`build` compiles several sources at once (one ``nvcc`` process
 each, all started together).
 
-``launches`` counts, per kernel (one name per kernel, so the two
-entries of csrc/gather_conv_bwd.cu count apart), the launches its
-wrapper made. A wrapper adds one exactly where it launches its kernel; a
+``launches`` counts, per kernel, the launches its wrapper made: the
+forward and dFeats entries of csrc/gather_conv.cu count apart, and dW
+(csrc/gather_conv_bwd.cu) counts once per call. A wrapper adds one exactly where it launches its kernel; a
 run can then show that a path went through every kernel.
 """
 
@@ -37,7 +37,8 @@ BUILD_DIR = _PKG / "build"
 # one library per source file under csrc/
 KERNELS = ("gather_conv", "gather_conv_bwd", "subm_match", "rotated_iou",
            "multi_match")
-# one launch counter per kernel: the backward source holds two kernels
+# one launch counter per kernel: kernel A's source runs the forward and
+# the backward's dFeats, the backward source dW
 COUNTERS = ("gather_conv", "gather_conv_dfeats", "gather_conv_dw",
             "subm_match", "rotated_iou", "multi_match")
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -51,13 +52,12 @@ _EXTRA_FLAGS = {"rotated_iou": ["--fmad=false"]}
 # cudaError_t of its launch as an int
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ENTRY_POINTS = {
-    "gather_conv": {"gather_conv_f32": [_P] * 6 + [_I] * 4 + [_P],
-                    "gather_conv_bf16": [_P] * 6 + [_I] * 4 + [_P]},
-    "gather_conv_bwd": {
-        "gather_conv_dfeats_f32": [_P] * 6 + [_I] * 5 + [_P],
-        "gather_conv_dfeats_bf16": [_P] * 6 + [_I] * 5 + [_P],
-        "gather_conv_dw_f32": [_P] * 6 + [_I] * 5 + [_P],
-        "gather_conv_dw_bf16": [_P] * 6 + [_I] * 5 + [_P]},
+    "gather_conv": {name: [_P] * 6 + [_I] * 4 + [_P]
+                    for name in ("gather_conv_f32", "gather_conv_bf16",
+                                 "gather_conv_dfeats_f32",
+                                 "gather_conv_dfeats_bf16")},
+    "gather_conv_bwd": {"gather_conv_dw_f32": [_P] * 6 + [_I] * 5 + [_P],
+                        "gather_conv_dw_bf16": [_P] * 6 + [_I] * 5 + [_P]},
     "subm_match": {"subm_match_3x3x3": [_P] * 3 + [_I] * 4 + [_P] * 2},
     "rotated_iou": {"rotated_iou_matrix": [_P] * 2 + [_I] * 4 + [_P] * 2},
     "multi_match": {"multi_match": [_P] * 3 + [_I] * 2 + [_P]},

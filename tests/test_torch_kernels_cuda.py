@@ -7,10 +7,10 @@ skip it there):
     python -m pytest --noconftest -p no:randomly -q tests/test_torch_kernels_cuda.py
 
 Tolerances: kernels B, C and D are bit exact (C: every float32 bit,
-two NaNs counted equal); kernel A and its two backward kernels within
-1e-4 of the largest output in f32 (sum order; the backward adds with
-atomics, in an order that changes from run to run) and 1e-2 in bf16
-(one bf16 rounding of the f32 sum).
+two NaNs counted equal); kernel A and the backward (dFeats through
+kernel A on the transposed book, the dW kernel) within 1e-4 of the
+largest output in f32 (sum order) and 1e-2 in bf16 (one bf16 rounding
+of the f32 sum). The backward gives the same bits on every call.
 """
 
 import numpy as np
@@ -31,8 +31,9 @@ from detection_3d_tpu_torch.ops.sparse import (
     neighbor_match_3x3x3, submanifold_offsets,
 )
 from detection_3d_tpu_torch.ops.sparse_conv import (
-    RowOrder, gather_conv, gather_conv_backward, gather_conv_cuda,
-    gather_conv_dfeats_cuda, gather_conv_dw_cuda, row_masks,
+    BackwardBook, RowOrder, backward_book, gather_conv, gather_conv_backward,
+    gather_conv_cuda, gather_conv_dfeats, gather_conv_dfeats_cuda,
+    gather_conv_dw, gather_conv_dw_cuda, row_masks, rulebook_entries,
     rulebook_row_order, sparse_conv,
 )
 from torch_iou_cases import adversarial_bev
@@ -241,41 +242,116 @@ def _close(got, want, dtype):
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
 
 
+def _bits(t):
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("kind,cin,cout", [("subm", 9, 32), ("subm", 32, 64),
                                            ("subm", 80, 24),
-                                           ("down", 16, 8), ("up", 8, 16)])
+                                           ("subm", 128, 128),
+                                           ("subm", 256, 256),
+                                           ("subm_big", 32, 32),
+                                           ("down", 16, 8), ("up", 8, 16),
+                                           ("bev", 128, 128)])
 def test_gather_conv_backward_matches_plain(dev, dtype, kind, cin, cout):
-    t = _table(dev, 3000, 4096, 3)
-    if kind == "subm":
-        idx, t_in, t_out = neighbor_match_3x3x3(t), t, t
+    """dFeats (kernel A on the transposed book) and dW (the entry-list
+    kernel) against gather_conv_backward and their own plain versions,
+    one launch each, the same bits on a second call."""
+    if kind == "subm_big":   # many work items per offset
+        t = _table(dev, 40000, 65536, 3, spatial=(128, 128, 64))
+        idx, v_in, valid = neighbor_match_3x3x3(t), t.capacity, t.row_valid
     else:
-        coarse, crb, drb = downsample_with_rulebooks(t, (2, 2, 2),
-                                                     (2, 2, 2), 2048)
-        idx, t_in, t_out = ((crb, t, coarse) if kind == "down"
-                            else (drb, coarse, t))
+        idx, v_in, valid = _book(dev, kind, seed=3)
     gen = torch.Generator(device=dev).manual_seed(cin + cout)
-    feats = (torch.randn((t_in.capacity, cin), generator=gen, device=dev)
-             * t_in.row_valid[:, None]).to(dtype)
+    feats = torch.randn((v_in, cin), generator=gen, device=dev).to(dtype)
     w = (torch.randn((idx.shape[0], cin, cout), generator=gen, device=dev)
          * 0.2).to(dtype)
-    g = torch.randn((t_out.capacity, cout), generator=gen,
+    g = torch.randn((idx.shape[1], cout), generator=gen,
                     device=dev).to(dtype)
-    valid = t_out.row_valid
+    book = backward_book(idx, v_in, valid)
     want_f, want_w = gather_conv_backward(feats, idx, w, valid, g)
     before = dict(cuda_lib.launches)
-    got_f = gather_conv_dfeats_cuda(feats, idx, w, valid, g)
-    got_w = gather_conv_dw_cuda(feats, idx, w, valid, g)
+    got_f = gather_conv_dfeats_cuda(g, w, book)
+    got_w = gather_conv_dw_cuda(feats, g, book)
     torch.cuda.synchronize()
     assert cuda_lib.launches["gather_conv_dfeats"] == \
         before["gather_conv_dfeats"] + 1
     assert cuda_lib.launches["gather_conv_dw"] == before["gather_conv_dw"] + 1
+    assert cuda_lib.launches["gather_conv"] == before["gather_conv"]
     assert got_f.dtype == got_w.dtype == dtype
+    assert got_f.shape == want_f.shape and got_w.shape == want_w.shape
     _close(got_f, want_f, dtype)
     _close(got_w, want_w, dtype)
+    _close(got_f, gather_conv_dfeats(g, w, book), dtype)
+    _close(got_w, gather_conv_dw(feats, g, book), dtype)
+    assert torch.equal(_bits(gather_conv_dfeats_cuda(g, w, book)),
+                       _bits(got_f))
+    assert torch.equal(_bits(gather_conv_dw_cuda(feats, g, book)),
+                       _bits(got_w))
+
+
+def _pyramid_book(idx, v_in, valid, order, kind):
+    """The BackwardBook as build_pyramid makes it for a submanifold book
+    (the book itself, read with its offsets reversed); the scatter for
+    the other kinds."""
+    if kind == "subm":
+        return BackwardBook(idx, order, *rulebook_entries(idx, v_in, valid),
+                            reversed=True)
+    return backward_book(idx, v_in, valid)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cin,cout", [(32, 32), (64, 128)])
+def test_backward_on_a_reversed_submanifold_book(dev, dtype, cin, cout):
+    """dFeats on a submanifold book read with its offsets reversed, as the
+    training pyramid hands it over, and dW on its entry lists, also with
+    each offset's entries in reverse order (a deconv book's lists come
+    in its conv book's order)."""
+    idx, v_in, valid = _book(dev, "subm", seed=5)
+    gen = torch.Generator(device=dev).manual_seed(cin)
+    feats = torch.randn((v_in, cin), generator=gen, device=dev).to(dtype)
+    w = (torch.randn((27, cin, cout), generator=gen, device=dev)
+         * 0.2).to(dtype)
+    g = torch.randn((v_in, cout), generator=gen, device=dev).to(dtype)
+    book = _pyramid_book(idx, v_in, valid,
+                         rulebook_row_order(idx, v_in, valid), "subm")
+    want_f, want_w = gather_conv_backward(feats, idx, w, valid, g)
+    _close(gather_conv_dfeats_cuda(g, w, book), want_f, dtype)
+    _close(gather_conv_dw_cuda(feats, g, book), want_w, dtype)
+    # the list read backwards: offset K - 1 - k's pairs, last first, as
+    # offset k
+    backwards = book._replace(entries=book.entries.flip(0).contiguous(),
+                              starts=book.starts[-1] - book.starts.flip(0))
+    _close(gather_conv_dw_cuda(feats, g, backwards).flip(0), want_w, dtype)
+
+
+@pytest.mark.parametrize("kind", ["subm", "down", "up", "bev"])
+def test_gather_conv_function_on_a_pyramid_book(dev, kind):
+    """GatherConv with the rulebook's order and backward book: one launch
+    each of A, dFeats and dW, and the gradients of the plain backward."""
+    idx, v_in, valid = _book(dev, kind, seed=4)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    base = torch.randn((v_in, 16), generator=gen, device=dev)
+    w0 = torch.randn((idx.shape[0], 16, 16), generator=gen, device=dev) * 0.1
+    feats, w = base.clone().requires_grad_(), w0.clone().requires_grad_()
+    order = rulebook_row_order(idx, v_in, valid)
+    book = _pyramid_book(idx, v_in, valid, order, kind)
+    cuda_lib.reset_launches()
+    out = sparse_conv(feats, idx, w, valid, order, book)
+    g = torch.randn(out.shape, generator=gen, device=dev)
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert cuda_lib.launches["gather_conv"] == 1
+    assert cuda_lib.launches["gather_conv_dfeats"] == 1
+    assert cuda_lib.launches["gather_conv_dw"] == 1
+    want_f, want_w = gather_conv_backward(base, idx, w0, valid, g)
+    _close(feats.grad, want_f, torch.float32)
+    _close(w.grad, want_w, torch.float32)
 
 
 def test_gather_conv_function_launches_both_backward_kernels(dev):
+    """No book given: the backward builds one and launches both kernels."""
     t = _table(dev, 2000, 4096, 4)
     idx = neighbor_match_3x3x3(t)
     gen = torch.Generator(device=dev).manual_seed(0)
