@@ -4,22 +4,32 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --bwd-shapes   # only the backward at every
                                          # training shape (phase 5's)
+    python3 chip_smoke.py --match-shapes # only B at every table size and
+                                         # D (phase 3's)
 
 1. Prints the card's name and power limit (nvidia-smi).
 2. Builds the port's five CUDA sources from detection_3d_tpu_torch/csrc
    (one nvcc per source, all started together) and prints the build time.
 3. Holds each kernel against its plain PyTorch version on the card, at
-   the main paths' shapes taken from a full-size synthetic building:
+   the main paths' shapes taken from a full-size synthetic building,
+   whose pyramid (serving and training forms) must take every
+   submanifold row order from kernel B's masks, never from row_masks:
    A (gather-conv, with the rulebook's row order and with rows in a
    random order) and the backward A' (dFeats through A's code on the
    transposed book, the dW kernel; the same bits on two calls) on the
-   scale-0 and scale-1 rulebooks in f32 and bf16; B (submanifold match)
-   on the 524288-row scale-0 table, bit exact; C (rotated IoU) bit for
+   scale-0 and scale-1 rulebooks in f32 and bf16; B (submanifold match:
+   8 column searches a site, in shared-memory windows or, on tables
+   under 65536 rows, over the whole table; and the row masks) at each of
+   the building's 9 table sizes (V = 524288 .. 2048), book and masks bit
+   exact in both forms, the same bits twice, with its window counts,
+   event and profiler times and a per-building sum; C (rotated IoU) bit for
    bit on an adversarial box set (every criterion, with and without the
    same-box fix) and on 2000 x 2000 boxes for criteria -1/0/1/2 with
-   identical greedy NMS keep sets; D (query-key match) on the scale-0 ->
-   scale-1 conv and deconv books, bit exact against its plain version
-   and the scatter-derived books. Prints kernel, plain and bound times.
+   identical greedy NMS keep sets; D (query-key match, windows per block
+   of queries) on the scale-0 -> scale-1 conv and deconv books, bit
+   exact against its plain version and the scatter-derived books, timed
+   on the books' queries and shuffled. Prints kernel, plain and bound
+   times, and for B and D torch.searchsorted over the same queries.
 4. Serving path at full width: full_scale_config(), seeded random
    weights, make_predict_fn + run_inference over 4 buildings of 500k
    points; checks finite outputs, true_num > 0 and that every serving
@@ -534,9 +544,19 @@ def gather_conv_bwd_training_shapes(step):
     return rows, summary
 
 
-def check_multi_match(table0, table1, crb, drb):
+def check_multi_match(table0, table1, crb, drb, full=True):
     """Kernel D against its plain version and the scatter-derived books,
-    bit exact, on the full-size scale-0 -> scale-1 tables."""
+    bit exact, on the full-size scale-0 -> scale-1 tables, and timed on
+    the conv book's queries (in the book's order, as the paths' callers
+    make them) beside its plain version and ``torch.searchsorted`` over
+    the same composite queries (the library call: it computes the lower
+    bound only, not the match); the profiler's device time also on the
+    deconv book's queries and on the conv queries shuffled (each block's
+    window then spans the table: the global search). With ``full``, the
+    windows of each set of queries (:func:`query_windows`) and the device
+    times with no window staged (window 0); without, the phase times
+    another tree of the package too (``--match-shapes``). The bound counts the
+    keys, the queries read and the answers written once."""
     from detection_3d_tpu_torch.ops.coords import (
         INVALID, composite_key, pack_key)
     from detection_3d_tpu_torch.ops.multi_match import (
@@ -549,7 +569,7 @@ def check_multi_match(table0, table1, crb, drb):
           "scatter-derived book")
     check(torch.equal(got_d, drb), "kernel D: deconv book differs from the "
           "scatter-derived book")
-    # the conv book's queries, as conv_rulebook_match builds them
+    # the conv and deconv books' queries, as the two functions build them
     st = torch.tensor([2, 2, 2, 1], dtype=torch.int32, device=table1.device)
     deltas = torch.tensor([[a, b, c, 0] for a in range(2) for b in range(2)
                            for c in range(2)], dtype=torch.int32,
@@ -558,11 +578,36 @@ def check_multi_match(table0, table1, crb, drb):
                         table0.spatial_size,
                         valid=table1.row_valid[None, :])
     q = composite_key(qhi, qlo).reshape(-1)
+    num = table0.coords[None] - deltas[:, None]
+    o = torch.div(num, st, rounding_mode="floor")
+    dhi, dlo = pack_key(o, table1.spatial_size,
+                        valid=table0.row_valid[None, :]
+                        & (o * st == num).all(-1))
+    q_deconv = composite_key(dhi, dlo).reshape(-1)
+    gen = torch.Generator(device=q.device).manual_seed(0)
+    q_shuffled = q[torch.randperm(q.numel(), generator=gen,
+                                  device=q.device)]
+    windows, times = {}, {}
+    for name, keys, qs in (("conv", table0.keys, q),
+                           ("deconv", table1.keys, q_deconv),
+                           ("shuffled", table0.keys, q_shuffled)):
+        got = multi_match_cuda(keys, qs)
+        check(torch.equal(got, multi_match_plain(keys, qs)),
+              "kernel D differs from multi_match_plain")
+        check(torch.equal(got, multi_match_cuda(keys, qs)),
+              "kernel D: two calls differ")
+        times[f"{name}_device_ms"] = device_ms(
+            lambda: multi_match_cuda(keys, qs), ("multi_match_kernel",))
+        if full:    # also with no window staged (the global search)
+            windows[name] = query_windows(keys, qs)
+            check(torch.equal(multi_match_cuda(keys, qs, 0), got),
+                  "kernel D without staging differs")
+            times[f"{name}_device_ms_unstaged"] = device_ms(
+                lambda: multi_match_cuda(keys, qs, 0), ("multi_match_kernel",))
     got = multi_match_cuda(table0.keys, q)
-    want = multi_match_plain(table0.keys, q)
-    check(torch.equal(got, want), "kernel D differs from multi_match_plain")
     ms = time_ms(lambda: multi_match_cuda(table0.keys, q))
     plain = time_ms(lambda: multi_match_plain(table0.keys, q), 3)
+    library = time_ms(lambda: torch.searchsorted(table0.keys, q))
     v, n = table0.capacity, q.numel()
     searches = int((qhi != INVALID).sum())
     probes = max(1, (v - 1).bit_length()) + 1
@@ -570,41 +615,180 @@ def check_multi_match(table0, table1, crb, drb):
                        SCALAR_OPS)
     line = {"V": v, "queries": n, "searches": searches,
             "found": int((got < v).sum()), "max_abs_err": 0.0,
-            "tolerance": "bit exact", "ms": ms, "plain_ms": plain,
-            "bound_ms": b_ms, "bound_by": b_by}
+            "tolerance": "bit exact", "ms": ms,
+            "device_ms": times["conv_device_ms"], "plain_ms": plain,
+            "library_ms": library,
+            "library_computes": "torch.searchsorted over the same "
+                                "composite queries: the lower bound only",
+            "bound_ms": b_ms, "bound_by": b_by, "windows": windows,
+            "deconv_queries": q_deconv.numel(), **times}
     print("kernel D", json.dumps(line))
     return line
 
 
-def check_subm_match(table0):
-    """Kernel B against neighbor_indices, bit exact, on the scale-0 table."""
-    from detection_3d_tpu_torch.ops.sparse import (
-        neighbor_indices, neighbor_match_3x3x3, submanifold_offsets)
-    offs = submanifold_offsets((3, 3, 3))
-    got = neighbor_match_3x3x3(table0)
-    want = neighbor_indices(table0, offs)
-    check(torch.equal(got, want), "kernel B differs from neighbor_indices")
-    ms = time_ms(lambda: neighbor_match_3x3x3(table0))
-    plain = time_ms(lambda: neighbor_indices(table0, offs), 3)
-    v = table0.capacity
-    num = int(table0.num)
-    found = int((got[:, :num] < v).sum())
-    # searches this table needs: valid sites x in-grid offsets, each a
-    # lower bound of ceil(log2 V) + 1 probes of ~4 operations
-    c = table0.coords[:num]
-    size = torch.tensor(table0.spatial_size, device=c.device)
-    searches = sum(int(((c[:, :3] + torch.tensor(o, device=c.device) >= 0)
-                        & (c[:, :3] + torch.tensor(o, device=c.device)
-                           < size)).all(1).sum()) for o in offs)
-    probes = max(1, (v - 1).bit_length()) + 1
-    nbytes = v * 8 + v * 16 + 4 + 27 * v * 4
-    b_ms, b_by = bound(nbytes, 4.0 * probes * searches, SCALAR_OPS)
-    line = {"V": v, "num": num, "searches": searches, "found": found,
-            "max_abs_err": 0.0,
-            "tolerance": "bit exact",
-            "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by}
-    print("kernel B", json.dumps(line))
-    return line
+def query_windows(keys, queries, per_block=512):
+    """Kernel D's windows, as csrc/multi_match.cu finds them: per block of
+    ``per_block`` queries holding a valid one, the table rows from its
+    smallest valid query to its largest. Returns how many there are, how
+    many exceed the wrapper's window (searched in global memory), and
+    their largest and mean length."""
+    from detection_3d_tpu_torch.ops.coords import INVALID
+    from detection_3d_tpu_torch.ops.multi_match import MULTI_MATCH_WINDOW
+    pad = (-queries.numel()) % per_block
+    q = torch.cat([queries, queries.new_full((pad,), INVALID << 32)])
+    q = q.view(-1, per_block)
+    ok = (q >> 32) != INVALID
+    big = torch.iinfo(torch.int64).max
+    lo = torch.where(ok, q, big).amin(1)
+    hi = torch.where(ok, q, -big).amax(1)
+    any_ok = ok.any(1)
+    rows = (torch.searchsorted(keys, hi[any_ok] + 1)
+            - torch.searchsorted(keys, lo[any_ok]))
+    return {"windows": rows.numel(),
+            "over_budget": int((rows > MULTI_MATCH_WINDOW).sum()),
+            "max_rows": int(rows.max()),
+            "mean_rows": float(rows.float().mean())}
+
+
+def subm_windows(table, window):
+    """Kernel B's shared-memory windows on one table, as csrc/
+    subm_match.cu finds them: per block of 256 sites holding an active
+    one and per dx, the rows from its smallest target to its largest.
+    Returns how many there are, how many exceed ``window`` rows (searched
+    in global memory), and their largest and mean length."""
+    num = int(table.num)
+    keys, Z = table.keys, table.spatial_size[2]
+    first = torch.arange(0, num, 256, device=keys.device)
+    last = torch.clamp(first + 255, max=num - 1)
+    rows = torch.stack([
+        torch.searchsorted(keys, keys[last] + (dx << 32) + Z + 2)
+        - torch.searchsorted(keys, keys[first] + (dx << 32) - Z - 1)
+        for dx in (-1, 0, 1)])
+    return {"windows": rows.numel(),
+            "over_budget": int((rows > window).sum()),
+            "max_rows": int(rows.max()),
+            "mean_rows": float(rows.float().mean())}
+
+
+def subm_match_shapes(tables, full=True):
+    """Kernel B at each table size of a full-size building (one launch per
+    scale per building): the book bit exact against neighbor_indices, the
+    same bits on a second call, timed with CUDA events and the profiler's
+    device time beside ``torch.searchsorted`` over the 27 * V composite
+    queries that neighbor_indices searches (the library call: the lower
+    bound only); with ``full`` also the row masks against row_masks, both
+    forms of the kernel (shared-memory windows, whole-table search) held
+    and timed, the windows (:func:`subm_windows`) and the plain
+    neighbor_match_columns timed. The bound counts the keys, coords and num read and the book
+    and masks written once, or ~4 operations for each of ceil(log2 V) + 1
+    probes of a search per valid site and in-grid offset. Without
+    ``full`` only the wrapper's public form is used, so the phase times
+    another tree of the package too (``--match-shapes``). Returns (the
+    scale-0 line, the per-building summary)."""
+    from detection_3d_tpu_torch.ops import sparse
+    from detection_3d_tpu_torch.ops.coords import composite_key, pack_key
+    from detection_3d_tpu_torch.ops.sparse_conv import row_masks
+    offs = sparse.submanifold_offsets((3, 3, 3))
+    deltas = torch.tensor([[a, b, c, 0] for a, b, c in offs],
+                          dtype=torch.int32, device=tables[0].device)
+    rows, sums = [], {"ms": 0.0, "device_ms": 0.0, "bound_ms": 0.0,
+                      "library_ms": 0.0}
+    for t in tables:
+        v, num = t.capacity, int(t.num)
+        got = sparse.neighbor_match_3x3x3(t)
+        want = sparse.neighbor_indices(t, offs)
+        check(torch.equal(got, want), f"kernel B differs from "
+              f"neighbor_indices at V = {v}")
+        check(torch.equal(sparse.neighbor_match_3x3x3(t), got),
+              f"kernel B: two calls differ at V = {v}")
+        line = {"V": v, "num": num}
+        if full:
+            _, masks = sparse.neighbor_match_3x3x3(t, with_masks=True)
+            check(torch.equal(masks, row_masks(want, v, t.row_valid)),
+                  f"kernel B: row masks differ from row_masks at V = {v}")
+            line["masks"] = "equal to row_masks"
+            line["windows"] = subm_windows(t, sparse.SUBM_WINDOW)
+        line["ms"] = time_ms(lambda: sparse.neighbor_match_3x3x3(t))
+        line["device_ms"] = device_ms(
+            lambda: sparse.neighbor_match_3x3x3(t), ("subm_match_",))
+        if full:    # both of the kernel's forms, whichever the wrapper takes
+            for form, window in (("windows", sparse.SUBM_WINDOW),
+                                 ("table", 0)):
+                idx, m = sparse.subm_match_cuda(t, window)
+                check(torch.equal(idx, want) and torch.equal(m, masks),
+                      f"kernel B ({form}) differs at V = {v}")
+                line[f"device_ms_{form}"] = device_ms(
+                    lambda: sparse.subm_match_cuda(t, window),
+                    ("subm_match_",))
+            line["plain_ms"] = time_ms(
+                lambda: sparse.neighbor_match_columns(t), 2)
+            line["neighbor_indices_ms"] = time_ms(
+                lambda: sparse.neighbor_indices(t, offs), 2)
+        q = composite_key(*pack_key(t.coords[None] + deltas[:, None],
+                                    t.spatial_size,
+                                    t.row_valid[None, :])).reshape(-1)
+        line["library_ms"] = time_ms(lambda: torch.searchsorted(t.keys, q))
+        c = t.coords[:num, :3]
+        size = torch.tensor(t.spatial_size, device=c.device)
+        searches = sum(int(((c + d[:3] >= 0) & (c + d[:3] < size))
+                           .all(1).sum()) for d in deltas)
+        probes = max(1, (v - 1).bit_length()) + 1
+        nbytes = v * 8 + v * 16 + 4 + 27 * v * 4 + v * 8
+        line["bound_ms"], line["bound_by"] = bound(
+            nbytes, 4.0 * probes * searches, SCALAR_OPS)
+        line.update(searches=searches, found=int((got[:, :num] < v).sum()),
+                    max_abs_err=0.0, tolerance="bit exact", launches=1)
+        print("kernel B shape", json.dumps(line))
+        rows.append(line)
+        for key in sums:
+            sums[key] += line[key] or 0.0
+    summary = {"shapes": len(rows), "launches_per_building": len(rows),
+               **{f"sum_{k}_per_building": v for k, v in sums.items()}}
+    print("kernel B per building:", json.dumps(summary))
+    return rows[0], summary
+
+
+def build_pyramid_checked(cfg, table0):
+    """build_pyramid of one building, serving and training forms, with
+    ops/sparse_conv.row_masks wrapped to record the books it is given:
+    no submanifold book may reach it (their row orders come from kernel
+    B's masks), and each submanifold row order must equal
+    rulebook_row_order of its book. Returns the serving pyramid."""
+    from detection_3d_tpu_torch.models.backbone import build_pyramid
+    from detection_3d_tpu_torch.ops import sparse_conv as sc
+    seen = []
+    orig = sc.row_masks
+
+    def recorder(neighbor_idx, *args, **kw):
+        seen.append(neighbor_idx.data_ptr())
+        return orig(neighbor_idx, *args, **kw)
+
+    pyrs, others = [], 0
+    sc.row_masks = recorder
+    try:
+        for backward in (False, True):
+            seen.clear()
+            pyr = build_pyramid(table0, cfg, backward=backward)
+            subm = {idx.data_ptr() for idx in pyr["subm_idx"]}
+            check(not subm & set(seen), "build_pyramid computed row_masks "
+                  "of a submanifold book")
+            others += len(seen)
+            pyrs.append(pyr)
+    finally:
+        sc.row_masks = orig
+    for pyr in pyrs:
+        for t, idx, order in zip(pyr["tables"], pyr["subm_idx"],
+                                 pyr["subm_order"]):
+            want = sc.rulebook_row_order(idx, t.capacity, t.row_valid)
+            check(torch.equal(order.perm, want.perm)
+                  and torch.equal(order.masks, want.masks),
+                  "build_pyramid: a submanifold row order differs from "
+                  "rulebook_row_order of its book")
+    print(f"build_pyramid: {len(pyrs[0]['subm_idx'])} submanifold row orders "
+          f"from kernel B's masks equal rulebook_row_order of their books "
+          f"(serving and training pyramids); row_masks ran on "
+          f"{others} other books, on no submanifold book")
+    return pyrs[0]
 
 
 def _nms_boxes_np(n, seed):
@@ -789,7 +973,7 @@ def check_rotated_iou_training(calls, cols=4096):
 # kernel and its reduction)
 SYMBOLS = {"gather_conv": "ConvForward", "gather_conv_dfeats": "ConvDFeats",
            "gather_conv_dw": "gather_dw_",
-           "subm_match": "subm_match_kernel",
+           "subm_match": "subm_match_",
            "rotated_iou": "rotated_iou_kernel",
            "multi_match": "multi_match_kernel"}
 
@@ -1035,8 +1219,6 @@ def main():
     from detection_3d_tpu_torch.models.detector import (
         SparseRCNN, voxelize_points)
     from detection_3d_tpu_torch.ops import cuda_lib
-    from detection_3d_tpu_torch.ops.sparse import (
-        downsample_with_rulebooks, neighbor_match_3x3x3)
     from detection_3d_tpu_torch.utils.timing import PhaseTimer
 
     t_start = time.perf_counter()
@@ -1076,21 +1258,20 @@ def main():
         table0 = voxelize_points(cfg, *(torch.as_tensor(batch[k]).to(dev)
                                         for k in ("points", "feats",
                                                   "points_valid")))
-        caps = cfg.caps.scale_caps(cfg.sparse3d.num_scales)
-        table1, crb, drb = downsample_with_rulebooks(
-            table0, cfg.sparse3d.kernels[0], cfg.sparse3d.strides[0], caps[1])
+        pyr = build_pyramid_checked(cfg, table0)
+        tables = pyr["tables"]
+        table1, crb, drb = tables[1], pyr["down_rb"][0], pyr["up_rb"][-1]
+        idx0, idx1 = pyr["subm_idx"][:2]
         print(f"scale-0 table: {int(table0.num)} of {table0.capacity} rows "
               f"(true_num {int(table0.true_num)}); scale 1: "
               f"{int(table1.num)} of {table1.capacity}")
-        rep_b = check_subm_match(table0)
-        idx0 = neighbor_match_3x3x3(table0)
-        idx1 = neighbor_match_3x3x3(table1)
+        rep_b, rep_b_sum = subm_match_shapes(tables)
         rep_a = check_gather_conv(dev, table0, table1, crb, idx0, idx1, gen)
         rep_ab = check_gather_conv_bwd(dev, table0, table1, crb, idx0, idx1,
                                        gen)
         rep_d = check_multi_match(table0, table1, crb, drb)
         rep_c = check_rotated_iou(dev)
-        del table0, table1, crb, drb, idx0, idx1
+        del pyr, tables, table0, table1, crb, drb, idx0, idx1
     torch.cuda.empty_cache()
 
     # ---- the serving path at full width ---------------------------------
@@ -1194,9 +1375,16 @@ def main():
                                  "match": match[name]},
             "max_abs_err": rep["max_abs_err"], "ms": rep["ms"],
             "plain_ms": rep["plain_ms"], "bound_ms": rep["bound_ms"],
-            "bound_by": rep["bound_by"], "library_ms": None})
+            "bound_by": rep["bound_by"],
+            "library_ms": rep.get("library_ms")})
         if "bound_all_pairs_ms" in rep:
             kernels[-1]["bound_all_pairs_ms"] = rep["bound_all_pairs_ms"]
+        if rep.get("library_ms") is not None:
+            kernels[-1]["library_computes"] = (
+                "torch.searchsorted over the same composite queries: the "
+                "lower bound only")
+        if name == "subm_match":   # the sums over the 9 tables of a building
+            kernels[-1].update(rep_b_sum)
         part = {"gather_conv_dfeats": "dfeats", "gather_conv_dw": "dw"}.get(
             name)
         if part:     # the sums over every shape of one training step
@@ -1249,6 +1437,43 @@ def bwd_shapes_main():
     return 0
 
 
+def match_shapes_main():
+    """``--match-shapes``: only kernels B and D at full width, B at every
+    table size of one building (:func:`subm_match_shapes` without
+    ``full``) and D on its conv and deconv books
+    (:func:`check_multi_match`); to time another tree of the package in
+    the same call, copy this script into it."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    from detection_3d_tpu_torch.config.defaults import full_scale_config
+    from detection_3d_tpu_torch.data.synthetic import synthetic_multiroom
+    from detection_3d_tpu_torch.engine.inference import pad_scene
+    from detection_3d_tpu_torch.models.backbone import build_pyramid
+    from detection_3d_tpu_torch.models.detector import voxelize_points
+    from detection_3d_tpu_torch.ops import cuda_lib
+    dev = torch.device("cuda")
+    print(f"card: {card_line()}")
+    t0 = time.perf_counter()
+    cuda_lib.build(["subm_match", "multi_match"])
+    print(f"build: {time.perf_counter() - t0:.1f} s")
+    cfg = full_scale_config()
+    scene = synthetic_multiroom(seed=100, num_points=POINTS, rooms_xy=(5, 5),
+                                room=8.0, voxel_scale=cfg.sparse3d.voxel_scale)
+    with torch.inference_mode():
+        batch = pad_scene(cfg, scene)
+        table0 = voxelize_points(cfg, *(torch.as_tensor(batch[k]).to(dev)
+                                        for k in ("points", "feats",
+                                                  "points_valid")))
+        pyr = build_pyramid(table0, cfg)
+        subm_match_shapes(pyr["tables"], full=False)
+        check_multi_match(table0, pyr["tables"][1], pyr["down_rb"][0],
+                          pyr["up_rb"][-1], full=False)
+    print(card_line())
+    return 0
+
+
+MODES = {"--bwd-shapes": bwd_shapes_main, "--match-shapes": match_shapes_main}
+
 if __name__ == "__main__":
-    sys.exit(bwd_shapes_main() if sys.argv[1:] == ["--bwd-shapes"]
-             else main())
+    sys.exit(MODES[sys.argv[1]]() if sys.argv[1:] else main())

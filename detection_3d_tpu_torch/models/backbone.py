@@ -7,8 +7,10 @@ SparseConvNet fpn_net.py:13-265):
     forward once: the strided/deconv books come as scatters from the
     downsample dedup sort, the 27-offset submanifold book of every scale
     from kernel B, and the BEV books as scatters from the z-collapse sort;
-  * every rulebook gets its row order grouped by offset mask
-    (ops/sparse_conv.rulebook_row_order), once per pyramid, and, when the
+  * every rulebook gets its row order grouped by offset mask, once per
+    pyramid: a submanifold book from the masks kernel B writes beside it
+    (ops/sparse_conv.masks_row_order), the others from the book
+    (ops/sparse_conv.rulebook_row_order); and, when the
     pyramid is built for a training forward, its backward book
     (ops/sparse_conv.BackwardBook: the transposed book, its row order and
     the per-offset entry lists);
@@ -37,8 +39,8 @@ from detection_3d_tpu_torch.ops.sparse import (
     neighbor_match_3x3x3,
 )
 from detection_3d_tpu_torch.ops.sparse_conv import (
-    BackwardBook, backward_book, deconv, nin_conv, rulebook_entries,
-    rulebook_row_order, strided_conv, submanifold_conv,
+    BackwardBook, backward_book, deconv, masks_row_order, nin_conv,
+    rulebook_entries, rulebook_row_order, strided_conv, submanifold_conv,
 )
 
 
@@ -99,7 +101,8 @@ def build_pyramid(table0: SparseTensor, cfg: Config,
         down_rb.append(crb)
         up_rb_by_scale.append(drb)
         tables.append(t)
-    subm_idx = [neighbor_match_3x3x3(t) for t in tables]
+    matched = [neighbor_match_3x3x3(t, with_masks=True) for t in tables]
+    subm_idx = [idx for idx, _ in matched]
     bev, bev_order, bev_v_in = {}, {}, {}
     for slot, i_from_top in enumerate(cfg.rpn.rpn_scales_from_top):
         t3d = tables[n_scales - 1 - i_from_top]
@@ -113,8 +116,7 @@ def build_pyramid(table0: SparseTensor, cfg: Config,
                 for k, rb in enumerate(up_rb_by_scale)]
     down_order = [rulebook_row_order(rb, cap[k], valid[k + 1])
                   for k, rb in enumerate(down_rb)]
-    subm_order = [rulebook_row_order(rb, cap[k], valid[k])
-                  for k, rb in enumerate(subm_idx)]
+    subm_order = [masks_row_order(masks) for _, masks in matched]
     pyr = {"tables": tables, "subm_idx": subm_idx, "down_rb": down_rb,
            "up_rb": up_rb_by_scale[::-1], "bev": bev,
            "subm_order": subm_order, "down_order": down_order,

@@ -16,10 +16,18 @@ package's dense 3D grid and xy-column grid are lookup accelerators for
 the TPU; the port answers every lookup with one int64 search instead,
 and the integers come out identical.
 
-The 27-offset submanifold rulebook has a hand-written CUDA kernel
-(csrc/subm_match.cu). :func:`neighbor_match_3x3x3` launches it for a
-table on the card and takes the plain :func:`neighbor_indices` for a
-table on the CPU.
+The 27-offset submanifold rulebook has a hand-written CUDA kernel, B
+(csrc/subm_match.cu). It searches columns, not offsets: the three dz
+neighbours of (x+dx, y+dy) hold keys q-1, q, q+1, so one lower-bound
+search per column (8 a site; the centre column is the site and its
+adjacent rows) finds all three among three consecutive rows. On tables
+of SUBM_WINDOW_MIN_ROWS rows and more each block searches short windows
+of the table staged in shared memory; smaller tables, which sit in
+L1/L2, are searched whole. The same pass writes each row's offset mask,
+from which the pyramid takes the book's row order. :func:`neighbor_match_3x3x3` launches it for a
+table on the card and takes the plain :func:`neighbor_match_columns`
+(the same algorithm) for a table on the CPU; :func:`neighbor_indices`
+(one search per offset) stays the reference.
 """
 
 from __future__ import annotations
@@ -188,12 +196,75 @@ def neighbor_indices(table: SparseTensor, offsets):
     return out
 
 
-def neighbor_match_3x3x3(table: SparseTensor):
-    """(27, V) submanifold rulebook: kernel B on the card, the plain
-    :func:`neighbor_indices` on the CPU. Equal bit for bit."""
-    if not table.coords.is_cuda:
-        return neighbor_indices(table, submanifold_offsets((3, 3, 3)))
+def neighbor_match_columns(table: SparseTensor):
+    """Kernel B's algorithm in plain PyTorch: ((27, V) int32 rulebook,
+    (V,) int64 row masks), the book equal bit for bit to
+    :func:`neighbor_indices` over the 3x3x3 offsets and bit k of mask i set
+    where ``idx[k, i] < V`` (ops/sparse_conv.row_masks of the book).
+
+    Per column (dx, dy) != (0, 0), one lower-bound search for the key t
+    of (x+dx, y+dy, z-1) gives row p; the neighbour at dz is the row among
+    p, p+1, p+2 whose key is t + 1 + dz. The centre column is the site
+    (dz = 0) and the rows before and after it where their keys are the
+    site's key -1 / +1. Out-of-grid columns, and dz = -1 / +1 at z = 0 /
+    Z-1, are masked from the coords: a shifted key there is another
+    voxel's key."""
     v = table.capacity
+    X, Y, Z = table.spatial_size
+    dev = table.device
+    keys = table.keys
+    x, y, z, b = table.coords.to(torch.int64).unbind(-1)
+    rv = table.row_valid & (b >= 0)
+    key = ((b * X + x) << 32) | (y * Z + z)
+    rows = torch.arange(v, device=dev)
+    z_ok = (z >= 1, torch.ones_like(rv), z + 1 < Z)
+    out = torch.full((27, v), v, dtype=torch.int32, device=dev)
+    masks = torch.zeros((v,), dtype=torch.int64, device=dev)
+    for dx in (-1, 0, 1):
+        for dy in (-1, 0, 1):
+            k0 = 9 * (dx + 1) + 3 * (dy + 1)
+            col_ok = (rv & (x + dx >= 0) & (x + dx < X) & (y + dy >= 0)
+                      & (y + dy < Y))
+            if dx == 0 and dy == 0:
+                near = (torch.cat([keys[:1] - 2, keys[:-1]]) == key - 1,
+                        torch.ones_like(rv),
+                        torch.cat([keys[1:], keys[-1:] + 2]) == key + 1)
+                cand = (rows - 1, rows, rows + 1)
+                pos = [torch.where(near[dz], cand[dz], v) for dz in range(3)]
+            else:
+                t = key + (dx << 32) + dy * Z - 1
+                p = torch.searchsorted(keys, t)
+                pos = [torch.full_like(p, v) for _ in range(3)]
+                for j in range(3):
+                    inside = p + j < v
+                    kj = keys[(p + j).clamp(max=v - 1)]
+                    for dz in range(j, 3):    # keys rise: t + dz at <= p + dz
+                        pos[dz] = torch.where(inside & (kj == t + dz), p + j,
+                                              pos[dz])
+            for dz in range(3):
+                idx = torch.where(col_ok & z_ok[dz], pos[dz], v)
+                out[k0 + dz] = idx.to(torch.int32)
+                masks |= (idx < v).to(torch.int64) << (k0 + dz)
+    return out, masks
+
+
+# kernel B's windows: rows of each of a block's three shared-memory
+# windows, and the table size from which they are used (below it the
+# kernel searches the whole table, which sits in L1/L2)
+SUBM_WINDOW = 1024
+SUBM_WINDOW_MIN_ROWS = 65536
+
+
+def subm_match_cuda(table: SparseTensor, window: int = None):
+    """Kernel B on the card: the contract of :func:`neighbor_match_columns`.
+    ``window`` >= 1 is the rows of each of a block's three shared-memory
+    windows (3 * 8 * window bytes; a longer window is searched in global
+    memory between its ends, with the same answers); 0 searches the whole
+    table, 8 threads a site. None: SUBM_WINDOW from SUBM_WINDOW_MIN_ROWS
+    rows, else 0."""
+    v = table.capacity
+    if window is None:
+        window = SUBM_WINDOW if v >= SUBM_WINDOW_MIN_ROWS else 0
     X, Y, Z = table.spatial_size
     coords, keys = table.coords, table.keys
     num = table.num.reshape(1)
@@ -201,17 +272,29 @@ def neighbor_match_3x3x3(table: SparseTensor):
             and keys.dtype == torch.int64 and keys.shape == (v,)
             and num.dtype == torch.int32 and coords.is_contiguous()
             and keys.is_contiguous() and keys.device == coords.device
-            and num.device == coords.device):
-        raise ValueError("neighbor_match_3x3x3: expected contiguous int32 "
-                         "coords (V, 4), int64 keys (V,) and an int32 num "
-                         "on one device")
+            and num.device == coords.device and coords.is_cuda
+            and 0 <= window and 3 * 8 * window <= cuda_lib.SHARED_BYTES):
+        raise ValueError("subm_match_cuda: expected contiguous int32 coords "
+                         "(V, 4), int64 keys (V,) and an int32 num on one "
+                         "card, and three windows that fit shared memory")
     out = torch.empty((27, v), dtype=torch.int32, device=coords.device)
+    masks = torch.empty((v,), dtype=torch.int64, device=coords.device)
     status = cuda_lib.library("subm_match").subm_match_3x3x3(
         keys.data_ptr(), coords.data_ptr(), num.data_ptr(), v, X, Y, Z,
-        out.data_ptr(), cuda_lib.stream_ptr(coords.device))
+        window, out.data_ptr(), masks.data_ptr(),
+        cuda_lib.stream_ptr(coords.device))
     cuda_lib.check("subm_match", status)
     cuda_lib.launches["subm_match"] += 1
-    return out
+    return out, masks
+
+
+def neighbor_match_3x3x3(table: SparseTensor, with_masks: bool = False):
+    """(27, V) submanifold rulebook, and with ``with_masks`` its (V,) int64
+    row masks: kernel B on the card, the plain
+    :func:`neighbor_match_columns` on the CPU. Equal bit for bit."""
+    fn = subm_match_cuda if table.coords.is_cuda else neighbor_match_columns
+    idx, masks = fn(table)
+    return (idx, masks) if with_masks else idx
 
 
 def downsample_with_rulebooks(table: SparseTensor, kernel, stride,

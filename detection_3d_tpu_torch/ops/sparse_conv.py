@@ -89,12 +89,17 @@ def row_masks(neighbor_idx, v_in: int, out_valid):
     return (real * weights[:, None]).sum(0, dtype=torch.int64)
 
 
+def masks_row_order(masks) -> RowOrder:
+    """The :class:`RowOrder` of a book whose row masks are known (kernel B
+    writes them beside the submanifold book): one stable sort."""
+    masks, perm = torch.sort(masks, stable=True)
+    return RowOrder(perm.to(torch.int32), masks)
+
+
 def rulebook_row_order(neighbor_idx, v_in: int, out_valid) -> RowOrder:
     """The :class:`RowOrder` of a (K, V_out) rulebook over a V_in-row
     input (computed once per pyramid, reused by every conv on the book)."""
-    masks, perm = torch.sort(row_masks(neighbor_idx, v_in, out_valid),
-                             stable=True)
-    return RowOrder(perm.to(torch.int32), masks)
+    return masks_row_order(row_masks(neighbor_idx, v_in, out_valid))
 
 
 def transpose_rulebook(neighbor_idx, v_in: int, out_valid):

@@ -20,6 +20,7 @@ from detection_3d_tpu.ops import sparse as jsparse
 from detection_3d_tpu_torch.config import defaults as tdefaults
 from detection_3d_tpu_torch.ops import sparse as tsparse
 from detection_3d_tpu_torch.utils.convert import convert_jax_params
+from torch_match_cases import random_coords  # noqa: F401 (shared helper)
 
 torch.set_num_threads(1)    # xdist workers must not oversubscribe the CPU
 
@@ -60,14 +61,6 @@ def tiny_cfg(mod, **kw):
 def cfg_pair(**kw):
     """(JAX config, port config) with identical values."""
     return tiny_cfg(jdefaults, **kw), tiny_cfg(tdefaults, **kw)
-
-
-def random_coords(n, spatial, seed, batch=1):
-    rng = np.random.RandomState(seed)
-    return np.stack([rng.randint(0, spatial[0], n),
-                     rng.randint(0, spatial[1], n),
-                     rng.randint(0, spatial[2], n),
-                     rng.randint(0, batch, n)], -1).astype(np.int32)
 
 
 def table_pair(coords, feats, spatial, cap, batch=1, valid=None):

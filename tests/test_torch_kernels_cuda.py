@@ -6,8 +6,9 @@ skip it there):
 
     python -m pytest --noconftest -p no:randomly -q tests/test_torch_kernels_cuda.py
 
-Tolerances: kernels B, C and D are bit exact (C: every float32 bit,
-two NaNs counted equal); kernel A and the backward (dFeats through
+Tolerances: kernels B (its book and row masks), C and D are bit exact
+(C: every float32 bit, two NaNs counted equal), B and D also with a
+shared-memory window so small that they search in global memory; kernel A and the backward (dFeats through
 kernel A on the transposed book, the dW kernel) within 1e-4 of the
 largest output in f32 (sum order) and 1e-2 in bf16 (one bf16 rounding
 of the f32 sum). The backward gives the same bits on every call.
@@ -18,17 +19,19 @@ import pytest
 import torch
 
 from detection_3d_tpu_torch.ops import cuda_lib
+from detection_3d_tpu_torch.ops.coords import INVALID
 from detection_3d_tpu_torch.ops.multi_match import (
-    conv_rulebook_match, deconv_rulebook_match, multi_match_cuda,
-    multi_match_plain)
+    MULTI_MATCH_WINDOW, conv_rulebook_match, deconv_rulebook_match,
+    multi_match_cuda, multi_match_plain)
 from detection_3d_tpu_torch.ops.rotated_iou import (
     PARK_QUERIES, PARK_TARGETS, park_invalid, rotated_iou_cuda,
     rotated_iou_plain,
 )
 from detection_3d_tpu_torch.models.backbone import bev_with_rulebook
 from detection_3d_tpu_torch.ops.sparse import (
-    build_sparse_tensor, downsample_with_rulebooks, neighbor_indices,
-    neighbor_match_3x3x3, submanifold_offsets,
+    SUBM_WINDOW, build_sparse_tensor, downsample_with_rulebooks,
+    neighbor_indices, neighbor_match_3x3x3, neighbor_match_columns,
+    submanifold_offsets, subm_match_cuda,
 )
 from detection_3d_tpu_torch.ops.sparse_conv import (
     BackwardBook, RowOrder, backward_book, gather_conv, gather_conv_backward,
@@ -37,6 +40,7 @@ from detection_3d_tpu_torch.ops.sparse_conv import (
     rulebook_row_order, sparse_conv,
 )
 from torch_iou_cases import adversarial_bev
+from torch_match_cases import MATCH_CASES
 
 pytestmark = pytest.mark.cuda
 
@@ -70,6 +74,36 @@ def test_subm_match_bit_exact(dev, case):
     want = neighbor_indices(t, submanifold_offsets((3, 3, 3)))
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+def _case_table(dev, case):
+    coords, spatial, cap, batch = MATCH_CASES[case]()
+    coords = torch.from_numpy(coords).to(dev)
+    return build_sparse_tensor(coords, torch.zeros((coords.shape[0], 0),
+                                                   device=dev),
+                               None, spatial, batch, cap)
+
+
+@pytest.mark.parametrize("window", [None, SUBM_WINDOW, 16, 1, 0])
+@pytest.mark.parametrize("case", sorted(MATCH_CASES))
+def test_subm_match_columns_bit_exact(dev, case, window):
+    """Kernel B's book and row masks against neighbor_indices, row_masks
+    and the plain column algorithm: with the wrapper's choice (None), with
+    shared-memory windows (windows of 16 or 1 rows send most or all of a
+    block's searches to global memory) and with the whole-table search
+    (0). One launch a call, the same bits on a second call."""
+    t = _case_table(dev, case)
+    before = cuda_lib.launches["subm_match"]
+    got, masks = subm_match_cuda(t, window)
+    again, masks_again = subm_match_cuda(t, window)
+    torch.cuda.synchronize()
+    assert cuda_lib.launches["subm_match"] == before + 2
+    want = neighbor_indices(t, submanifold_offsets((3, 3, 3)))
+    assert torch.equal(got, want)
+    assert torch.equal(masks, row_masks(want, t.capacity, t.row_valid))
+    plain, plain_masks = neighbor_match_columns(t)
+    assert torch.equal(got, plain) and torch.equal(masks, plain_masks)
+    assert torch.equal(again, got) and torch.equal(masks_again, masks)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -386,3 +420,43 @@ def test_multi_match_bit_exact(dev, seed):
                                      device=dev)
     assert torch.equal(multi_match_cuda(t.keys, q),
                        multi_match_plain(t.keys, q))
+
+
+def _queries(dev, kind, keys, gen):
+    """Composite queries against a table's keys: hits (real keys), misses
+    (a key + 1) and invalid ones (high half INVALID), in key order or
+    shuffled; "invalid_blocks" leaves whole 256-query blocks invalid."""
+    v = keys.shape[0]
+    rows = torch.randint(0, v, (5000,), generator=gen, device=dev)
+    q = keys[rows] + torch.randint(0, 2, (5000,), generator=gen, device=dev)
+    invalid = (INVALID << 32) | 5
+    q[::17] = invalid
+    if kind == "sorted":
+        return torch.sort(q).values
+    if kind == "invalid_blocks":
+        q = torch.sort(q).values
+        q[256:1024] = invalid
+        q[-300:] = invalid
+        return q
+    return q[torch.randperm(q.numel(), generator=gen, device=dev)]
+
+
+@pytest.mark.parametrize("window", [MULTI_MATCH_WINDOW, 8, 0])
+@pytest.mark.parametrize("kind", ["sorted", "unsorted", "invalid_blocks",
+                                  "small_table"])
+def test_multi_match_windows_bit_exact(dev, kind, window):
+    """Kernel D against multi_match_plain on sorted and unsorted queries,
+    on blocks with no valid query and on a table of fewer rows than a
+    block; a window of 8 rows sends most blocks, one of 0 every block, to
+    global memory. The same bits on a second call."""
+    t = (_table(dev, 150, 200, 9, spatial=(8, 8, 8))
+         if kind == "small_table" else _table(dev, 3000, 4096, 8))
+    gen = torch.Generator(device=dev).manual_seed(3)
+    q = _queries(dev, "unsorted" if kind == "small_table" else kind, t.keys,
+                 gen)
+    got = multi_match_cuda(t.keys, q, window)
+    want = multi_match_plain(t.keys, q)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert bool((got < t.capacity).any()) and bool((got == t.capacity).any())
+    assert torch.equal(multi_match_cuda(t.keys, q, window), got)

@@ -21,26 +21,9 @@ from test_torch_common import (  # noqa: F401
     assert_tables_equal, cfg_pair, random_coords, scene_tables,
     table_pair,
 )
+from torch_match_cases import edge_coords
 
 OFFS3 = tsparse.submanifold_offsets((3, 3, 3))
-
-
-def _edge_coords(spatial, seed):
-    """Sites packed against every face and corner of the grid, where a
-    shifted key would alias a voxel of the next column."""
-    rng = np.random.RandomState(seed)
-    X, Y, Z = spatial
-    pts = [[x, y, z, 0] for x in (0, X - 1) for y in (0, Y - 1)
-           for z in (0, Z - 1)]
-    for _ in range(400):
-        face = rng.randint(3)
-        c = [rng.randint(X), rng.randint(Y), rng.randint(Z), 0]
-        c[face] = (0, spatial[face] - 1)[rng.randint(2)]
-        pts.append(c)
-        c2 = list(c)
-        c2[2] = min(Z - 1, c2[2] + 1)
-        pts.append(c2)
-    return np.array(pts, np.int32)
 
 
 @pytest.mark.parametrize("case", ["partial", "dense", "edges", "batch2"])
@@ -51,7 +34,7 @@ def test_subm_match_bit_exact(case):
     elif case == "dense":
         coords, cap, batch = random_coords(7000, spatial, 5), 8192, 1
     elif case == "edges":
-        coords, cap, batch = _edge_coords(spatial, 3), 2048, 1
+        coords, cap, batch = edge_coords(spatial, 3), 2048, 1
     else:
         coords, cap, batch = random_coords(3000, spatial, 4, 2), 4096, 2
     feats = np.zeros((coords.shape[0], 1), np.float32)
