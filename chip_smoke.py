@@ -4,8 +4,9 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --bwd-shapes   # only the backward at every
                                          # training shape (phase 5's)
-    python3 chip_smoke.py --match-shapes # only B at every table size and
-                                         # D (phase 3's)
+    python3 chip_smoke.py --compare      # only D at every book and the
+                                         # pyramid's host time, in any
+                                         # tree of the package
 
 1. Prints the card's name and power limit (nvidia-smi).
 2. Builds the port's five CUDA sources from detection_3d_tpu_torch/csrc
@@ -25,11 +26,12 @@
    event and profiler times and a per-building sum; C (rotated IoU) bit for
    bit on an adversarial box set (every criterion, with and without the
    same-box fix) and on 2000 x 2000 boxes for criteria -1/0/1/2 with
-   identical greedy NMS keep sets; D (query-key match, windows per block
-   of queries) on the scale-0 -> scale-1 conv and deconv books, bit
-   exact against its plain version and the scatter-derived books, timed
-   on the books' queries and shuffled. Prints kernel, plain and bound
-   times, and for B and D torch.searchsorted over the same queries.
+   identical greedy NMS keep sets; D (query-key match) on the queries of
+   every conv and deconv book of the building and on the scale-0 conv
+   queries shuffled, bit exact against its plain version, with the
+   scale-0 books equal to the scatter-derived ones, timed per book and
+   summed per pyramid. Prints kernel, plain and bound times, and for B
+   and D torch.searchsorted over the same queries.
 4. Serving path at full width: full_scale_config(), seeded random
    weights, make_predict_fn + run_inference over 4 buildings of 500k
    points; checks finite outputs, true_num > 0 and that every serving
@@ -544,110 +546,98 @@ def gather_conv_bwd_training_shapes(step):
     return rows, summary
 
 
-def check_multi_match(table0, table1, crb, drb, full=True):
-    """Kernel D against its plain version and the scatter-derived books,
-    bit exact, on the full-size scale-0 -> scale-1 tables, and timed on
-    the conv book's queries (in the book's order, as the paths' callers
-    make them) beside its plain version and ``torch.searchsorted`` over
-    the same composite queries (the library call: it computes the lower
-    bound only, not the match); the profiler's device time also on the
-    deconv book's queries and on the conv queries shuffled (each block's
-    window then spans the table: the global search). With ``full``, the
-    windows of each set of queries (:func:`query_windows`) and the device
-    times with no window staged (window 0); without, the phase times
-    another tree of the package too (``--match-shapes``). The bound counts the
-    keys, the queries read and the answers written once."""
+def multi_match_queries(fine, coarse, kernel, stride):
+    """The composite queries conv_rulebook_match and deconv_rulebook_match
+    give kernel D for one downsample (fine -> coarse table), built as those
+    functions build them: (conv queries, their valid count, deconv
+    queries, their valid count)."""
     from detection_3d_tpu_torch.ops.coords import (
         INVALID, composite_key, pack_key)
+    dev = fine.device
+    st = torch.tensor([*stride, 1], dtype=torch.int32, device=dev)
+    deltas = torch.tensor([[a, b, c, 0] for a in range(kernel[0])
+                           for b in range(kernel[1])
+                           for c in range(kernel[2])], dtype=torch.int32,
+                          device=dev)
+    qhi, qlo = pack_key((coarse.coords * st)[None] + deltas[:, None],
+                        fine.spatial_size, valid=coarse.row_valid[None, :])
+    num = fine.coords[None] - deltas[:, None]
+    o = torch.div(num, st, rounding_mode="floor")
+    dhi, dlo = pack_key(o, coarse.spatial_size,
+                        valid=fine.row_valid[None, :]
+                        & (o * st == num).all(-1))
+    return (composite_key(qhi, qlo).reshape(-1), int((qhi != INVALID).sum()),
+            composite_key(dhi, dlo).reshape(-1), int((dhi != INVALID).sum()))
+
+
+def check_multi_match(tables, cfg, crb, drb):
+    """Kernel D on the queries of every conv and deconv book of a
+    full-size building's pyramid (16 launches through its own entry
+    points), and on the scale-0 conv queries shuffled: each bit exact
+    against multi_match_plain, the same bits on a second call, timed with
+    the profiler's device time beside ``torch.searchsorted`` over the same
+    composite queries (the library call: it computes the lower bound
+    only, not the match), one ``kernel D shape`` line each and the sums
+    per pyramid; the scale-0 conv and deconv books equal the
+    scatter-derived ones. The scale-0 conv queries also give the CUDA
+    event time and the plain version's. The bound counts the keys, the
+    queries read and the answers written once, or ~4 operations for each
+    of ceil(log2 V) + 1 probes per valid query. Returns the scale-0 conv
+    line and the sums. Uses only the public forms of the package, so the
+    phase times another tree of it too (``--compare``)."""
     from detection_3d_tpu_torch.ops.multi_match import (
         conv_rulebook_match, deconv_rulebook_match, multi_match_cuda,
         multi_match_plain)
-    k2 = (2, 2, 2)
-    got_c = conv_rulebook_match(table1, table0, k2, k2)
-    got_d = deconv_rulebook_match(table0, table1, k2, k2)
-    check(torch.equal(got_c, crb), "kernel D: conv book differs from the "
+    s3d = cfg.sparse3d
+    k0, st0 = s3d.kernels[0], s3d.strides[0]
+    check(torch.equal(conv_rulebook_match(tables[1], tables[0], k0, st0),
+                      crb), "kernel D: conv book differs from the "
           "scatter-derived book")
-    check(torch.equal(got_d, drb), "kernel D: deconv book differs from the "
+    check(torch.equal(deconv_rulebook_match(tables[0], tables[1], k0, st0),
+                      drb), "kernel D: deconv book differs from the "
           "scatter-derived book")
-    # the conv and deconv books' queries, as the two functions build them
-    st = torch.tensor([2, 2, 2, 1], dtype=torch.int32, device=table1.device)
-    deltas = torch.tensor([[a, b, c, 0] for a in range(2) for b in range(2)
-                           for c in range(2)], dtype=torch.int32,
-                          device=st.device)
-    qhi, qlo = pack_key((table1.coords * st)[None] + deltas[:, None],
-                        table0.spatial_size,
-                        valid=table1.row_valid[None, :])
-    q = composite_key(qhi, qlo).reshape(-1)
-    num = table0.coords[None] - deltas[:, None]
-    o = torch.div(num, st, rounding_mode="floor")
-    dhi, dlo = pack_key(o, table1.spatial_size,
-                        valid=table0.row_valid[None, :]
-                        & (o * st == num).all(-1))
-    q_deconv = composite_key(dhi, dlo).reshape(-1)
-    gen = torch.Generator(device=q.device).manual_seed(0)
-    q_shuffled = q[torch.randperm(q.numel(), generator=gen,
-                                  device=q.device)]
-    windows, times = {}, {}
-    for name, keys, qs in (("conv", table0.keys, q),
-                           ("deconv", table1.keys, q_deconv),
-                           ("shuffled", table0.keys, q_shuffled)):
+    sets = []
+    for k in range(1, s3d.num_scales):
+        fine, coarse = tables[k - 1], tables[k]
+        q, nq, qd, nqd = multi_match_queries(fine, coarse, s3d.kernels[k - 1],
+                                             s3d.strides[k - 1])
+        sets += [(f"conv {k}", fine.keys, q, nq),
+                 (f"deconv {k}", coarse.keys, qd, nqd)]
+        if k == 1:
+            gen = torch.Generator(device=q.device).manual_seed(0)
+            sets.append(("conv 1 shuffled", fine.keys, q[torch.randperm(
+                q.numel(), generator=gen, device=q.device)], nq))
+    sums = {"device_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+    lines = {}
+    for name, keys, qs, searches in sets:
         got = multi_match_cuda(keys, qs)
         check(torch.equal(got, multi_match_plain(keys, qs)),
-              "kernel D differs from multi_match_plain")
+              f"kernel D differs from multi_match_plain ({name})")
         check(torch.equal(got, multi_match_cuda(keys, qs)),
-              "kernel D: two calls differ")
-        times[f"{name}_device_ms"] = device_ms(
-            lambda: multi_match_cuda(keys, qs), ("multi_match_kernel",))
-        if full:    # also with no window staged (the global search)
-            windows[name] = query_windows(keys, qs)
-            check(torch.equal(multi_match_cuda(keys, qs, 0), got),
-                  "kernel D without staging differs")
-            times[f"{name}_device_ms_unstaged"] = device_ms(
-                lambda: multi_match_cuda(keys, qs, 0), ("multi_match_kernel",))
-    got = multi_match_cuda(table0.keys, q)
-    ms = time_ms(lambda: multi_match_cuda(table0.keys, q))
-    plain = time_ms(lambda: multi_match_plain(table0.keys, q), 3)
-    library = time_ms(lambda: torch.searchsorted(table0.keys, q))
-    v, n = table0.capacity, q.numel()
-    searches = int((qhi != INVALID).sum())
-    probes = max(1, (v - 1).bit_length()) + 1
-    b_ms, b_by = bound(v * 8 + n * 8 + n * 4, 4.0 * probes * searches,
-                       SCALAR_OPS)
-    line = {"V": v, "queries": n, "searches": searches,
-            "found": int((got < v).sum()), "max_abs_err": 0.0,
-            "tolerance": "bit exact", "ms": ms,
-            "device_ms": times["conv_device_ms"], "plain_ms": plain,
-            "library_ms": library,
-            "library_computes": "torch.searchsorted over the same "
-                                "composite queries: the lower bound only",
-            "bound_ms": b_ms, "bound_by": b_by, "windows": windows,
-            "deconv_queries": q_deconv.numel(), **times}
-    print("kernel D", json.dumps(line))
-    return line
-
-
-def query_windows(keys, queries, per_block=512):
-    """Kernel D's windows, as csrc/multi_match.cu finds them: per block of
-    ``per_block`` queries holding a valid one, the table rows from its
-    smallest valid query to its largest. Returns how many there are, how
-    many exceed the wrapper's window (searched in global memory), and
-    their largest and mean length."""
-    from detection_3d_tpu_torch.ops.coords import INVALID
-    from detection_3d_tpu_torch.ops.multi_match import MULTI_MATCH_WINDOW
-    pad = (-queries.numel()) % per_block
-    q = torch.cat([queries, queries.new_full((pad,), INVALID << 32)])
-    q = q.view(-1, per_block)
-    ok = (q >> 32) != INVALID
-    big = torch.iinfo(torch.int64).max
-    lo = torch.where(ok, q, big).amin(1)
-    hi = torch.where(ok, q, -big).amax(1)
-    any_ok = ok.any(1)
-    rows = (torch.searchsorted(keys, hi[any_ok] + 1)
-            - torch.searchsorted(keys, lo[any_ok]))
-    return {"windows": rows.numel(),
-            "over_budget": int((rows > MULTI_MATCH_WINDOW).sum()),
-            "max_rows": int(rows.max()),
-            "mean_rows": float(rows.float().mean())}
+              f"kernel D: two calls differ ({name})")
+        v, n = keys.numel(), qs.numel()
+        probes = max(1, (v - 1).bit_length()) + 1
+        b_ms, b_by = bound(v * 8 + n * 8 + n * 4, 4.0 * probes * searches,
+                           SCALAR_OPS)
+        line = {"book": name, "V": v, "queries": n, "searches": searches,
+                "found": int((got < v).sum()), "max_abs_err": 0.0,
+                "tolerance": "bit exact",
+                "device_ms": device_ms(lambda: multi_match_cuda(keys, qs),
+                                       ("multi_match_kernel",)),
+                "library_ms": time_ms(lambda: torch.searchsorted(keys, qs)),
+                "bound_ms": b_ms, "bound_by": b_by}
+        if name == "conv 1":
+            line["ms"] = time_ms(lambda: multi_match_cuda(keys, qs))
+            line["plain_ms"] = time_ms(lambda: multi_match_plain(keys, qs), 3)
+        print("kernel D shape", json.dumps(line))
+        lines[name] = line
+        if "shuffled" not in name:
+            for key in sums:
+                sums[key] += line[key] or 0.0
+    summary = {"launches_per_pyramid": len(sets) - 1,
+               **{f"sum_{k}_per_pyramid": v for k, v in sums.items()}}
+    print("kernel D per pyramid:", json.dumps(summary))
+    return lines["conv 1"], summary
 
 
 def subm_windows(table, window):
@@ -670,21 +660,19 @@ def subm_windows(table, window):
             "mean_rows": float(rows.float().mean())}
 
 
-def subm_match_shapes(tables, full=True):
+def subm_match_shapes(tables):
     """Kernel B at each table size of a full-size building (one launch per
-    scale per building): the book bit exact against neighbor_indices, the
-    same bits on a second call, timed with CUDA events and the profiler's
-    device time beside ``torch.searchsorted`` over the 27 * V composite
-    queries that neighbor_indices searches (the library call: the lower
-    bound only); with ``full`` also the row masks against row_masks, both
+    scale per building): the book bit exact against neighbor_indices and
+    the row masks against row_masks, the same bits on a second call, both
     forms of the kernel (shared-memory windows, whole-table search) held
-    and timed, the windows (:func:`subm_windows`) and the plain
-    neighbor_match_columns timed. The bound counts the keys, coords and num read and the book
-    and masks written once, or ~4 operations for each of ceil(log2 V) + 1
-    probes of a search per valid site and in-grid offset. Without
-    ``full`` only the wrapper's public form is used, so the phase times
-    another tree of the package too (``--match-shapes``). Returns (the
-    scale-0 line, the per-building summary)."""
+    and timed, the windows (:func:`subm_windows`), timed with CUDA events
+    and the profiler's device time beside the plain neighbor_match_columns
+    and ``torch.searchsorted`` over the 27 * V composite queries that
+    neighbor_indices searches (the library call: the lower bound only).
+    The bound counts the keys, coords and num read and the book and masks
+    written once, or ~4 operations for each of ceil(log2 V) + 1 probes of
+    a search per valid site and in-grid offset. Returns (the scale-0 line,
+    the per-building summary)."""
     from detection_3d_tpu_torch.ops import sparse
     from detection_3d_tpu_torch.ops.coords import composite_key, pack_key
     from detection_3d_tpu_torch.ops.sparse_conv import row_masks
@@ -695,35 +683,30 @@ def subm_match_shapes(tables, full=True):
                       "library_ms": 0.0}
     for t in tables:
         v, num = t.capacity, int(t.num)
-        got = sparse.neighbor_match_3x3x3(t)
+        got, masks = sparse.neighbor_match_3x3x3(t)
         want = sparse.neighbor_indices(t, offs)
         check(torch.equal(got, want), f"kernel B differs from "
               f"neighbor_indices at V = {v}")
-        check(torch.equal(sparse.neighbor_match_3x3x3(t), got),
+        check(torch.equal(masks, row_masks(want, v, t.row_valid)),
+              f"kernel B: row masks differ from row_masks at V = {v}")
+        again, masks_again = sparse.neighbor_match_3x3x3(t)
+        check(torch.equal(again, got) and torch.equal(masks_again, masks),
               f"kernel B: two calls differ at V = {v}")
-        line = {"V": v, "num": num}
-        if full:
-            _, masks = sparse.neighbor_match_3x3x3(t, with_masks=True)
-            check(torch.equal(masks, row_masks(want, v, t.row_valid)),
-                  f"kernel B: row masks differ from row_masks at V = {v}")
-            line["masks"] = "equal to row_masks"
-            line["windows"] = subm_windows(t, sparse.SUBM_WINDOW)
+        line = {"V": v, "num": num, "masks": "equal to row_masks",
+                "windows": subm_windows(t, sparse.SUBM_WINDOW)}
         line["ms"] = time_ms(lambda: sparse.neighbor_match_3x3x3(t))
         line["device_ms"] = device_ms(
             lambda: sparse.neighbor_match_3x3x3(t), ("subm_match_",))
-        if full:    # both of the kernel's forms, whichever the wrapper takes
-            for form, window in (("windows", sparse.SUBM_WINDOW),
-                                 ("table", 0)):
-                idx, m = sparse.subm_match_cuda(t, window)
-                check(torch.equal(idx, want) and torch.equal(m, masks),
-                      f"kernel B ({form}) differs at V = {v}")
-                line[f"device_ms_{form}"] = device_ms(
-                    lambda: sparse.subm_match_cuda(t, window),
-                    ("subm_match_",))
-            line["plain_ms"] = time_ms(
-                lambda: sparse.neighbor_match_columns(t), 2)
-            line["neighbor_indices_ms"] = time_ms(
-                lambda: sparse.neighbor_indices(t, offs), 2)
+        # both of the kernel's forms, whichever the wrapper takes
+        for form, window in (("windows", sparse.SUBM_WINDOW), ("table", 0)):
+            idx, m = sparse.subm_match_cuda(t, window)
+            check(torch.equal(idx, want) and torch.equal(m, masks),
+                  f"kernel B ({form}) differs at V = {v}")
+            line[f"device_ms_{form}"] = device_ms(
+                lambda: sparse.subm_match_cuda(t, window), ("subm_match_",))
+        line["plain_ms"] = time_ms(lambda: sparse.neighbor_match_columns(t), 2)
+        line["neighbor_indices_ms"] = time_ms(
+            lambda: sparse.neighbor_indices(t, offs), 2)
         q = composite_key(*pack_key(t.coords[None] + deltas[:, None],
                                     t.spatial_size,
                                     t.row_valid[None, :])).reshape(-1)
@@ -1269,7 +1252,7 @@ def main():
         rep_a = check_gather_conv(dev, table0, table1, crb, idx0, idx1, gen)
         rep_ab = check_gather_conv_bwd(dev, table0, table1, crb, idx0, idx1,
                                        gen)
-        rep_d = check_multi_match(table0, table1, crb, drb)
+        rep_d, rep_d_sum = check_multi_match(tables, cfg, crb, drb)
         rep_c = check_rotated_iou(dev)
         del pyr, tables, table0, table1, crb, drb, idx0, idx1
     torch.cuda.empty_cache()
@@ -1385,6 +1368,8 @@ def main():
                 "lower bound only")
         if name == "subm_match":   # the sums over the 9 tables of a building
             kernels[-1].update(rep_b_sum)
+        if name == "multi_match":  # the sums over the 16 books of a pyramid
+            kernels[-1].update(rep_d_sum)
         part = {"gather_conv_dfeats": "dfeats", "gather_conv_dw": "dw"}.get(
             name)
         if part:     # the sums over every shape of one training step
@@ -1437,12 +1422,13 @@ def bwd_shapes_main():
     return 0
 
 
-def match_shapes_main():
-    """``--match-shapes``: only kernels B and D at full width, B at every
-    table size of one building (:func:`subm_match_shapes` without
-    ``full``) and D on its conv and deconv books
-    (:func:`check_multi_match`); to time another tree of the package in
-    the same call, copy this script into it."""
+def compare_main():
+    """``--compare``: only the phases that use nothing but the package's
+    public forms, so that they run the same in another tree of it: kernel
+    D on every book of one full-size building (:func:`check_multi_match`)
+    and the host clock of its pyramid (:func:`pyramid_seconds`). To
+    compare two trees in one call, copy this script into the other and
+    run the two in turn."""
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
@@ -1455,7 +1441,7 @@ def match_shapes_main():
     dev = torch.device("cuda")
     print(f"card: {card_line()}")
     t0 = time.perf_counter()
-    cuda_lib.build(["subm_match", "multi_match"])
+    cuda_lib.build()
     print(f"build: {time.perf_counter() - t0:.1f} s")
     cfg = full_scale_config()
     scene = synthetic_multiroom(seed=100, num_points=POINTS, rooms_xy=(5, 5),
@@ -1466,14 +1452,18 @@ def match_shapes_main():
                                         for k in ("points", "feats",
                                                   "points_valid")))
         pyr = build_pyramid(table0, cfg)
-        subm_match_shapes(pyr["tables"], full=False)
-        check_multi_match(table0, pyr["tables"][1], pyr["down_rb"][0],
-                          pyr["up_rb"][-1], full=False)
+        check_multi_match(pyr["tables"], cfg, pyr["down_rb"][0],
+                          pyr["up_rb"][-1])
+        del pyr, table0
+    pyramid_seconds(cfg, scene, dev)
     print(card_line())
     return 0
 
 
-MODES = {"--bwd-shapes": bwd_shapes_main, "--match-shapes": match_shapes_main}
+MODES = {"--bwd-shapes": bwd_shapes_main, "--compare": compare_main}
 
 if __name__ == "__main__":
+    if len(sys.argv) > 2 or sys.argv[1:] and sys.argv[1] not in MODES:
+        print(__doc__.split("\n\n")[1], file=sys.stderr)
+        sys.exit(2)
     sys.exit(MODES[sys.argv[1]]() if sys.argv[1:] else main())

@@ -9,31 +9,18 @@
 //   rows carry the largest key), queries (N,) int64 composite keys, where
 //   a query whose high half is INVALID (2^31 - 1) is invalid; out (N,)
 //   int32. The table's real keys are distinct, so the lower bound is the
-//   one row that can match. The queries need not be sorted.
+//   one row that can match.
 //
-// What bounds it on an H100: reading the queries and writing the int32
-// answers (~9 us at N = 2M). A full lower-bound search per query, ~20
-// dependent probes into a key array that sits in L2, waits on L2 latency
-// instead (3.6-5.2x the bound).
+// What bounds it on an H100: N independent binary searches of
+// ceil(log2 V) + 1 dependent probes into a key array that sits in L2
+// (4 MB at V = 524288), then the int32 output write. The probes are
+// latency bound more than the bytes are.
 //
-// Design: a block of 512 queries (2 a thread) takes the min and max of
-// its valid queries (a block reduction), finds the table window [lower
-// bound of the min, lower bound of max + 1) with two warp-wide searches
-// (32 probes a round, 4 dependent loads at V = 524288), stages the window
-// in shared memory and lets each thread search there, its 2 searches in
-// lockstep (branchless, 2 loads in flight): the block's chain of
-// dependent latencies is shared by 2x the queries. A window longer than
-// the budget (an argument, so that a test can force this path) is
-// searched in global memory between its ends instead: the same answers.
-// The budget's shared memory is taken from L1, which those global
-// searches lean on: 16 KB a block leaves L1 half of the SM's 256 KB at
-// full occupancy.
-//
-// The answer is exact for any query order; it is fast where a block's
-// queries are close in key order, as the rows of conv_rulebook_match and
-// deconv_rulebook_match are (coarse coords * stride + a fixed offset is
-// monotone in the coarse key order; the deconv's inexact rows are invalid
-// and left out of the min and max). Each output is written once; the
+// Design (simple first version): one thread per query, a plain
+// lower-bound search. The TPU kernel sorts the queries so that a block's
+// keys fall in one window of the table, DMAs that window into VMEM and
+// sweeps it in 128-lane rows; a GPU reads the table through L2 at random,
+// so none of that carries over and the queries need not be sorted. The
 // kernel allocates nothing and launches on the caller's stream.
 
 #include <cuda_runtime.h>
@@ -41,168 +28,41 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kPerThread = 2;                  // queries of a thread
-constexpr int kPerBlock = kPerThread * kThreads;
-constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr long long kInvalidHi = 0x7FFFFFFFLL;
-constexpr long long kMax = 0x7FFFFFFFFFFFFFFFLL;
-constexpr long long kMin = -kMax - 1;
 
-// First index in [lo, hi) whose key is >= q, else hi. The whole warp
-// calls it with the same arguments: each round its 32 lanes probe the
-// last keys of 32 equal chunks, so the range shrinks 32-fold per load.
-__device__ int warp_lower_bound(const long long* __restrict__ keys, int lo,
-                                int hi, long long q) {
-  const int lane = threadIdx.x & 31;
-  while (hi - lo > 32) {
-    const int step = (hi - lo + 31) >> 5;
-    const int pos = lo + (lane + 1) * step - 1;
-    const bool less = pos < hi && keys[pos] < q;
-    lo += __popc(__ballot_sync(kFull, less)) * step;
-    hi = min(hi, lo + step);
-  }
-  const bool less = lane < hi - lo && keys[lo + lane] < q;
-  return lo + __popc(__ballot_sync(kFull, less));
-}
-
-// The rows of the thread's queries in the m keys of `a` (rows lo..):
-// branchless lower bounds in lockstep (kPerThread loads in flight), then
-// one compare each; `a` is the staged window, or the keys read through
-// the read-only cache.
-template <bool kShared>
-__device__ __forceinline__ void match_in(const long long* a, int m, int lo,
-                                         int v, const long long* q,
-                                         const bool* valid, int* res) {
-  const auto at = [a](int j) -> long long {
-    if constexpr (kShared)
-      return a[j];
-    else
-      return __ldg(a + j);
-  };
-  int base[kPerThread];
-#pragma unroll
-  for (int u = 0; u < kPerThread; ++u) base[u] = 0;
-  for (int len = m; len > 1;) {
-    const int half = len >> 1;
-#pragma unroll
-    for (int u = 0; u < kPerThread; ++u)
-      if (at(base[u] + half) < q[u]) base[u] += half;
-    len -= half;
-  }
-#pragma unroll
-  for (int u = 0; u < kPerThread; ++u) {
-    res[u] = v;
-    if (valid[u] && m > 0) {
-      const int p = base[u] + (at(base[u]) < q[u]);
-      if (p < m && at(p) == q[u]) res[u] = lo + p;
+__global__ void multi_match_kernel(const long long* __restrict__ keys,
+                                   const long long* __restrict__ queries,
+                                   int v, int n, int* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const long long q = queries[i];
+  int res = v;
+  if ((q >> 32) != kInvalidHi) {
+    int lo = 0;
+    int hi = v;
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (keys[mid] < q)
+        lo = mid + 1;
+      else
+        hi = mid;
     }
+    if (lo < v && keys[lo] == q) res = lo;
   }
-}
-
-__global__ void __launch_bounds__(kThreads)
-multi_match_kernel(const long long* __restrict__ keys,
-                   const long long* __restrict__ queries, int v, int n,
-                   int budget, int* __restrict__ out) {
-  extern __shared__ long long win[];
-  __shared__ long long red[2][kWarps];
-  __shared__ int bounds[2];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int first = blockIdx.x * kPerBlock;
-  long long q[kPerThread];
-  bool valid[kPerThread];
-  long long qmin = kMax, qmax = kMin;
-#pragma unroll
-  for (int u = 0; u < kPerThread; ++u) {
-    const int i = first + u * kThreads + threadIdx.x;
-    q[u] = i < n ? queries[i] : 0;
-  }
-#pragma unroll
-  for (int u = 0; u < kPerThread; ++u) {
-    const int i = first + u * kThreads + threadIdx.x;
-    valid[u] = i < n && (q[u] >> 32) != kInvalidHi;
-    if (valid[u]) {
-      qmin = q[u] < qmin ? q[u] : qmin;
-      qmax = q[u] > qmax ? q[u] : qmax;
-    }
-  }
-#pragma unroll
-  for (int s = 16; s > 0; s >>= 1) {
-    const long long a = __shfl_xor_sync(kFull, qmin, s);
-    const long long b = __shfl_xor_sync(kFull, qmax, s);
-    qmin = a < qmin ? a : qmin;
-    qmax = b > qmax ? b : qmax;
-  }
-  if (lane == 0) {
-    red[0][warp] = qmin;
-    red[1][warp] = qmax;
-  }
-  __syncthreads();
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) {
-    qmin = red[0][w] < qmin ? red[0][w] : qmin;
-    qmax = red[1][w] > qmax ? red[1][w] : qmax;
-  }
-  if (qmin > qmax) {                    // no valid query in the block
-#pragma unroll
-    for (int u = 0; u < kPerThread; ++u) {
-      const int i = first + u * kThreads + threadIdx.x;
-      if (i < n) out[i] = v;
-    }
-    return;
-  }
-  // a valid query's high half is below INVALID, so qmax + 1 cannot wrap
-  if (warp < 2) {
-    const int pos = warp_lower_bound(keys, 0, v, warp ? qmax + 1 : qmin);
-    if (lane == 0) bounds[warp] = pos;
-  }
-  __syncthreads();
-  const int lo = bounds[0], m = bounds[1] - lo;
-  const bool staged = m <= budget;
-  if (staged)
-    for (int j = threadIdx.x; j < m; j += 4 * kThreads) {
-      long long a[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-        a[u] = j + u * kThreads < m ? keys[lo + j + u * kThreads] : 0;
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-        if (j + u * kThreads < m) win[j + u * kThreads] = a[u];
-    }
-  __syncthreads();
-  int res[kPerThread];
-  if (staged)
-    match_in<true>(win, m, lo, v, q, valid, res);
-  else
-    match_in<false>(keys + lo, m, lo, v, q, valid, res);
-#pragma unroll
-  for (int u = 0; u < kPerThread; ++u) {
-    const int i = first + u * kThreads + threadIdx.x;
-    if (i < n) out[i] = res[u];
-  }
+  out[i] = res;
 }
 
 }  // namespace
 
-// budget: the rows of the shared-memory window (budget * 8 bytes of
-// dynamic shared memory per block); a longer window is searched in global
-// memory between its ends.
 extern "C" int multi_match(const void* keys, const void* queries, void* out,
-                           int v, int n, int budget, void* stream) {
-  const size_t smem = (size_t)budget * sizeof(long long);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        multi_match_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  const int blocks = (n + kPerBlock - 1) / kPerBlock;
+                           int v, int n, void* stream) {
+  const int threads = 256;
+  const int blocks = (n + threads - 1) / threads;
   if (blocks > 0)
-    multi_match_kernel<<<blocks, kThreads, smem,
+    multi_match_kernel<<<blocks, threads, 0,
                          static_cast<cudaStream_t>(stream)>>>(
         static_cast<const long long*>(keys),
-        static_cast<const long long*>(queries), v, n, budget,
+        static_cast<const long long*>(queries), v, n,
         static_cast<int*>(out));
   return static_cast<int>(cudaGetLastError());
 }

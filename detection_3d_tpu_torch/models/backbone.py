@@ -101,7 +101,7 @@ def build_pyramid(table0: SparseTensor, cfg: Config,
         down_rb.append(crb)
         up_rb_by_scale.append(drb)
         tables.append(t)
-    matched = [neighbor_match_3x3x3(t, with_masks=True) for t in tables]
+    matched = [neighbor_match_3x3x3(t) for t in tables]
     subm_idx = [idx for idx, _ in matched]
     bev, bev_order, bev_v_in = {}, {}, {}
     for slot, i_from_top in enumerate(cfg.rpn.rpn_scales_from_top):

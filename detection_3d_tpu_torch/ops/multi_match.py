@@ -13,11 +13,9 @@ own entry points.
 :func:`multi_match` launches the hand-written CUDA kernel
 (csrc/multi_match.cu) for tensors on the card and takes the plain
 :func:`multi_match_plain` (one ``searchsorted`` over the 64-bit
-composite key) for tensors on the CPU. The two are equal bit for bit.
-Unlike the TPU kernel, neither needs the queries sorted; the CUDA kernel
-is fast where a block's queries are close in key order (each block
-searches the table window between its smallest and largest valid query,
-staged in shared memory), as the rows of the two rulebooks are.
+composite key, as kernel B's plain version) for tensors on the CPU. The
+two are equal bit for bit. Unlike the TPU kernel, neither needs the
+queries sorted.
 """
 
 from __future__ import annotations
@@ -39,31 +37,20 @@ def multi_match_plain(keys, queries):
     return torch.where(found, idx, keys.shape[0]).to(torch.int32)
 
 
-MULTI_MATCH_WINDOW = 2048    # rows of kernel D's shared-memory window
-
-
-def multi_match_cuda(keys, queries, window: int = MULTI_MATCH_WINDOW):
-    """Kernel D on the card: same contract as :func:`multi_match_plain`.
-    Each block of 512 queries searches the table window between its
-    smallest and largest valid query, staged in shared memory when it
-    holds at most ``window`` rows (8 * window bytes), else (and always
-    with ``window`` 0) in global memory between its ends, with the same
-    answers."""
+def multi_match_cuda(keys, queries):
+    """Kernel D on the card: same contract as :func:`multi_match_plain`."""
     if (keys.dtype != torch.int64 or queries.dtype != torch.int64
             or keys.ndim != 1 or queries.ndim != 1
-            or keys.device != queries.device or not keys.is_cuda
-            or not 0 <= window or 8 * window > cuda_lib.SHARED_BYTES):
+            or keys.device != queries.device):
         raise ValueError("multi_match_cuda: expected int64 (V,) keys and "
-                         "(N,) queries on one card, and a window that fits "
-                         "shared memory")
+                         "(N,) queries on one device")
     keys, queries = keys.contiguous(), queries.contiguous()
     out = torch.empty(queries.shape, dtype=torch.int32, device=keys.device)
     if queries.numel() == 0:
         return out
     status = cuda_lib.library("multi_match").multi_match(
         keys.data_ptr(), queries.data_ptr(), out.data_ptr(),
-        keys.shape[0], queries.shape[0], window,
-        cuda_lib.stream_ptr(keys.device))
+        keys.shape[0], queries.shape[0], cuda_lib.stream_ptr(keys.device))
     cuda_lib.check("multi_match", status)
     cuda_lib.launches["multi_match"] += 1
     return out

@@ -24,10 +24,12 @@ adjacent rows) finds all three among three consecutive rows. On tables
 of SUBM_WINDOW_MIN_ROWS rows and more each block searches short windows
 of the table staged in shared memory; smaller tables, which sit in
 L1/L2, are searched whole. The same pass writes each row's offset mask,
-from which the pyramid takes the book's row order. :func:`neighbor_match_3x3x3` launches it for a
-table on the card and takes the plain :func:`neighbor_match_columns`
-(the same algorithm) for a table on the CPU; :func:`neighbor_indices`
-(one search per offset) stays the reference.
+from which the pyramid takes the book's row order.
+:func:`neighbor_match_3x3x3` returns the book and its masks: it launches
+kernel B for a table on the card and takes the plain
+:func:`neighbor_match_columns` (the same algorithm) for a table on the
+CPU; :func:`neighbor_indices` (one search per offset) stays the
+reference.
 """
 
 from __future__ import annotations
@@ -288,13 +290,13 @@ def subm_match_cuda(table: SparseTensor, window: int = None):
     return out, masks
 
 
-def neighbor_match_3x3x3(table: SparseTensor, with_masks: bool = False):
-    """(27, V) submanifold rulebook, and with ``with_masks`` its (V,) int64
-    row masks: kernel B on the card, the plain
-    :func:`neighbor_match_columns` on the CPU. Equal bit for bit."""
-    fn = subm_match_cuda if table.coords.is_cuda else neighbor_match_columns
-    idx, masks = fn(table)
-    return (idx, masks) if with_masks else idx
+def neighbor_match_3x3x3(table: SparseTensor):
+    """((27, V) submanifold rulebook, its (V,) int64 row masks): kernel B
+    on the card, the plain :func:`neighbor_match_columns` on the CPU.
+    Equal bit for bit."""
+    if table.coords.is_cuda:
+        return subm_match_cuda(table)
+    return neighbor_match_columns(table)
 
 
 def downsample_with_rulebooks(table: SparseTensor, kernel, stride,

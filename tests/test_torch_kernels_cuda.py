@@ -7,9 +7,10 @@ skip it there):
     python -m pytest --noconftest -p no:randomly -q tests/test_torch_kernels_cuda.py
 
 Tolerances: kernels B (its book and row masks), C and D are bit exact
-(C: every float32 bit, two NaNs counted equal), B and D also with a
-shared-memory window so small that they search in global memory; kernel A and the backward (dFeats through
-kernel A on the transposed book, the dW kernel) within 1e-4 of the
+(C: every float32 bit, two NaNs counted equal), B also with a
+shared-memory window so small that it searches in global memory; kernel
+A and the backward (dFeats through kernel A on the transposed book, the
+dW kernel) within 1e-4 of the
 largest output in f32 (sum order) and 1e-2 in bf16 (one bf16 rounding
 of the f32 sum). The backward gives the same bits on every call.
 """
@@ -21,8 +22,8 @@ import torch
 from detection_3d_tpu_torch.ops import cuda_lib
 from detection_3d_tpu_torch.ops.coords import INVALID
 from detection_3d_tpu_torch.ops.multi_match import (
-    MULTI_MATCH_WINDOW, conv_rulebook_match, deconv_rulebook_match,
-    multi_match_cuda, multi_match_plain)
+    conv_rulebook_match, deconv_rulebook_match, multi_match_cuda,
+    multi_match_plain)
 from detection_3d_tpu_torch.ops.rotated_iou import (
     PARK_QUERIES, PARK_TARGETS, park_invalid, rotated_iou_cuda,
     rotated_iou_plain,
@@ -70,10 +71,11 @@ def _table(dev, n, cap, seed, spatial=SPATIAL):
 def test_subm_match_bit_exact(dev, case):
     t = (_table(dev, 1500, 4096, 1) if case == "partial"
          else _table(dev, 7000, 8192, 5, spatial=(16, 24, 24)))
-    got = neighbor_match_3x3x3(t)
+    got, masks = neighbor_match_3x3x3(t)
     want = neighbor_indices(t, submanifold_offsets((3, 3, 3)))
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+    assert torch.equal(masks, row_masks(want, t.capacity, t.row_valid))
 
 
 def _case_table(dev, case):
@@ -112,7 +114,7 @@ def test_subm_match_columns_bit_exact(dev, case, window):
 def test_gather_conv_matches_plain(dev, dtype, kind, cin, cout):
     t = _table(dev, 3000, 4096, 2)
     if kind == "subm":
-        idx, out_t = neighbor_match_3x3x3(t), t
+        idx, out_t = neighbor_match_3x3x3(t)[0], t
     else:
         out_t, idx, _ = downsample_with_rulebooks(t, (2, 2, 2), (2, 2, 2),
                                                   2048)
@@ -146,7 +148,7 @@ def _book(dev, kind, seed=2):
     """(idx, V_in, out_valid) of one rulebook kind over a random table."""
     t = _table(dev, 3000, 4096, seed)
     if kind == "subm":
-        return neighbor_match_3x3x3(t), t.capacity, t.row_valid
+        return neighbor_match_3x3x3(t)[0], t.capacity, t.row_valid
     if kind == "bev":
         bev, rb = bev_with_rulebook(t, t.capacity)
         return rb, t.capacity, bev.row_valid
@@ -294,7 +296,7 @@ def test_gather_conv_backward_matches_plain(dev, dtype, kind, cin, cout):
     one launch each, the same bits on a second call."""
     if kind == "subm_big":   # many work items per offset
         t = _table(dev, 40000, 65536, 3, spatial=(128, 128, 64))
-        idx, v_in, valid = neighbor_match_3x3x3(t), t.capacity, t.row_valid
+        idx, v_in, valid = neighbor_match_3x3x3(t)[0], t.capacity, t.row_valid
     else:
         idx, v_in, valid = _book(dev, kind, seed=3)
     gen = torch.Generator(device=dev).manual_seed(cin + cout)
@@ -387,7 +389,7 @@ def test_gather_conv_function_on_a_pyramid_book(dev, kind):
 def test_gather_conv_function_launches_both_backward_kernels(dev):
     """No book given: the backward builds one and launches both kernels."""
     t = _table(dev, 2000, 4096, 4)
-    idx = neighbor_match_3x3x3(t)
+    idx, _ = neighbor_match_3x3x3(t)
     gen = torch.Generator(device=dev).manual_seed(0)
     feats = torch.randn((t.capacity, 16), generator=gen, device=dev)
     feats = (feats * t.row_valid[:, None]).requires_grad_()
@@ -441,22 +443,20 @@ def _queries(dev, kind, keys, gen):
     return q[torch.randperm(q.numel(), generator=gen, device=dev)]
 
 
-@pytest.mark.parametrize("window", [MULTI_MATCH_WINDOW, 8, 0])
 @pytest.mark.parametrize("kind", ["sorted", "unsorted", "invalid_blocks",
                                   "small_table"])
-def test_multi_match_windows_bit_exact(dev, kind, window):
+def test_multi_match_query_orders_bit_exact(dev, kind):
     """Kernel D against multi_match_plain on sorted and unsorted queries,
     on blocks with no valid query and on a table of fewer rows than a
-    block; a window of 8 rows sends most blocks, one of 0 every block, to
-    global memory. The same bits on a second call."""
+    block. The same bits on a second call."""
     t = (_table(dev, 150, 200, 9, spatial=(8, 8, 8))
          if kind == "small_table" else _table(dev, 3000, 4096, 8))
     gen = torch.Generator(device=dev).manual_seed(3)
     q = _queries(dev, "unsorted" if kind == "small_table" else kind, t.keys,
                  gen)
-    got = multi_match_cuda(t.keys, q, window)
+    got = multi_match_cuda(t.keys, q)
     want = multi_match_plain(t.keys, q)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
     assert bool((got < t.capacity).any()) and bool((got == t.capacity).any())
-    assert torch.equal(multi_match_cuda(t.keys, q, window), got)
+    assert torch.equal(multi_match_cuda(t.keys, q), got)

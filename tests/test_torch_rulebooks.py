@@ -41,7 +41,7 @@ def test_subm_match_bit_exact(case):
     jt, tt = table_pair(coords, feats, spatial, cap, batch=batch)
     assert_tables_equal(jt, tt)
     want = np.asarray(jsparse.neighbor_indices(jt, OFFS3))
-    got = tsparse.neighbor_match_3x3x3(tt).numpy()
+    got = tsparse.neighbor_match_3x3x3(tt)[0].numpy()
     assert got.dtype == np.int32
     np.testing.assert_array_equal(got, want)
     if batch == 1:

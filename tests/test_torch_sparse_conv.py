@@ -88,7 +88,7 @@ def test_plain_gather_conv_matches_pallas_interpret(cin):
 
 def test_sparse_conv_on_cpu_is_the_plain_version():
     _, tt = _tables()
-    idx = tsparse.neighbor_match_3x3x3(tt)
+    idx, _ = tsparse.neighbor_match_3x3x3(tt)
     rng = np.random.RandomState(0)
     feats = torch.from_numpy(rng.randn(tt.capacity, 8).astype(np.float32))
     w = torch.from_numpy(rng.randn(27, 8, 8).astype(np.float32))

@@ -43,9 +43,8 @@ def test_columns_bit_exact_against_jax(case):
     assert got.dtype == torch.int32 and masks.dtype == torch.int64
     np.testing.assert_array_equal(got.numpy(), want)
     # the CPU route of neighbor_match_3x3x3 is this function
-    idx, masks_routed = tsparse.neighbor_match_3x3x3(tt, with_masks=True)
+    idx, masks_routed = tsparse.neighbor_match_3x3x3(tt)
     assert torch.equal(idx, got) and torch.equal(masks_routed, masks)
-    assert torch.equal(tsparse.neighbor_match_3x3x3(tt), got)
 
 
 @pytest.mark.parametrize("case", ["partial", "dense", "edges", "columns",
