@@ -53,16 +53,29 @@
    max_gt x decoded proposals and gt, criterion -1), and each call is
    held bit for bit against its plain version on every pair, in
    4096-column chunks, and timed.
-6. D's own path: conv_rulebook_match / deconv_rulebook_match over every
+6. The train-and-evaluate entry point at full width and depth
+   (tools/train_net.train_and_evaluate): 2 train and 2 test houses of
+   500k points written in the reference SUNCG format and read back
+   through SUNCGDataset (points and boxes equal the buildings within
+   1e-2 voxel), one epoch with eval_in_train=1 (finite steps, the
+   train-time evaluation's gt counts), the served test houses evaluated
+   with kernel C once per (building, class) pair with detections and
+   gts (its calls held bit for bit and timed), the same predictions
+   evaluated on the CPU (AP, AIoU and rates within 1e-6), and a call with
+   only_test that resumes from the checkpoint tag (parameters bit equal,
+   detections within 1e-4). Prints the evaluator's host s/building, its
+   kernel C launches and the eval-in-train step times.
+7. D's own path: conv_rulebook_match / deconv_rulebook_match over every
    downsample of a full-size building's pyramid, bit exact against the
    scatter-derived books.
-7. Small inputs, card against CPU: one building through predict, and one
+8. Small inputs, card against CPU: one building through predict, and one
    training step with the same weights and sampler draws (losses and
    every gradient).
-8. Prints the card line, a JSON line of per-kernel numbers and, last,
+9. Prints the card line, a JSON line of per-kernel numbers and, last,
    {"ok": true, "device": {...}}.
 
-Launch counts are set to 0 just before each path and read just after;
+Launch counts are set to 0 just before each path (serve, train, eval,
+match) and read just after;
 launches made to compare a kernel with its plain version do not count.
 Any failed phase raises and exits non-zero; without CUDA, or without the
 package beside it, the script exits non-zero before printing a result.
@@ -1140,6 +1153,320 @@ def match_path(cfg, scene, dev):
     return launches
 
 
+HOUSES = 2               # train houses and test houses of the eval phase
+
+
+def write_houses(root, cfg, buildings):
+    """Reference-format SUNCG houses under ``root`` (data/suncg.py): the
+    first half of ``buildings`` as the train split, the rest as the test
+    split; each house one ``.pth`` of (pcl (N, 9) xyz in metres + colour
+    + normal, {class: (M, 7) standard boxes}), its boxes turned back
+    through ops/geometry.yx_zb_to_standard."""
+    from detection_3d_tpu_torch.ops.geometry import yx_zb_to_standard
+    names = cfg.ordered_class_names()
+    scale = cfg.sparse3d.voxel_scale
+    splits = {"train": [], "test": []}
+    for i, b in enumerate(buildings):
+        scene = f"house_{i}"
+        splits["train" if i < len(buildings) // 2 else "test"].append(scene)
+        pcl = np.c_[b["points"] / scale, b["feats"][:, 3:9]].astype(
+            np.float32)
+        std = yx_zb_to_standard(torch.from_numpy(b["gt_boxes"])).numpy()
+        boxes = {names[lab]: std[b["gt_labels"] == lab]
+                 for lab in range(1, len(names))}
+        (root / "houses" / scene).mkdir(parents=True)
+        torch.save((pcl, boxes), root / "houses" / scene / "0.pth")
+    (root / "train_test_splited").mkdir()
+    for split, scenes in splits.items():
+        (root / "train_test_splited" / f"{split}.txt").write_text(
+            "\n".join(scenes) + "\n")
+
+
+def _corner_gap(a, b):
+    """Per row, the largest distance from a BEV corner of yx_zb box ``a``
+    to the nearest corner of box ``b``: 0 for the same footprint written
+    at another quarter turn with its sizes swapped."""
+    from detection_3d_tpu_torch.ops.geometry import rbbox_corners_2d
+    ca, cb = (rbbox_corners_2d(torch.from_numpy(x[:, [0, 1, 3, 4, 6]]).to(
+        torch.float64)) for x in (a, b))
+    d = torch.cdist(ca, cb)                        # (M, 4, 4)
+    return d.min(2).values.max(1).values.numpy()
+
+
+def check_read_back(scene, building, cfg, tol_voxels=1e-2):
+    """A house read through SUNCGDataset against the building it was
+    written from: every point and every gt box (centre, z size, BEV
+    footprint) equal within ``tol_voxels`` voxels once the shift that
+    prepare_scene applies is taken out; equal labels. Returns the shift
+    (voxels) and the largest error (voxels)."""
+    scale = cfg.sparse3d.voxel_scale
+    src, got = building["points"], scene["points"]
+    check(got.shape == src.shape, f"read-back: {got.shape[0]} points of "
+          f"{src.shape[0]}")
+    shift = (got - src).mean(0)
+    err = float(np.abs(got - src - shift).max())
+    order = np.argsort(building["gt_labels"], kind="stable")
+    want_b, want_l = building["gt_boxes"][order], building["gt_labels"][order]
+    check(np.array_equal(scene["gt_labels"], want_l), "read-back: labels")
+    gb = scene["gt_boxes"].astype(np.float64)
+    moved = want_b.astype(np.float64)
+    moved[:, :3] += shift / scale
+    err = max(err,
+              float(np.abs(gb[:, :3] - moved[:, :3]).max()) * scale,
+              float(np.abs(gb[:, 5] - moved[:, 5]).max()) * scale,
+              float(_corner_gap(gb, moved).max()) * scale)
+    check(err <= tol_voxels, f"read-back: {err} voxels off (tolerance "
+          f"{tol_voxels})")
+    return float(np.abs(shift).max()), err
+
+
+class EvalRecorder:
+    """Wraps evaluate_detections where ``modules`` call it: each call runs
+    with the launch counts set to 0 just before it and read just after
+    (the counts of the path around it are kept and added back), its host
+    seconds timed, and the (building, class) pairs that hold both
+    detections and gts counted from its inputs."""
+
+    def __init__(self, *modules):
+        from detection_3d_tpu_torch.evaluation import detection_eval
+        self.modules, self.calls = modules, []
+        self.orig = detection_eval.evaluate_detections
+
+    def __enter__(self):
+        for m in self.modules:
+            m.evaluate_detections = self
+        return self
+
+    def __exit__(self, *exc):
+        for m in self.modules:
+            m.evaluate_detections = self.orig
+
+    def __call__(self, predictions, groundtruths, num_classes, *args, **kw):
+        from detection_3d_tpu_torch.ops import cuda_lib
+        outer = dict(cuda_lib.launches)
+        cuda_lib.reset_launches()
+        t0 = time.perf_counter()
+        result = self.orig(predictions, groundtruths, num_classes, *args,
+                           **kw)
+        sec = time.perf_counter() - t0
+        launches = dict(cuda_lib.launches)
+        for k, v in outer.items():
+            cuda_lib.launches[k] = v + launches[k]
+        pairs = sum(int((p["labels"] == lab).any() and
+                        (g["labels"] == lab).any())
+                    for p, g in zip(predictions, groundtruths)
+                    for lab in range(1, num_classes))
+        self.calls.append({"buildings": len(predictions), "seconds": sec,
+                           "s_per_building": sec / max(len(predictions), 1),
+                           "pairs_with_both": pairs, "launches": launches,
+                           "inputs": (predictions, groundtruths,
+                                      num_classes, args, kw),
+                           "result": result})
+        return result
+
+
+def _eval_fields_equal(got, want, tol=1e-6):
+    """AP, AIoU, missed_rate and multi_rate per class within ``tol``, NaN
+    in the same places. Returns the largest difference."""
+    worst = 0.0
+    for field in ("ap", "aiou", "missed_rate", "multi_rate"):
+        a, b = getattr(got, field), getattr(want, field)
+        check(np.array_equal(np.isnan(a), np.isnan(b)),
+              f"evaluation card vs CPU: NaNs of {field} differ: {a} vs {b}")
+        fin = ~np.isnan(b)
+        d = float(np.abs(a[fin] - b[fin]).max()) if fin.any() else 0.0
+        check(d <= tol, f"evaluation card vs CPU: {field} differs by {d}: "
+              f"{a} vs {b}")
+        worst = max(worst, d)
+    return worst
+
+
+def check_rotated_iou_eval(calls):
+    """Kernel C at the evaluator's shapes (one (gts of a class) x
+    (detections of the class) matrix per building and class, criterion
+    -1, the same-box fix), on the inputs the evaluation gave it
+    (:func:`capture_iou_calls`): held bit for bit against the plain
+    version and timed, with its bound from the pairs that meet."""
+    from detection_3d_tpu_torch.ops.rotated_iou import (
+        rotated_iou_cuda, rotated_iou_plain)
+    rows, err = [], 0.0
+    for boxes, query, crit, fix in calls:
+        n, k = boxes.shape[0], query.shape[0]
+        err = max(err, _hold_c(f"evaluator shape {n} x {k}",
+                               rotated_iou_cuda(boxes, query, crit, fix),
+                               rotated_iou_plain(boxes, query, crit, fix)))
+        meeting = int((rotated_iou_plain(boxes, query, 3) > 0).sum())
+        b_ms, b_by = bound(5 * 4 * (n + k) + n * k * 4,
+                           float(IOU_OPS_PER_PAIR) * meeting, SCALAR_OPS)
+        rows.append({"N": n, "K": k, "pairs_meeting": meeting,
+                     "ms": time_ms(lambda: rotated_iou_cuda(boxes, query,
+                                                            crit, fix)),
+                     "plain_ms": time_ms(lambda: rotated_iou_plain(
+                         boxes, query, crit, fix), 2),
+                     "bound_ms": b_ms, "bound_by": b_by})
+    line = {"calls": rows, "max_abs_err": err, "tolerance": "bit exact"}
+    for key in ("ms", "plain_ms", "bound_ms"):
+        line[f"sum_{key}"] = sum(r[key] for r in rows)
+    line["sum_device_ms"] = device_ms(
+        lambda: [rotated_iou_cuda(*c) for c in calls],
+        [SYMBOLS["rotated_iou"]])
+    print("kernel C (evaluator shapes)", json.dumps(line))
+    return line
+
+
+def train_eval_path(cfg, buildings, dev, train_s_per_step):
+    """The train-and-evaluate entry point at full width and full depth
+    (tools/train_net.train_and_evaluate, as the CLI runs it after reading
+    its YAML): HOUSES train and HOUSES test houses written in the
+    reference format and read back through SUNCGDataset, one epoch with
+    eval_in_train=1 and a checkpoint, the served test houses evaluated
+    (kernel C once per (building, class) pair with both detections and
+    gts), the same predictions evaluated again on the CPU, and a second
+    call with only_test that resumes from the tag. Launch counts are set
+    to 0 just before each call and read just after; each evaluation's
+    own counts likewise. Everything written is removed. Returns (the
+    launches of the first call's two evaluations, kernel C at the
+    evaluator's shapes)."""
+    import dataclasses
+    import shutil
+    from detection_3d_tpu_torch.data.suncg import SUNCGDataset
+    from detection_3d_tpu_torch.engine import inference, trainer as tr
+    from detection_3d_tpu_torch.evaluation.detection_eval import (
+        evaluate_detections)
+    from detection_3d_tpu_torch.ops import cuda_lib
+    from detection_3d_tpu_torch.tools.train_net import train_and_evaluate
+    root = cuda_lib.BUILD_DIR / "train_eval_smoke"   # gitignored, removed
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        write_houses(root / "data", cfg, buildings)
+        train = SUNCGDataset("train", cfg, str(root / "data"))
+        test = SUNCGDataset("test", cfg, str(root / "data"))
+        check(len(train) == len(test) == len(buildings) // 2,
+              f"read-back: {len(train)} train and {len(test)} test houses")
+        train_scenes = [train[i] for i in range(len(train))]
+        test_scenes = [test[i] for i in range(len(test))]
+        read = [check_read_back(s, b, cfg)
+                for s, b in zip(train_scenes + test_scenes, buildings)]
+        print(f"houses: {len(buildings)} written and read back through "
+              f"SUNCGDataset in {time.perf_counter() - t0:.1f} s; points "
+              f"and gt boxes equal the buildings within "
+              f"{max(e for _, e in read):.2e} voxels after a shift of at "
+              f"most {max(s for s, _ in read):.2e} voxels; labels equal")
+
+        run_cfg = cfg.replace(
+            eval_in_train=1, output_dir=str(root / "out"),
+            solver=dataclasses.replace(cfg.solver, epochs=1,
+                                       epochs_between_test=1,
+                                       checkpoint_period_epochs=1))
+        cuda_lib.reset_launches()
+        with EvalRecorder(inference, tr) as rec:
+            t0 = time.perf_counter()
+            trainer, state, preds, result = train_and_evaluate(
+                run_cfg, train_scenes, test_scenes, device=dev)
+            wall = time.perf_counter() - t0
+        launches = dict(cuda_lib.launches)
+        for i, (total, losses, ok, _) in enumerate(trainer.history):
+            check(np.isfinite(total) and all(np.isfinite(v)
+                                             for v in losses.values()),
+                  f"eval-in-train step {i}: non-finite loss {losses}")
+        check(len(trainer.history) == len(train_scenes),
+              "eval-in-train: steps missing")
+        check(trainer.last_train_eval is not None,
+              "eval-in-train: no last_train_eval")
+        n = cfg.num_classes
+        for what, res, scenes in (("eval-in-train", trainer.last_train_eval,
+                                   train_scenes),
+                                  ("served test houses", result,
+                                   test_scenes)):
+            want = np.bincount(np.concatenate(
+                [s["gt_labels"] for s in scenes]), minlength=n)
+            want[0] = 0
+            check(np.array_equal(res.n_gt, want), f"{what}: n_gt "
+                  f"{res.n_gt.tolist()} != the houses' {want.tolist()}")
+        check(len(rec.calls) == 2, f"{len(rec.calls)} evaluations, not 2")
+        for name, call in zip(("eval_in_train", "serving"), rec.calls):
+            check(call["launches"]["rotated_iou"] == call["pairs_with_both"],
+                  f"{name} evaluation: kernel C launched "
+                  f"{call['launches']['rotated_iou']} times for "
+                  f"{call['pairs_with_both']} (building, class) pairs with "
+                  "both detections and gts")
+            check(sum(call["launches"].values())
+                  == call["launches"]["rotated_iou"],
+                  f"{name} evaluation launched {call['launches']}")
+        for p in preds:
+            check(p["boxes"].shape[0] > 0 and np.isfinite(
+                p["boxes"]).all() and np.isfinite(p["scores"]).all(),
+                "served test houses: no or non-finite detections")
+
+        # the same predictions, the plain IoU on the CPU
+        p_in, g_in, nc, args, kw = rec.calls[1]["inputs"]
+        cpu = evaluate_detections(p_in, g_in, nc, *args,
+                                  **dict(kw, device="cpu"))
+        worst = _eval_fields_equal(result, cpu)
+        iou_calls = capture_iou_calls(
+            lambda: evaluate_detections(p_in, g_in, nc, *args, **kw))
+        rep_c = check_rotated_iou_eval(iou_calls)
+
+        step_s = [h[3] for h in trainer.history]
+        params = [p.detach().clone() for p in state.model.parameters()]
+        step = state.step
+        del trainer, state
+        cuda_lib.reset_launches()
+        t0 = time.perf_counter()
+        trainer2, state2, preds2, _ = train_and_evaluate(
+            run_cfg, train_scenes, test_scenes, only_test=True, device=dev)
+        wall2 = time.perf_counter() - t0
+        check(state2.step == step and not trainer2.history,
+              f"resume: step {state2.step}, expected {step} and no training")
+        check(all(torch.equal(a.detach(), b) for a, b in
+                  zip(state2.model.parameters(), params)),
+              "resume: parameters differ from the first run's final ones")
+        det_err = 0.0
+        for a, b in zip(preds, preds2):
+            ra, rb = (np.c_[x["boxes"], x["scores"], x["labels"]]
+                      for x in (a, b))
+            ra, rb = (r[np.lexsort((r[:, 7], r[:, 8]))] for r in (ra, rb))
+            check(ra.shape == rb.shape and np.array_equal(ra[:, 8], rb[:, 8]),
+                  f"resume: {rb.shape[0]} detections, first run {ra.shape[0]}")
+            det_err = max(det_err, float(np.abs(ra - rb).max()))
+        check(det_err <= 1e-4, f"resume: detections differ by {det_err}")
+        del trainer2, state2
+
+        evals = {name: {"buildings": c["buildings"], "seconds": c["seconds"],
+                        "s_per_building": c["s_per_building"],
+                        "pairs_with_both": c["pairs_with_both"],
+                        "kernel_c_launches": c["launches"]["rotated_iou"]}
+                 for name, c in zip(("eval_in_train", "serving"), rec.calls)}
+        report = {
+            "houses": {"train": len(train_scenes), "test": len(test_scenes)},
+            "wall_s": wall, "resume_wall_s": wall2,
+            "eval_in_train_step_seconds": step_s,
+            "training_path_s_per_step": train_s_per_step,
+            "evaluations": evals,
+            "card_vs_cpu_max_diff": worst, "resume_max_abs_err": det_err,
+            "launches": launches,
+            "ap": [None if np.isnan(v) else float(v) for v in result.ap],
+            "aiou": [None if np.isnan(v) else float(v) for v in result.aiou]}
+        print("train-and-evaluate path:", json.dumps(report))
+        for name, e in evals.items():
+            print(f"evaluator ({name}): {e['s_per_building']:.4f} host "
+                  f"s/building over {e['buildings']} buildings, kernel C "
+                  f"launched {e['kernel_c_launches']} times (once per "
+                  f"(building, class) pair with detections and gts)")
+        print(f"eval-in-train steps: {json.dumps(step_s)} s (host clock; "
+              f"the first warms up this trainer) beside the training "
+              f"path's {train_s_per_step:.4f} s/step; card vs CPU "
+              f"evaluation: AP, AIoU and rates within {worst:.2e}; resume: "
+              f"parameters bit equal, detections within {det_err:.2e}")
+        print(f"card: {card_line()}")
+        eval_launches = {k: sum(c["launches"][k] for c in rec.calls)
+                         for k in launches}
+        return eval_launches, rep_c
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def tiny_train_card_vs_cpu(tcfg, scene, card="cuda"):
     """One training step at the tiny config on the CPU (plain versions)
     and on the card (kernels), same weights and sampler draws. Losses
@@ -1310,6 +1637,13 @@ def main():
 
     pyramid_seconds(cfg, scenes[0], dev)
 
+    # ---- the train-and-evaluate entry point at full width ---------------
+    t0 = time.perf_counter()
+    evaluate, rep_c["evaluator_shapes"] = train_eval_path(
+        cfg, scenes[:2 * HOUSES], dev, rep_train["s_per_step"])
+    torch.cuda.empty_cache()
+    print(f"train-and-evaluate phase: {time.perf_counter() - t0:.1f} s")
+
     # ---- kernel D's own entry points ------------------------------------
     match = match_path(cfg, scenes[0], dev)
 
@@ -1355,7 +1689,8 @@ def main():
             "source": "detection_3d_tpu_torch/csrc/" + src,
             "replaces": replaces, "launches": path[name],
             "launches_by_path": {"serve": serve[name], "train": train[name],
-                                 "match": match[name]},
+                                 "match": match[name],
+                                 "eval": evaluate[name]},
             "max_abs_err": rep["max_abs_err"], "ms": rep["ms"],
             "plain_ms": rep["plain_ms"], "bound_ms": rep["bound_ms"],
             "bound_by": rep["bound_by"],

@@ -3,8 +3,10 @@
 Counterpart of detection_3d_tpu/engine/inference.py for the raw input
 form (``packed=False``): a building's padded point arrays go in, one
 packed (K, 10) f32 array ``[boxes7 | score | label | valid]`` plus the
-input layer's ``true_num`` come out. The host packers, the pipelined
-loop and the evaluator are not ported yet.
+input layer's ``true_num`` come out; ``run_inference(evaluate=True)``
+then scores the detections against the scenes' gt with
+evaluation/detection_eval.py. The host packers and the pipelined loop
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -18,6 +20,9 @@ import torch
 
 from detection_3d_tpu_torch.config.defaults import Config
 from detection_3d_tpu_torch.engine.trainer import pad_scene  # noqa: F401
+from detection_3d_tpu_torch.evaluation.detection_eval import (
+    eval_aug_thickness, evaluate_detections,
+)
 from detection_3d_tpu_torch.models.detector import SparseRCNN, voxelize_points
 from detection_3d_tpu_torch.utils.device import resolve_device
 
@@ -55,17 +60,22 @@ def make_predict_fn(cfg: Config, model: Optional[SparseRCNN] = None,
 
 def run_inference(cfg: Config, model: Optional[SparseRCNN],
                   scenes: Iterable[Dict], device="cuda",
-                  evaluate: bool = False, predict_fn=None):
+                  evaluate: bool = False, predict_fn=None, logger=None):
     """Answer a list of buildings one after another.
 
-    Returns (predictions, None, seconds_per_building): one
+    Returns (predictions, result, seconds_per_building): one
     {"boxes", "scores", "labels", "true_num"} dict per building (numpy,
-    valid rows only); the time is the host clock from the padded arrays to the
-    detections on the host, averaged over every building after the
-    first. Evaluation (``evaluate=True``) is not ported yet.
+    valid rows only); the time is the host clock from the padded arrays
+    to the detections on the host, averaged over every building after
+    the first. With ``evaluate`` (off by default, unlike the JAX
+    package's run_inference), ``result`` is the DetectionEvalResult of
+    the detections against the scenes' ``gt_boxes``/``gt_labels``, its
+    IoUs computed on ``device`` after the timed loop; else None.
+    ``logger`` gets the capacity warnings and, with ``evaluate``, the
+    summary.
     """
-    if evaluate:
-        raise NotImplementedError("the PyTorch port has no evaluator yet")
+    log = logger or _LOG
+    scenes = list(scenes)
     predict = predict_fn or make_predict_fn(cfg, model, device)
     cap0 = cfg.caps.scale_caps(cfg.sparse3d.num_scales)[0]
     preds, total_t, n_timed = [], 0.0, 0
@@ -80,7 +90,7 @@ def run_inference(cfg: Config, model: Optional[SparseRCNN],
             total_t += dt
             n_timed += 1
         if true_num > cap0:
-            _LOG.warning(
+            log.warning(
                 "scene %d: %d voxels exceed the scale-0 capacity %d — "
                 "input subsampled (raise caps.voxel_caps / max_points)",
                 i, true_num, cap0)
@@ -88,4 +98,16 @@ def run_inference(cfg: Config, model: Optional[SparseRCNN],
         preds.append({"boxes": a[v, :7], "scores": a[v, 7],
                       "labels": a[v, 8].astype(np.int32),
                       "true_num": true_num})
-    return preds, None, total_t / max(n_timed, 1)
+    sec_per_building = total_t / max(n_timed, 1)
+    result = None
+    if evaluate:
+        gts = [{"boxes": s["gt_boxes"], "labels": s["gt_labels"]}
+               for s in scenes]
+        result = evaluate_detections(
+            preds, gts, cfg.num_classes, cfg.test.iou_threshold,
+            eval_aug_thickness=eval_aug_thickness(cfg),
+            class_names=cfg.ordered_class_names(), device=device)
+        if logger:
+            logger.info("\n%s", result.summary())
+            logger.info("sec/building: %.3f", sec_per_building)
+    return preds, result, sec_per_building

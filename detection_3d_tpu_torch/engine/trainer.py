@@ -10,12 +10,13 @@ A step runs pad -> voxelize_points -> forward with gt -> sum of the four
 losses -> backward -> one fused isfinite over the loss and every
 gradient -> SGD update when finite. The uniform draws of the two
 samplers come from one ``torch.Generator`` on the device, seeded by
-``train``'s seed.
+``train``'s seed. With ``cfg.eval_in_train`` = N, every N-th epoch
+(epoch 0 included) pools each step's train-time detections and
+evaluates them at the epoch's end (``Trainer.last_train_eval``).
 
-Not ported yet: data parallelism over a mesh (ROADMAP Queue 1 item 5),
-``scan_steps`` and ``train_resident`` (they need the host packer, Queue 1
-item 1), a ``.epoch()`` loader object as ``scenes`` (the native loader,
-Queue 1 item 1) and ``eval_in_train`` (the evaluator, Queue 1 item 3).
+Not ported yet: data parallelism over a mesh, and ``scan_steps``,
+``train_resident`` and a ``.epoch()`` loader object as ``scenes``, which
+need the host packers and the native loader.
 """
 
 from __future__ import annotations
@@ -32,6 +33,9 @@ import torch
 
 from detection_3d_tpu_torch.config.defaults import Config
 from detection_3d_tpu_torch.engine.solver import Solver
+from detection_3d_tpu_torch.evaluation.detection_eval import (
+    eval_aug_thickness, evaluate_detections,
+)
 from detection_3d_tpu_torch.models.detector import SparseRCNN, voxelize_points
 from detection_3d_tpu_torch.models.structures import Boxes3D
 from detection_3d_tpu_torch.utils.checkpoint import Checkpointer
@@ -154,12 +158,7 @@ class Trainer:
                  logger=None, device="cuda", mesh=None):
         if mesh is not None:
             raise NotImplementedError(
-                "data-parallel training over a mesh is not ported yet "
-                "(ROADMAP Queue 1 item 5)")
-        if cfg.eval_in_train:
-            raise NotImplementedError(
-                "eval_in_train waits for the evaluator (ROADMAP Queue 1 "
-                "item 3)")
+                "data-parallel training over a mesh is not ported yet")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.logger = logger
@@ -173,6 +172,11 @@ class Trainer:
         # from the rotation (reference: curated SceneSamples.bad_scenes)
         self.bad_scene_strikes = 3
         self.scan_steps = 1
+        self.history = []
+        # eval_in_train: the last step's train-time detections (numpy,
+        # valid rows) and the last evaluated epoch's DetectionEvalResult
+        self.last_detections = None
+        self.last_train_eval = None
 
     def init_state(self, example_scene: Optional[Dict] = None,
                    seed: int = 0, iters_per_epoch: int = 1,
@@ -189,7 +193,7 @@ class Trainer:
     def train_resident(self, *args, **kwargs):
         raise NotImplementedError(
             "train_resident needs the host pyramid packer, which is not "
-            "ported yet (ROADMAP Queue 1 item 1)")
+            "ported yet")
 
     def _persist_bad_scenes(self, names):
         """Write the culled blocklist to <output_dir>/bad_scenes.json."""
@@ -202,13 +206,22 @@ class Trainer:
              generator: Optional[torch.Generator] = None, priorities=None):
         """One training step on a padded batch. Returns (total, losses,
         ok, true_num) as host numbers; the update is applied only when
-        ``ok`` (finite loss and gradients)."""
+        ``ok`` (finite loss and gradients). With ``cfg.eval_in_train``,
+        ``self.last_detections`` holds the step's train-time detections
+        ({boxes, scores, labels} of the valid rows, numpy)."""
         (pts, fts, valid), gt, gt_labels = batch_to_device(batch,
                                                            self.device)
         table = voxelize_points(self.cfg, pts, fts, valid)
         state.solver.zero_grad()
         losses = state.model(table, gt, gt_labels, generator=generator,
                              priorities=priorities)
+        if self.cfg.eval_in_train:
+            losses, dets = losses
+            v = dets.valid.cpu().numpy()
+            self.last_detections = {
+                "boxes": dets.boxes.cpu().numpy()[v],
+                "scores": dets.fields["scores"].cpu().numpy()[v],
+                "labels": dets.fields["labels"].cpu().numpy()[v]}
         total = total_loss(losses)
         total.backward()
         ok = grads_finite(total, state.solver.params)
@@ -228,16 +241,16 @@ class Trainer:
         fresh shuffle each epoch, one building per step. Returns the
         state; ``self.history`` holds one (total, losses, ok, seconds)
         per step, the seconds on the host clock (each step ends with the
-        losses on the host, so the clock covers its device work)."""
+        losses on the host, so the clock covers its device work). An
+        eval-in-train epoch's result lands in ``self.last_train_eval``."""
         cfg = self.cfg
         if self.scan_steps != 1:
             raise NotImplementedError(
-                "scan_steps > 1 is not ported (it needs the host packer, "
-                "ROADMAP Queue 1 item 1)")
+                "scan_steps > 1 is not ported (it needs the host packer)")
         if hasattr(scenes, "epoch"):
             raise NotImplementedError(
-                "loader objects are not ported yet (ROADMAP Queue 1 item "
-                "1): pass a list of scene dicts")
+                "loader objects are not ported yet: pass a list of scene "
+                "dicts")
         scenes = list(scenes)
         n_scenes = len(scenes)
         ckpt_period = checkpoint_period_epochs or \
@@ -253,6 +266,12 @@ class Trainer:
         it = 0
         t_start = time.time()
         for epoch in range(epochs):
+            # eval-in-train (JAX trainer.py:546-548, reference
+            # trainer_sparse3d.py:95-104,165-172): pool this epoch's
+            # train-time detections and evaluate them at its end
+            eval_this_epoch = (cfg.eval_in_train > 0
+                               and epoch % cfg.eval_in_train == 0)
+            epoch_preds, epoch_gts = [], []
             order = [i for i in shuffle_rng.permutation(n_scenes)
                      if i not in culled]
             if not order:
@@ -266,6 +285,10 @@ class Trainer:
                 total, losses, ok, true_num = self.step(state, batch, gen)
                 dt = time.perf_counter() - t0
                 self.history.append((total, losses, ok, dt))
+                if eval_this_epoch:
+                    epoch_preds.append(self.last_detections)
+                    epoch_gts.append({"boxes": scenes[si]["gt_boxes"],
+                                      "labels": scenes[si]["gt_labels"]})
                 if true_num > cap0 and self.logger:
                     self.logger.warning(
                         "iter %d: %d voxels exceed scale-0 capacity %d — "
@@ -289,10 +312,24 @@ class Trainer:
                         self._last_min_save = it
                         self._save("model_min_loss", state)
                 it += 1
+            if eval_this_epoch and epoch_preds:
+                self._evaluate_epoch(epoch, epoch_preds, epoch_gts)
             if (epoch + 1) % ckpt_period == 0:
                 self._save(f"model_{epoch:07d}", state)
         self._save("model_final", state)
         return state
+
+    def _evaluate_epoch(self, epoch, preds, gts):
+        """Evaluate an epoch's train-time detections on the trainer's
+        device into ``self.last_train_eval`` and log the summary."""
+        cfg = self.cfg
+        self.last_train_eval = evaluate_detections(
+            preds, gts, cfg.num_classes, cfg.test.iou_threshold,
+            eval_aug_thickness=eval_aug_thickness(cfg),
+            class_names=cfg.ordered_class_names(), device=self.device)
+        if self.logger:
+            self.logger.info("eval-in-train epoch %d:\n%s", epoch,
+                             self.last_train_eval.summary())
 
     def _strike(self, si, scenes, strikes, culled, culled_names, it):
         """Count a non-finite step against its scene; cull the scene from

@@ -2,14 +2,16 @@
 
 Counterpart of detection_3d_tpu/models/detector.py (reference
 sparse_rcnn.py:18-77) for one building per call and one classifier
-group: detections without gt, the four training losses with gt.
-Separate-classifier groups, ``rpn_only`` and ``eval_in_train`` are not
-ported yet; the model rejects configs that ask for them.
+group: detections without gt, the four training losses with gt (and,
+with ``cfg.eval_in_train``, the train-time detections beside them).
+Separate-classifier groups and ``rpn_only`` are not ported yet; the
+model rejects configs that ask for them.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 from typing import Dict, Optional
 
 import torch
@@ -23,6 +25,7 @@ from detection_3d_tpu_torch.models.roi_head import (
 from detection_3d_tpu_torch.models.rpn import RPN, num_anchors
 from detection_3d_tpu_torch.models.structures import Boxes3D
 from detection_3d_tpu_torch.ops.sparse import SparseTensor, build_sparse_tensor
+from detection_3d_tpu_torch.utils.checkpoint import load_jax_checkpoint
 from detection_3d_tpu_torch.utils.convert import convert_jax_params
 
 
@@ -62,7 +65,11 @@ class SparseRCNN(nn.Module):
 
     def load_jax_params(self, params):
         """Load a Flax parameter tree (nested dicts of numpy arrays, as
-        ``SparseRCNN(cfg).init`` of the JAX package returns it)."""
+        ``SparseRCNN(cfg).init`` of the JAX package returns it), or the
+        path of a ``.msgpack`` checkpoint of the JAX trainer, whose
+        ``["params"]`` it loads."""
+        if isinstance(params, (str, os.PathLike)):
+            params = load_jax_checkpoint(params)["params"]
         state = convert_jax_params(params)
         self.load_state_dict(state, strict=True)
         return self
@@ -82,7 +89,10 @@ class SparseRCNN(nn.Module):
         """One voxel table -> detections (fields scores, labels) without
         ``gt``; with ``gt`` (Boxes3D of max_gt rows) and ``gt_labels``,
         the loss dict {loss_objectness, loss_rpn_box_reg,
-        loss_classifier_roi, loss_box_reg_roi}.
+        loss_classifier_roi, loss_box_reg_roi}, and with
+        ``cfg.eval_in_train`` too, ``(losses, detections)``: the
+        train-time detections postprocessed from the sampled rows that
+        are not gt (JAX detector.py:124-136), outside the autograd graph.
 
         The two samplers draw uniform priorities from ``generator`` (a
         torch.Generator on the table's device), unless ``priorities``
@@ -90,10 +100,6 @@ class SparseRCNN(nn.Module):
         (:meth:`priority_shapes`). ``phases``, when given, is a
         PhaseTimer (utils/timing.py) that times each stage."""
         cfg = self.cfg
-        if gt is not None and cfg.eval_in_train:
-            raise NotImplementedError(
-                "eval_in_train waits for the evaluator, which the PyTorch "
-                "port does not have yet")
         timed = phases.phase if phases is not None else \
             (lambda name: contextlib.nullcontext())
         # feature compute in cfg.compute_dtype; geometry and box math f32
@@ -121,7 +127,14 @@ class SparseRCNN(nn.Module):
                 cl, bl = roi_loss(cfg, sampled, cls_logits, box_reg)
             losses["loss_classifier_roi"] = cl
             losses["loss_box_reg_roi"] = bl
-            return losses
+            if not cfg.eval_in_train:
+                return losses
+            with torch.no_grad(), timed("postprocess"):
+                nogt = Boxes3D(sampled.boxes.detach(),
+                               sampled.valid & (sampled.fields["is_gt"] < 0.5))
+                return losses, postprocess(
+                    cfg, nogt, cls_logits.detach(), box_reg.detach(),
+                    cfg.num_classes, cfg.roi_detections_per_img)
         with timed("roi_head"):
             cls_logits, box_reg = self.roi_head(roi_maps, proposals)
         with timed("postprocess"):

@@ -11,6 +11,10 @@ msgpack:
     path; the tag resolves against ``save_dir``, so a moved output
     directory still resumes;
   * ``prune(keep_last)`` deletes stale periodic snapshots.
+
+:func:`load_jax_checkpoint` reads a ``.msgpack`` file of the JAX
+package's Checkpointer (``flax.serialization.to_bytes``) with plain
+``msgpack``, so a model trained there loads into the port.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ import glob
 import os
 from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 
 
@@ -95,3 +100,40 @@ class Checkpointer:
             if self.logger:
                 self.logger.info("pruned stale checkpoint %s", p)
         return snaps
+
+
+# flax.serialization's msgpack extension codes for arrays and numpy
+# scalars; a model's state holds no other
+_EXT_NDARRAY, _EXT_NPSCALAR = 1, 3
+
+
+def _ndarray_from_bytes(data: bytes) -> np.ndarray:
+    """Flax's array encoding: packb((shape, dtype name, C-order bytes));
+    bfloat16, which numpy lacks, comes back as float32 (exact)."""
+    import msgpack
+    shape, dtype_name, buf = msgpack.unpackb(data, raw=True)
+    if dtype_name == b"bfloat16":
+        bits = np.frombuffer(buf, np.uint16).astype(np.uint32) << 16
+        return bits.view(np.float32).reshape(shape)
+    return np.frombuffer(buf, np.dtype(dtype_name.decode())).reshape(shape)
+
+
+def _ext_hook(code, data):
+    if code == _EXT_NDARRAY:
+        return _ndarray_from_bytes(data)
+    if code == _EXT_NPSCALAR:
+        return _ndarray_from_bytes(data)[()]
+    raise ValueError(f"msgpack extension {code} is not a flax array or "
+                     "numpy scalar")
+
+
+def load_jax_checkpoint(path: str) -> Dict[str, Any]:
+    """The state a JAX ``Checkpointer.save`` wrote to ``path``
+    (detection_3d_tpu/utils/checkpoint.py): nested dicts of numpy arrays
+    and scalars, as flax's state dicts hold them ({"params": {"params":
+    ...}, "opt_state": ..., "step": ...} for a trainer's checkpoint;
+    tuples such as an optax state are dicts keyed "0", "1", ...)."""
+    import msgpack
+    with open(path, "rb") as f:
+        data = f.read()
+    return msgpack.unpackb(data, ext_hook=_ext_hook, raw=False)

@@ -460,3 +460,71 @@ def test_multi_match_query_orders_bit_exact(dev, kind):
     assert torch.equal(got, want)
     assert bool((got < t.capacity).any()) and bool((got == t.capacity).any())
     assert torch.equal(multi_match_cuda(t.keys, q), got)
+
+
+def test_evaluate_detections_card_matches_cpu(dev):
+    """The evaluator with kernel C on the card against the plain IoU on
+    the CPU: 300 gts a class over three classes and two buildings, the
+    predictions jittered gts and false positives (none within 0.02 of the
+    0.2 threshold by the CPU's IoU). The match arrays, precision, recall
+    and scores are equal; AP, AIoU and the rates within 1e-6; kernel C
+    runs once per (building, class) pair. One pair's IoU within 2e-4:
+    the card's sin/cos and the CPU's may differ in the last bit, and a
+    float32 corner 40 m from the origin is only good to ~4e-6 m, which
+    moves a thin box's IoU by ~1e-4 (1.06e-4 measured on an H100; the
+    CPU tests allow 1e-4 at 20 m, tests/test_torch_evaluation.py).
+    Every comparison is made before any is asserted, so a failure
+    reports them all."""
+    from detection_3d_tpu_torch.evaluation.detection_eval import (
+        evaluate_detections)
+    from detection_3d_tpu_torch.ops.rotated_iou import boxes_iou_3d
+    rng = np.random.RandomState(11)
+    aug = {"target_Y": 0.2, "anchor_Y": 0.2, "target_Z": 0.2,
+           "anchor_Z": 0.2}
+
+    def boxes(n):
+        return np.c_[rng.uniform(0, 40, (n, 2)), rng.uniform(0, 1, n),
+                     rng.uniform(0.1, 3, (n, 2)), rng.uniform(0.5, 3, n),
+                     rng.uniform(-1.57, 1.57, n)].astype(np.float32)
+
+    preds, gts = [], []
+    for _ in range(2):
+        gb, gl, pb, pl = [], [], [], []
+        for label in (1, 2, 3):
+            g = boxes(300)
+            p = g.copy()
+            p[:, :3] += rng.normal(0, 0.1, (300, 3))
+            p[:, 6] += rng.normal(0, 0.1, 300)
+            p = np.r_[p, boxes(100)].astype(np.float32)
+            iou = boxes_iou_3d(torch.from_numpy(g), torch.from_numpy(p),
+                               aug_thickness=aug).numpy()
+            p = p[~(np.abs(iou - 0.2) < 0.02).any(0)]
+            gb += [g]
+            gl += [np.full(300, label)]
+            pb += [p]
+            pl += [np.full(len(p), label)]
+        gts.append({"boxes": np.concatenate(gb), "labels": np.concatenate(gl)})
+        pb = np.concatenate(pb)
+        preds.append({"boxes": pb, "labels": np.concatenate(pl),
+                      "scores": rng.uniform(0, 1, len(pb))})
+    kw = dict(num_classes=4, iou_thresh=0.2, eval_aug_thickness=aug)
+    want = evaluate_detections(preds, gts, device="cpu", **kw)
+    cuda_lib.reset_launches()
+    got = evaluate_detections(preds, gts, device=dev, **kw)
+    launches = cuda_lib.launches["rotated_iou"]
+    assert sorted(got.curves) == sorted(want.curves) == [1, 2, 3]
+    bad = [] if launches == 6 else [f"{launches} launches of kernel C"]
+    for label, c in want.curves.items():
+        for key in ("match", "prec", "rec", "score"):
+            if not np.array_equal(got.curves[label][key], c[key]):
+                bad.append(f"class {label}: {key} differs")
+        d = np.abs(got.curves[label]["iou"] - c["iou"]).max()
+        if d > 2e-4:
+            bad.append(f"class {label}: a pair's IoU differs by {d}")
+    for field in ("ap", "aiou", "missed_rate", "multi_rate"):
+        d = np.abs(getattr(got, field) - getattr(want, field)).max()
+        if not d <= 1e-6:
+            bad.append(f"{field} differs by {d}")
+    if not np.array_equal(got.n_gt, want.n_gt):
+        bad.append("n_gt differs")
+    assert not bad, bad

@@ -53,11 +53,15 @@ def test_every_module_imports_with_jax_blocked():
     assert int(res.stdout.split()[-1]) >= 20     # every module was reached
 
 
-def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
+def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch, tmp_path):
     from detection_3d_tpu_torch.config.defaults import Config
     from detection_3d_tpu_torch.engine.inference import (
         make_predict_fn, run_inference,
     )
+    from detection_3d_tpu_torch.evaluation.detection_eval import (
+        evaluate_detections,
+    )
+    from detection_3d_tpu_torch.tools.train_net import train_and_evaluate
     from detection_3d_tpu_torch.utils.device import resolve_device
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = Config()
@@ -65,4 +69,11 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
         make_predict_fn(cfg)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         run_inference(cfg, None, [])
+    # the evaluation after a predict of the caller's own
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run_inference(cfg, None, [], evaluate=True, predict_fn=print)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        evaluate_detections([], [], cfg.num_classes, 0.2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_and_evaluate(cfg.replace(output_dir=str(tmp_path)), [], [])
     assert resolve_device("cpu") == torch.device("cpu")

@@ -199,16 +199,23 @@ def test_two_epochs_over_two_buildings(tmp_path):
 
 
 def test_not_ported_parts_raise(tmp_path, monkeypatch):
+    """What the Trainer does not port raises; eval_in_train is ported
+    (tests/test_torch_eval_in_train.py) and constructs."""
     _, tcfg = cfg_pair()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    with pytest.raises(NotImplementedError, match="mesh"):
         Trainer(tcfg, str(tmp_path), device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="evaluator"):
-        Trainer(tcfg.replace(eval_in_train=1), str(tmp_path), device="cpu")
+    Trainer(tcfg.replace(eval_in_train=1), str(tmp_path), device="cpu")
     trainer = Trainer(tcfg, str(tmp_path), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
+    with pytest.raises(NotImplementedError, match="host pyramid packer"):
         trainer.train_resident([tiny_scene(0)], None, 1)
+
+    class Loader:
+        def epoch(self, order):
+            return iter(())
+    with pytest.raises(NotImplementedError, match="loader objects"):
+        trainer.train(Loader(), trainer.init_state(), 1)
     trainer.scan_steps = 4
-    with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
+    with pytest.raises(NotImplementedError, match="host packer"):
         trainer.train([tiny_scene(0)], trainer.init_state(), 1)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
