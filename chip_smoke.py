@@ -10,7 +10,8 @@
 
 1. Prints the card's name and power limit (nvidia-smi).
 2. Builds the port's five CUDA sources from detection_3d_tpu_torch/csrc
-   (one nvcc per source, all started together) and prints the build time.
+   (one nvcc per source, all started together) and, beside them, the C++
+   pyramid packer (g++), and prints the build time.
 3. Holds each kernel against its plain PyTorch version on the card, at
    the main paths' shapes taken from a full-size synthetic building,
    whose pyramid (serving and training forms) must take every
@@ -39,6 +40,20 @@
    kernel A at every distinct shape that building launched (against its
    plain version, with its launches, bound and mean offsets per tile
    with and without the row order).
+4b. Packed forms and pipelined serving at full width: one building's
+   host pyramid (the C++ packer, byte for byte against the numpy one)
+   unpacked on the card against build_pyramid on the same pack's table,
+   every table, book and row order bit equal (per-field mismatch counts
+   printed); its host pack times (numpy and C++, table and pyramid, the
+   C++ pyramid on 1/2/4/8 threads), bytes and copy times (pageable and
+   pinned); 6 buildings through the sequential predict of each packed
+   form (points, table, pyramid: table and pyramid within 1e-4, points
+   against table as sets, equal true_num); then
+   run_inference(pipelined=True) with 2 pack workers in pyramid and
+   table mode at batch 1 and 2, alternating with the raw sequential
+   loop, each within 1e-6 of the sequential packed predict, with
+   s/building, timings, idle share, peak memory and launches (A and C
+   in every run, B in table mode only).
 5. Training path at full width: a Trainer on the card takes 6 steps over
    6 such buildings (bf16 compute, SparseRCNN(cfg, seed=0)); checks
    finite losses, applied steps, moved parameters and that A, both A'
@@ -74,8 +89,9 @@
 9. Prints the card line, a JSON line of per-kernel numbers and, last,
    {"ok": true, "device": {...}}.
 
-Launch counts are set to 0 just before each path (serve, train, eval,
-match) and read just after;
+Launch counts are set to 0 just before each path (serve, serve_points,
+serve_table, serve_pyramid, pipelined_table, pipelined_pyramid, train,
+eval, match) and read just after;
 launches made to compare a kernel with its plain version do not count.
 Any failed phase raises and exits non-zero; without CUDA, or without the
 package beside it, the script exits non-zero before printing a result.
@@ -992,12 +1008,13 @@ def _profile(fn):
         by_name[e.name] = by_name.get(e.name, 0.0) + \
             e.time_range.elapsed_us() / 1e3
     busy = sum(by_name.values())
+    memcpy = sum(v for n, v in by_name.items() if "memcpy" in n.lower())
     span = (max(e.time_range.end for e in evs)
             - min(e.time_range.start for e in evs)) / 1e3
     ours = {k: sum(v for n, v in by_name.items() if sym in n)
             for k, sym in SYMBOLS.items()}
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
-    return {"busy_ms": busy, "span_ms": span,
+    return {"busy_ms": busy, "memcpy_ms": memcpy, "span_ms": span,
             "idle_share_of_span": 1.0 - busy / span if span > 0 else None,
             "device_activities": len(evs), "port_kernels_ms": ours,
             "top_ms": [[n[:90], v] for n, v in top]}
@@ -1517,11 +1534,350 @@ def tiny_train_card_vs_cpu(tcfg, scene, card="cuda"):
           f"tolerance ({worst_name})")
 
 
+PIPE_BUILDINGS = 6       # buildings of each pipelined run (unit 0 warms up)
+# (pack_mode, batch_size, pack_workers) of the pipelined runs, in the
+# order they run: both modes at batch 1 and 2 with the default 2
+# workers, and the pack-bound pyramid mode with 4
+PIPE_SETTINGS = (("pyramid", 1, 2), ("table", 1, 2), ("pyramid", 2, 2),
+                 ("table", 2, 2), ("pyramid", 1, 4))
+
+
+def _field_mismatches(got, want):
+    """Entries that differ (shape or dtype apart: every entry)."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        return max(got.numel(), want.numel(), 1)
+    return int((got != want).sum())
+
+
+def host_pyramid_check(cfg, scene, dev):
+    """The host pyramid of one building against the card's: the C++ pack
+    against the numpy pack_pyramid byte for byte, then unpack_pyramid of
+    the C++ pack against build_pyramid (kernel B's books and masks) on
+    unpack_table of the same pack, every table, book and row order bit
+    equal, with per-field mismatch counts. Returns the numpy pack's
+    seconds."""
+    from detection_3d_tpu_torch.data.native_packer import pack_pyramid_native
+    from detection_3d_tpu_torch.data.packing import to_device, unpack_table
+    from detection_3d_tpu_torch.data.pyramid_packing import (
+        pack_pyramid, unpack_pyramid)
+    from detection_3d_tpu_torch.models.backbone import build_pyramid
+    t0 = time.perf_counter()
+    want = pack_pyramid(cfg, scene)
+    numpy_s = time.perf_counter() - t0
+    got = pack_pyramid_native(cfg, scene)
+    check(set(got) == set(want), "C++ pack: fields differ from numpy's")
+    bytes_off = {}
+    for k in want:
+        g, w = np.asarray(got[k]), np.asarray(want[k])
+        bytes_off[k] = int(g.dtype != w.dtype or g.tobytes() != w.tobytes())
+    check(not any(bytes_off.values()), "C++ pack differs from numpy's in "
+          f"{sorted(k for k, v in bytes_off.items() if v)}")
+    with torch.inference_mode():
+        packed = to_device(got, dev)
+        host = unpack_pyramid(cfg, packed)
+        card = build_pyramid(unpack_table(cfg, packed), cfg)
+        per = {}
+        for k, (a, b) in enumerate(zip(host["tables"], card["tables"],
+                                       strict=True)):
+            for f in ("coords", "hi", "lo", "keys", "num"):
+                per[f"table{k}.{f}"] = _field_mismatches(getattr(a, f),
+                                                         getattr(b, f))
+        for key in ("subm_idx", "down_rb", "up_rb"):
+            for i, (a, b) in enumerate(zip(host[key], card[key],
+                                           strict=True)):
+                per[f"{key}[{i}]"] = _field_mismatches(a, b)
+        for key in ("subm_order", "down_order", "up_order"):
+            for i, (a, b) in enumerate(zip(host[key], card[key],
+                                           strict=True)):
+                per[f"{key}[{i}].perm"] = _field_mismatches(a.perm, b.perm)
+                per[f"{key}[{i}].masks"] = _field_mismatches(a.masks,
+                                                             b.masks)
+        for slot, (t, rb) in card["bev"].items():
+            ht, hrb = host["bev"][slot]
+            for f in ("coords", "hi", "lo", "keys", "num"):
+                per[f"bev{slot}.{f}"] = _field_mismatches(getattr(ht, f),
+                                                          getattr(t, f))
+            per[f"bev{slot}.rb"] = _field_mismatches(hrb, rb)
+            for f in ("perm", "masks"):
+                per[f"bev_order[{slot}].{f}"] = _field_mismatches(
+                    getattr(host["bev_order"][slot], f),
+                    getattr(card["bev_order"][slot], f))
+    bad = {k: v for k, v in per.items() if v}
+    print("host pyramid against the card's:", json.dumps(
+        {"fields": len(per), "fields_differing": len(bad),
+         "numpy_vs_cpp_fields_byte_equal": len(bytes_off),
+         "mismatches": per}))
+    check(not bad, f"host pyramid differs from build_pyramid's in {bad}")
+    return numpy_s
+
+
+def _nbytes(d):
+    return int(sum(np.asarray(v).nbytes for v in d.values()))
+
+
+def _spread(secs):
+    secs = sorted(secs)
+    return {"min_s": secs[0], "median_s": float(np.median(secs)),
+            "seconds": secs}
+
+
+def host_pack_times(cfg, scene, dev, numpy_pyramid_s, repeats=3):
+    """Host clock of one building's pack in each form (numpy and C++,
+    table and pyramid, the C++ pyramid on 1, 2, 4 and 8 threads), the
+    bytes each form ships, and the host->device copy of each, from
+    pageable memory and pinned (the pinning timed apart)."""
+    from detection_3d_tpu_torch.data.native_packer import (
+        pack_pyramid_native, pack_table_native)
+    from detection_3d_tpu_torch.data.packing import (
+        pack_scene, pack_table, to_device)
+    from detection_3d_tpu_torch.engine.trainer import pad_scene
+    runs = {"pad_scene (raw)": lambda: pad_scene(cfg, scene),
+            "pack_scene numpy": lambda: pack_scene(cfg, scene),
+            "pack_table numpy": lambda: pack_table(cfg, scene),
+            "pack_table C++ 1 thread": lambda: pack_table_native(cfg, scene)}
+    for n in (1, 2, 4, 8):
+        runs[f"pack_pyramid C++ {n} threads"] = \
+            lambda n=n: pack_pyramid_native(cfg, scene, n_threads=n)
+    packs, times = {}, {}
+    for name, fn in runs.items():
+        secs = []
+        for _ in range(repeats):
+            t0 = time.perf_counter()
+            packs[name] = fn()
+            secs.append(time.perf_counter() - t0)
+        times[name] = _spread(secs)
+    times["pack_pyramid numpy"] = _spread([numpy_pyramid_s])
+    forms = {"raw": packs["pad_scene (raw)"],
+             "pack_scene": packs["pack_scene numpy"],
+             "pack_table": packs["pack_table C++ 1 thread"],
+             "pack_pyramid": packs["pack_pyramid C++ 8 threads"]}
+    pyr = forms["pack_pyramid"]
+    kinds = {"subm idx": "subm", "down idx": "down", "up idx": "up",
+             "bev idx": "bev"}
+    makeup = {label: sum(v.nbytes for k, v in pyr.items()
+                         if k.startswith(pre) and k.endswith("_idx"))
+              for label, pre in kinds.items()}
+    makeup["row orders (perm + masks)"] = sum(
+        v.nbytes for k, v in pyr.items() if k.endswith(("_perm", "_masks")))
+    makeup["tables and the rest"] = _nbytes(pyr) - sum(makeup.values())
+    copies = {}
+    for form, d in forms.items():
+        plain, pin, pinned = [], [], []
+        for _ in range(repeats):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            to_device(d, dev)
+            torch.cuda.synchronize()
+            plain.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            host = {k: torch.as_tensor(v).pin_memory() for k, v in d.items()}
+            pin.append(time.perf_counter() - t0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            to_device(host, dev, non_blocking=True)
+            torch.cuda.synchronize()
+            pinned.append(time.perf_counter() - t0)
+        copies[form] = {"bytes": _nbytes(d), "pageable_copy": _spread(plain),
+                        "pin_memory": _spread(pin),
+                        "pinned_copy": _spread(pinned)}
+    line = {"pack": times, "copy": copies, "pyramid_bytes": makeup}
+    print("host pack of one building:", json.dumps(line))
+    return line
+
+
+def input_layers_check(cfg, scene, dev):
+    """The points form's input layer (pack_scene, voxelized on the card)
+    against the table form's (pack_table on the host) for one building:
+    coords, keys, num and true_num bit equal; the features' largest
+    difference (the one quantizes each point, the other each voxel
+    mean), which must stay within the two quantizations' steps."""
+    from detection_3d_tpu_torch.data.packing import (
+        pack_scene, pack_table, to_device, unpack_batch, unpack_table)
+    from detection_3d_tpu_torch.models.detector import voxelize_points
+    with torch.inference_mode():
+        b = unpack_batch(cfg, to_device(pack_scene(cfg, scene), dev))
+        pts = voxelize_points(cfg, b["points"], b["feats"], b["points_valid"])
+        tab = unpack_table(cfg, to_device(pack_table(cfg, scene), dev))
+        for f in ("coords", "hi", "lo", "keys", "num", "true_num"):
+            check(torch.equal(getattr(pts, f), getattr(tab, f)),
+                  f"points and table forms: input layer {f} differs")
+        d = (pts.feats - tab.feats)[tab.row_valid].abs().amax(0).cpu()
+    line = {"xyz_max_abs": float(d[:3].max()),
+            "rgb_max_abs": float(d[3:6].max()),
+            "normal_max_abs": float(d[6:9].max())}
+    scale = cfg.sparse3d.voxel_scale
+    check(line["xyz_max_abs"] <= (1 / 8 + 1 / 256) / scale + 1e-5
+          and line["rgb_max_abs"] <= 1 / 255 + 1e-5
+          and line["normal_max_abs"] <= 1 / 127 + 1e-5,
+          f"points and table forms: features apart by {line}")
+    return line
+
+
+def _rows_close(a, b, tol):
+    """Largest difference of two sorted valid-row sets, and the rows of
+    the larger set that have no partner within ``tol`` (all when the
+    counts differ)."""
+    if a.shape != b.shape:
+        return float("inf"), max(a.shape[0], b.shape[0])
+    if a.shape[0] == 0:
+        return 0.0, 0
+    d = np.abs(a[:, :9] - b[:, :9]).max(1)
+    return float(d.max()), int((d > tol).sum())
+
+
+def packed_serving_path(cfg, scenes, dev):
+    """The packed forms and the pipelined loop at full width.
+
+    One building's host pyramid against the card's
+    (:func:`host_pyramid_check`) and its pack times
+    (:func:`host_pack_times`). Then PIPE_BUILDINGS buildings through the
+    sequential predict of each packed form (True, "table", "pyramid";
+    launch counts set to 0 before each and read after): "table" and
+    "pyramid" must agree within 1e-4, True is held against "table" as
+    sets (the count of detections off by more than 1e-4 printed: True
+    averages its quantized points on the card), and every form must give
+    the same true_num. Then run_inference(pipelined=True) in each of
+    PIPE_SETTINGS, alternating with the raw
+    sequential run_inference: detections within 1e-6 of the sequential
+    packed predict on the same packs, A and C launched in every run, B in
+    table mode and not in pyramid mode; each run printed with s/building,
+    timings, peak memory, launches and, from a second run under the
+    profiler, the device's idle share. Returns the launches by path."""
+    from detection_3d_tpu_torch.data.native_packer import (
+        pack_pyramid_native, pack_table_native)
+    from detection_3d_tpu_torch.data.packing import pack_scene
+    from detection_3d_tpu_torch.engine.inference import (
+        make_predict_fn, run_inference)
+    from detection_3d_tpu_torch.models.detector import SparseRCNN
+    from detection_3d_tpu_torch.ops import cuda_lib
+    numpy_s = host_pyramid_check(cfg, scenes[0], dev)
+    pack_line = host_pack_times(cfg, scenes[0], dev, numpy_s)
+    main_scenes = scenes[:PIPE_BUILDINGS]
+    model = SparseRCNN(cfg, seed=0)
+    packers = {True: pack_scene, "table": pack_table_native,
+               "pyramid": pack_pyramid_native}
+    names = {True: "serve_points", "table": "serve_table",
+             "pyramid": "serve_pyramid"}
+    launches, seq = {}, {}
+    for form, pack in packers.items():
+        predict = make_predict_fn(cfg, model, device=dev, packed=form)
+        packs = [pack(cfg, s) for s in main_scenes]
+        torch.cuda.synchronize()
+        cuda_lib.reset_launches()
+        outs = [predict(p) for p in packs]
+        outs = [(o.cpu().numpy(), int(t)) for o, t in outs]
+        launches[names[form]] = dict(cuda_lib.launches)
+        seq[form] = outs
+        del packs
+    for i in range(len(main_scenes)):
+        tn = {form: seq[form][i][1] for form in packers}
+        check(len(set(tn.values())) == 1, f"building {i}: true_num by "
+              f"form {tn}")
+    points_vs_table = input_layers_check(cfg, main_scenes[0], dev)
+    form_diff = {"table_vs_pyramid_max_abs": 0.0,
+                 "points_vs_table_max_abs": 0.0,
+                 "points_vs_table_rows_off": []}
+    for i in range(len(main_scenes)):
+        rows = {form: valid_rows(torch.from_numpy(seq[form][i][0]))
+                for form in packers}
+        for form in packers:
+            check(rows[form].shape[0] > 0
+                  and bool(np.isfinite(rows[form]).all()),
+                  f"building {i}, packed={form}: no or non-finite "
+                  "detections")
+        d, off = _rows_close(rows["table"], rows["pyramid"], 1e-4)
+        check(off == 0, f"building {i}: table and pyramid forms differ by "
+              f"{d} in {off} detections")
+        form_diff["table_vs_pyramid_max_abs"] = max(
+            form_diff["table_vs_pyramid_max_abs"], d)
+        d, off = _rows_close(rows[True], rows["table"], 1e-4)
+        form_diff["points_vs_table_max_abs"] = max(
+            form_diff["points_vs_table_max_abs"], d)
+        form_diff["points_vs_table_rows_off"].append(off)
+    print("packed forms:", json.dumps(
+        {"buildings": len(main_scenes), **form_diff,
+         "points_vs_table_input_layer": points_vs_table,
+         "launches": {names[f]: launches[names[f]] for f in packers}}))
+    for form in ("table", "pyramid"):
+        ln = launches[names[form]]
+        check(ln["gather_conv"] > 0 and ln["rotated_iou"] > 0,
+              f"packed={form}: kernel A or C was not launched")
+        check((ln["subm_match"] > 0) == (form == "table"),
+              f"packed={form}: kernel B launches {ln['subm_match']}")
+
+    raw_predict = make_predict_fn(cfg, model, device=dev)
+
+    def raw_run():
+        torch.cuda.synchronize()
+        _, _, sec = run_inference(cfg, model, main_scenes, device=dev,
+                                  predict_fn=raw_predict)
+        return sec
+
+    raw_secs = [raw_run()]
+    runs = []
+    for mode, bs, workers in PIPE_SETTINGS:
+        def pipelined(timings=None):
+            torch.cuda.synchronize()
+            return run_inference(cfg, model, main_scenes, device=dev,
+                                 pipelined=True, pack_workers=workers,
+                                 pack_mode=mode, batch_size=bs,
+                                 timings=timings)
+        tm = {}
+        torch.cuda.reset_peak_memory_stats()
+        cuda_lib.reset_launches()
+        t0 = time.perf_counter()
+        preds, _, sec = pipelined(tm)
+        wall = time.perf_counter() - t0
+        ln = dict(cuda_lib.launches)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        err = 0.0
+        for i, p in enumerate(preds):
+            a, tn = seq[mode][i]
+            v = a[:, 9] > 0.5
+            check(p["true_num"] == tn and p["boxes"].shape[0] == int(v.sum())
+                  and np.array_equal(p["labels"], a[v, 8].astype(np.int32)),
+                  f"pipelined {mode} B={bs}: building {i} differs from the "
+                  "sequential packed predict")
+            err = max(err, float(np.abs(p["boxes"] - a[v, :7]).max(
+                initial=0.0)), float(np.abs(p["scores"] - a[v, 7]).max(
+                    initial=0.0)))
+        check(err <= 1e-6, f"pipelined {mode} B={bs}: max abs err {err} "
+              "against the sequential packed predict")
+        check(ln["gather_conv"] > 0 and ln["rotated_iou"] > 0,
+              f"pipelined {mode} B={bs}: kernel A or C was not launched")
+        check((ln["subm_match"] > 0) == (mode == "table"),
+              f"pipelined {mode} B={bs}: kernel B launches "
+              f"{ln['subm_match']}")
+        if bs == 1 and workers == 2:
+            launches[f"pipelined_{mode}"] = ln
+        prof = _profile(pipelined)
+        line = {"pack_mode": mode, "batch_size": bs,
+                "pack_workers": workers, "buildings": len(preds),
+                "s_per_building": sec, "wall_s": wall, "timings": tm,
+                "max_abs_err_vs_sequential": err,
+                "peak_device_memory_gib": peak, "launches": ln,
+                "profile": None if prof is None else {
+                    k: prof[k] for k in ("busy_ms", "memcpy_ms", "span_ms",
+                                         "idle_share_of_span",
+                                         "port_kernels_ms")}}
+        print("pipelined serving:", json.dumps(line))
+        runs.append(line)
+        raw_secs.append(raw_run())
+    print("raw sequential serving between the pipelined runs: "
+          + json.dumps({"s_per_building": raw_secs,
+                        "buildings": len(main_scenes)}))
+    del model
+    return launches, {"pack": pack_line, "forms": form_diff,
+                      "pipelined": runs, "raw_s_per_building": raw_secs}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
+    from concurrent.futures import ThreadPoolExecutor
     from detection_3d_tpu_torch.config.defaults import full_scale_config
+    from detection_3d_tpu_torch.data import native_packer
     from detection_3d_tpu_torch.data.synthetic import (
         synthetic_building, synthetic_multiroom)
     from detection_3d_tpu_torch.engine.inference import (
@@ -1541,10 +1897,14 @@ def main():
           f"{torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
-    per_src = cuda_lib.build()
+    with ThreadPoolExecutor(max_workers=1) as pool:   # g++ beside the nvccs
+        packer = pool.submit(native_packer.library)
+        per_src = cuda_lib.build()
+        packer.result()
     print(f"build: {time.perf_counter() - t0:.1f} s for "
           f"{len(per_src)} sources in parallel "
-          + json.dumps({k: round(v, 1) for k, v in per_src.items()}))
+          + json.dumps({k: round(v, 1) for k, v in per_src.items()})
+          + " and the C++ pyramid packer (g++)")
     for name in cuda_lib.KERNELS:
         log = cuda_lib.lib_path(name).with_suffix(".log")
         if log.exists():
@@ -1628,6 +1988,12 @@ def main():
     del model, predict
     torch.cuda.empty_cache()
 
+    # ---- the packed forms and pipelined serving at full width -----------
+    t0 = time.perf_counter()
+    packed_launches, _ = packed_serving_path(cfg, scenes, dev)
+    torch.cuda.empty_cache()
+    print(f"packed serving phase: {time.perf_counter() - t0:.1f} s")
+
     # ---- the training path at full width --------------------------------
     train, rep_train, rep_bwd, iou_calls = train_path(cfg, scenes, dev)
     torch.cuda.empty_cache()
@@ -1690,7 +2056,9 @@ def main():
             "replaces": replaces, "launches": path[name],
             "launches_by_path": {"serve": serve[name], "train": train[name],
                                  "match": match[name],
-                                 "eval": evaluate[name]},
+                                 "eval": evaluate[name],
+                                 **{path: counts[name] for path, counts
+                                    in packed_launches.items()}},
             "max_abs_err": rep["max_abs_err"], "ms": rep["ms"],
             "plain_ms": rep["plain_ms"], "bound_ms": rep["bound_ms"],
             "bound_by": rep["bound_by"],

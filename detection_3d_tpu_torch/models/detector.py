@@ -85,7 +85,7 @@ class SparseRCNN(nn.Module):
 
     def forward(self, table: SparseTensor, gt: Optional[Boxes3D] = None,
                 gt_labels=None, *, generator=None, priorities=None,
-                phases=None):
+                phases=None, pyramid=None):
         """One voxel table -> detections (fields scores, labels) without
         ``gt``; with ``gt`` (Boxes3D of max_gt rows) and ``gt_labels``,
         the loss dict {loss_objectness, loss_rpn_box_reg,
@@ -98,7 +98,12 @@ class SparseRCNN(nn.Module):
         torch.Generator on the table's device), unless ``priorities``
         hands them in as {"rpn": (N_anchors,), "roi": (R,)} tensors
         (:meth:`priority_shapes`). ``phases``, when given, is a
-        PhaseTimer (utils/timing.py) that times each stage."""
+        PhaseTimer (utils/timing.py) that times each stage.
+
+        ``pyramid``, when given, is a host-built pyramid of ``table``
+        (data/pyramid_packing.unpack_pyramid): the forward reads it
+        instead of calling build_pyramid. It carries no backward books,
+        so a forward that takes a gradient raises with it."""
         cfg = self.cfg
         timed = phases.phase if phases is not None else \
             (lambda name: contextlib.nullcontext())
@@ -109,10 +114,18 @@ class SparseRCNN(nn.Module):
             priorities = {k: torch.rand((n,), generator=generator,
                                         device=table.device)
                           for k, n in self.priority_shapes().items()}
-        with timed("pyramid"):
-            # the backward books only where a gradient will be taken
-            wants_grad = gt is not None and torch.is_grad_enabled()
-            pyramid = build_pyramid(table, cfg, backward=wants_grad)
+        # the backward books only where a gradient will be taken
+        wants_grad = gt is not None and torch.is_grad_enabled()
+        if pyramid is None:
+            with timed("pyramid"):
+                pyramid = build_pyramid(table, cfg, backward=wants_grad)
+        elif wants_grad:
+            raise NotImplementedError(
+                "a training forward on a host-packed pyramid needs the "
+                "backward books, which the host packers do not build yet "
+                "(the training input path is the next slice of the port)")
+        else:
+            pyramid = dict(pyramid, tables=[table, *pyramid["tables"][1:]])
         with timed("backbone"):
             rpn_maps, roi_maps = self.backbone(table, pyramid)
         with timed("rpn"):

@@ -528,3 +528,79 @@ def test_evaluate_detections_card_matches_cpu(dev):
     if not np.array_equal(got.n_gt, want.n_gt):
         bad.append("n_gt differs")
     assert not bad, bad
+
+
+def _tiny_served(seed):
+    """chip_smoke.py's tiny config (the parity tests' one) and a small
+    synthetic building."""
+    from chip_smoke import tiny_config
+    from detection_3d_tpu_torch.data.synthetic import synthetic_building
+    cfg = tiny_config()
+    return cfg, synthetic_building(seed=seed, num_points=6000, room=6.0,
+                                   classes=cfg.classes, voxel_scale=20)
+
+
+def test_host_pyramid_on_card_matches_build_pyramid(dev):
+    """The C++ packer's pyramid, unpacked on the card, against
+    build_pyramid on the card (kernel B's books and masks) for the same
+    pack's table: every table, book and row order bit equal."""
+    from detection_3d_tpu_torch.data.native_packer import pack_pyramid_native
+    from detection_3d_tpu_torch.data.packing import to_device, unpack_table
+    from detection_3d_tpu_torch.data.pyramid_packing import unpack_pyramid
+    from detection_3d_tpu_torch.models.backbone import build_pyramid
+    cfg, scene = _tiny_served(3)
+    packed = to_device(pack_pyramid_native(cfg, scene), dev)
+    got = unpack_pyramid(cfg, packed)
+    before = cuda_lib.launches["subm_match"]
+    want = build_pyramid(unpack_table(cfg, packed), cfg)
+    torch.cuda.synchronize()
+    assert cuda_lib.launches["subm_match"] == before + cfg.sparse3d.num_scales
+    for a, b in zip(got["tables"], want["tables"], strict=True):
+        for f in ("coords", "hi", "lo", "keys", "num"):
+            assert torch.equal(getattr(a, f), getattr(b, f)), f
+    for key in ("subm_idx", "down_rb", "up_rb"):
+        for a, b in zip(got[key], want[key], strict=True):
+            assert torch.equal(a, b), key
+    for key in ("subm_order", "down_order", "up_order"):
+        for a, b in zip(got[key], want[key], strict=True):
+            assert torch.equal(a.perm, b.perm) and torch.equal(a.masks,
+                                                               b.masks), key
+    for slot, (t, rb) in want["bev"].items():
+        gt, grb = got["bev"][slot]
+        assert torch.equal(gt.coords, t.coords) and torch.equal(grb, rb)
+        assert torch.equal(got["bev_order"][slot].perm,
+                           want["bev_order"][slot].perm)
+        assert torch.equal(got["bev_order"][slot].masks,
+                           want["bev_order"][slot].masks)
+
+
+@pytest.mark.parametrize("batch_size", [1, 2])
+@pytest.mark.parametrize("pack_mode", ["pyramid", "table"])
+def test_pipelined_on_card_matches_sequential(dev, pack_mode, batch_size):
+    """run_inference(pipelined=True) on the card, whose pack workers copy
+    on their own streams, against the sequential packed predict on the
+    same C++ packs, within 1e-6; kernel B runs in table mode only."""
+    from detection_3d_tpu_torch.data.native_packer import (
+        pack_pyramid_native, pack_table_native)
+    from detection_3d_tpu_torch.engine.inference import (
+        make_predict_fn, run_inference)
+    from detection_3d_tpu_torch.models.detector import SparseRCNN
+    cfg, _ = _tiny_served(0)
+    scenes = [_tiny_served(s)[1] for s in range(3)]
+    model = SparseRCNN(cfg, seed=0)
+    pack = {"pyramid": pack_pyramid_native, "table": pack_table_native}
+    predict = make_predict_fn(cfg, model, device=dev, packed=pack_mode)
+    want = [predict(pack[pack_mode](cfg, s)) for s in scenes]
+    cuda_lib.reset_launches()
+    preds, _, _ = run_inference(cfg, model, scenes, device=dev,
+                                pipelined=True, pack_mode=pack_mode,
+                                batch_size=batch_size)
+    launches = dict(cuda_lib.launches)
+    assert launches["gather_conv"] > 0 and launches["rotated_iou"] > 0
+    assert (launches["subm_match"] > 0) == (pack_mode == "table")
+    for p, (out, true_num) in zip(preds, want, strict=True):
+        a = out.cpu().numpy()
+        v = a[:, 9] > 0.5
+        assert p["true_num"] == int(true_num)
+        np.testing.assert_allclose(p["boxes"], a[v, :7], atol=1e-6, rtol=0)
+        np.testing.assert_allclose(p["scores"], a[v, 7], atol=1e-6, rtol=0)

@@ -45,18 +45,23 @@ def test_every_module_imports_with_jax_blocked():
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "import chip_smoke\n"
+        "print(' '.join(names))\n"
         "print(len(names))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     assert int(res.stdout.split()[-1]) >= 20     # every module was reached
+    # the host input path and its C++ packer's wrapper among them
+    for mod in ("data.packing", "data.pyramid_packing", "data.native_packer",
+                "engine.inference"):
+        assert f"detection_3d_tpu_torch.{mod}" in res.stdout.split(), mod
 
 
 def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch, tmp_path):
     from detection_3d_tpu_torch.config.defaults import Config
     from detection_3d_tpu_torch.engine.inference import (
-        make_predict_fn, run_inference,
+        make_batch_predict_fn, make_predict_fn, run_inference,
     )
     from detection_3d_tpu_torch.evaluation.detection_eval import (
         evaluate_detections,
@@ -69,6 +74,15 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch, tmp_path):
         make_predict_fn(cfg)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         run_inference(cfg, None, [])
+    # the packed and pipelined serving forms
+    for packed in (True, "table", "pyramid"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make_predict_fn(cfg, packed=packed)
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make_batch_predict_fn(cfg, packed=packed)
+    for mode in ("pyramid", "table"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            run_inference(cfg, None, [], pipelined=True, pack_mode=mode)
     # the evaluation after a predict of the caller's own
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         run_inference(cfg, None, [], evaluate=True, predict_fn=print)
