@@ -11,7 +11,7 @@
 1. Prints the card's name and power limit (nvidia-smi).
 2. Builds the port's five CUDA sources from detection_3d_tpu_torch/csrc
    (one nvcc per source, all started together) and, beside them, the C++
-   pyramid packer (g++), and prints the build time.
+   pyramid packer and scene loader (g++), and prints the build time.
 3. Holds each kernel against its plain PyTorch version on the card, at
    the main paths' shapes taken from a full-size synthetic building,
    whose pyramid (serving and training forms) must take every
@@ -57,8 +57,10 @@
 5. Training path at full width: a Trainer on the card takes 6 steps over
    6 such buildings (bf16 compute, SparseRCNN(cfg, seed=0)); checks
    finite losses, applied steps, moved parameters and that A, both A'
-   kernels, B and C were launched. Prints s/step, peak memory, the losses
-   of each step and a device profile of one more step. One more step
+   kernels, B and C were launched. Prints s/step (the trainer's history:
+   a scene's fetch and padding through its losses on the host), padding
+   alone, peak memory, the losses of each step and a device profile of
+   one more step. One more step
    keeps the inputs of every backward call: at each distinct shape,
    dFeats and dW are held against gather_conv_backward, run twice for
    identical bits and timed beside it, with a per-step sum of each, and
@@ -68,6 +70,26 @@
    max_gt x decoded proposals and gt, criterion -1), and each call is
    held bit for bit against its plain version on every pair, in
    4096-column chunks, and timed.
+5b. The training input path at full width: the 6 buildings written as
+   scene packs (bytes, write time) and read back through the C++
+   NativeSceneLoader (equal to read_scene_pack); one epoch over the
+   loader and one over the list, alternating, twice each with the same
+   seed (the same scene order, finite and applied steps, s/step); one
+   building's training pack (pack_pyramid_native(..., backward=True))
+   byte for byte against the numpy one and unpacked on the card against
+   build_pyramid(..., backward=True), every BackwardBook field bit equal
+   (per-field mismatch counts), with the backward fields' bytes and the
+   pack times with and without them; the packed training forward and
+   backward against the table-form one with the same weights and draws
+   (under torch's deterministic algorithms the same bits, losses and
+   gradients, as the table form against itself; in the default mode the
+   losses within 1e-4 and the gradients' spread printed); Trainer.step(packed=
+   "pyramid"); train_resident over the 6 buildings, chunk 6, 2 epochs
+   (pack time, resident MB, s/step per chunk, peak memory, non-finite
+   count, one more chunk under the profiler); scan_steps = 3 over the
+   list. A, dFeats, dW and C must launch on every one of these paths, B
+   on the loader, list and scanned ones and not on the packed and
+   resident ones.
 6. The train-and-evaluate entry point at full width and depth
    (tools/train_net.train_and_evaluate): 2 train and 2 test houses of
    500k points written in the reference SUNCG format and read back
@@ -91,6 +113,7 @@
 
 Launch counts are set to 0 just before each path (serve, serve_points,
 serve_table, serve_pyramid, pipelined_table, pipelined_pyramid, train,
+train_loader, train_list, train_packed, train_resident, train_scan,
 eval, match) and read just after;
 launches made to compare a kernel with its plain version do not count.
 Any failed phase raises and exits non-zero; without CUDA, or without the
@@ -1072,16 +1095,24 @@ def train_path(cfg, scenes, dev):
     check(moved > 0, "training: the parameters did not change")
     secs = [h[3] for h in trainer.history]
     sec = sum(secs[1:]) / max(len(secs) - 1, 1)
+    pad_secs = []               # padding alone, part of each step's span
+    for sc in scenes[:TRAIN_STEPS]:
+        t1 = time.perf_counter()
+        pad_scene(cfg, sc)
+        pad_secs.append(time.perf_counter() - t1)
+    pad_s = float(np.median(pad_secs))
     report = {"steps": len(secs), "applied": state.solver.count,
               "s_per_step": sec, "step_seconds": secs, "wall_s": wall,
+              "pad_scene_median_s": pad_s,
               "peak_device_memory_gib": peak_gb,
               "parameters_moved": moved,
               "parameters": len(before),
               "losses": [h[1] for h in trainer.history]}
     print("training path:", json.dumps(report))
     print(f"training path: {sec:.4f} s/step over steps 2..{len(secs)} "
-          f"(host clock, synchronised: padded arrays in -> losses on the "
-          f"host, backward and update included), peak device memory "
+          f"(host clock, synchronised: scene fetched and padded -> losses "
+          f"on the host, backward and update included; padding alone "
+          f"{pad_s:.4f} s median), peak device memory "
           f"{peak_gb:.2f} GiB, launches {json.dumps(launches)}")
     gen = torch.Generator(device=dev).manual_seed(1)
     batch = pad_scene(cfg, scenes[-1])
@@ -1871,13 +1902,423 @@ def packed_serving_path(cfg, scenes, dev):
                       "pipelined": runs, "raw_s_per_building": raw_secs}
 
 
+INPUT_BUILDINGS = 6      # the training-input phase's epoch (6 steps)
+RESIDENT_CHUNK = 6       # train_resident: 2 epochs, one chunk each
+RESIDENT_EPOCHS = 2
+SCAN_K = 3               # scan_steps of the scanned epoch
+INPUT_RUNS = 2           # alternating loader / list epochs of each form
+BWD_BOOK_FIELDS = ("t_idx", "entries", "starts")
+
+
+def scene_packs_check(scenes, root):
+    """Write ``scenes`` as scene packs under ``root`` (bytes and write
+    time), then read them back through NativeSceneLoader and hold every
+    array against read_scene_pack. Returns (paths, report)."""
+    from detection_3d_tpu_torch.data.native_loader import NativeSceneLoader
+    from detection_3d_tpu_torch.data.scene_pack import (
+        read_scene_pack, write_scene_pack)
+    root.mkdir(parents=True, exist_ok=True)
+    paths = [str(root / f"train_{i:06d}.spk") for i in range(len(scenes))]
+    t0 = time.perf_counter()
+    for path, scene in zip(paths, scenes):
+        write_scene_pack(path, scene)
+    write_s = time.perf_counter() - t0
+    loader = NativeSceneLoader(paths, n_prefetch=4, n_threads=2)
+    t0 = time.perf_counter()
+    got = list(loader.epoch())
+    read_s = time.perf_counter() - t0
+    loader.close()
+    for i, (g, path) in enumerate(zip(got, paths)):
+        want = read_scene_pack(path)
+        check(list(g) == list(want) and all(
+            g[k].dtype == want[k].dtype and np.array_equal(g[k], want[k])
+            for k in want), f"scene pack {i}: the C++ loader differs from "
+              "read_scene_pack")
+    report = {"files": len(paths),
+              "bytes": sum(Path(p).stat().st_size for p in paths),
+              "write_s": write_s, "loader_read_s": read_s}
+    print("scene packs:", json.dumps(report))
+    return paths, report
+
+
+def host_training_pyramid_check(cfg, scene, dev, repeats=3):
+    """One building's training pack (pack_pyramid_native(...,
+    backward=True)) byte for byte against the numpy pack, unpacked on the
+    card with its backward books against build_pyramid(..., backward=
+    True) on unpack_table of the same pack: every BackwardBook field
+    (t_idx, entries, starts, t_order's perm and masks, reversed) bit
+    equal, with per-field mismatch counts. Prints the backward fields'
+    bytes and the pack times with and without them. Returns the C++
+    pack."""
+    from detection_3d_tpu_torch.data.native_packer import pack_pyramid_native
+    from detection_3d_tpu_torch.data.packing import to_device, unpack_table
+    from detection_3d_tpu_torch.data.pyramid_packing import (
+        pack_pyramid, pyramid_pack_spec, unpack_pyramid)
+    from detection_3d_tpu_torch.models.backbone import build_pyramid
+    t0 = time.perf_counter()
+    want = pack_pyramid(cfg, scene, backward=True)
+    numpy_s = time.perf_counter() - t0
+    times = {False: [], True: []}
+    for _ in range(repeats):
+        for backward in (False, True):
+            t0 = time.perf_counter()
+            got = pack_pyramid_native(cfg, scene, backward=backward)
+            times[backward].append(time.perf_counter() - t0)
+    check(set(got) == set(want), "C++ training pack: fields differ from "
+          "numpy's")
+    off = sorted(k for k in want
+                 if np.asarray(got[k]).dtype != np.asarray(want[k]).dtype
+                 or np.asarray(got[k]).tobytes()
+                 != np.asarray(want[k]).tobytes())
+    check(not off, f"C++ training pack differs from numpy's in {off}")
+    serving = set(pyramid_pack_spec(cfg))
+    extra = {k: v for k, v in got.items()
+             if k in pyramid_pack_spec(cfg, backward=True)
+             and k not in serving}
+    per = {}
+    with torch.inference_mode():
+        packed = to_device(got, dev)
+        host = unpack_pyramid(cfg, packed, backward=True)
+        card = build_pyramid(unpack_table(cfg, packed), cfg, backward=True)
+        pairs = [(f"{key}[{i}]", a, b)
+                 for key in ("subm_bwd", "down_bwd", "up_bwd")
+                 for i, (a, b) in enumerate(zip(host[key], card[key],
+                                                strict=True))]
+        pairs += [(f"bev_bwd[{s}]", host["bev_bwd"][s], card["bev_bwd"][s])
+                  for s in card["bev_bwd"]]
+        for name, a, b in pairs:
+            for f in BWD_BOOK_FIELDS:
+                per[f"{name}.{f}"] = _field_mismatches(getattr(a, f),
+                                                       getattr(b, f))
+            for f in ("perm", "masks"):
+                per[f"{name}.t_order.{f}"] = _field_mismatches(
+                    getattr(a.t_order, f), getattr(b.t_order, f))
+            per[f"{name}.reversed"] = int(a.reversed != b.reversed)
+        del packed, host, card
+    bad = {k: v for k, v in per.items() if v}
+    line = {"fields": len(per), "fields_differing": len(bad),
+            "numpy_vs_cpp_arrays_byte_equal": len(want),
+            "backward_bytes": _nbytes(extra),
+            "backward_bytes_by_kind": {
+                "entries": sum(v.nbytes for k, v in extra.items()
+                               if k.endswith("_entries")),
+                "bev_transposes": sum(v.nbytes for k, v in extra.items()
+                                      if k.endswith("_t_idx")),
+                "bev_transpose_row_orders": sum(
+                    v.nbytes for k, v in extra.items()
+                    if k.endswith(("_t_perm", "_t_masks"))),
+                "starts": sum(v.nbytes for k, v in extra.items()
+                              if k.endswith("_starts"))},
+            "entries": {k[:-len("_entries")]: int(v.shape[0])
+                        for k, v in extra.items() if k.endswith("_entries")},
+            "pack_bytes": _nbytes(got),
+            "pack_cpp_8_threads": {"without_books": _spread(times[False]),
+                                   "with_books": _spread(times[True])},
+            "pack_numpy_with_books_s": numpy_s,
+            "mismatches": per}
+    print("host training pyramid against the card's:", json.dumps(line))
+    check(not bad, f"host training pyramid differs from build_pyramid's "
+          f"in {bad}")
+    return got
+
+
+def _grad_report(got, want):
+    """Worst gradient difference against 1e-3 of the largest entry +
+    1e-5 (the card-vs-CPU training check's tolerance), as a share of it,
+    and the largest absolute difference."""
+    worst, worst_name, max_err = 0.0, None, 0.0
+    for n, w in want.items():
+        g = got[n]
+        check((g is None) == (w is None), f"gradient of {n} present on one "
+              "side only")
+        if w is None:
+            continue
+        err = float((g - w).abs().max())
+        rel = err / (1e-3 * float(w.abs().max()) + 1e-5)
+        max_err = max(max_err, err)
+        if rel > worst:
+            worst, worst_name = rel, n
+    return {"worst_share_of_tolerance": worst, "worst": worst_name,
+            "max_abs_err": max_err}
+
+
+def packed_vs_table_step(cfg, packed_np, dev):
+    """The packed training forward and backward (the host pyramid with
+    its books) against the table-form one (unpack_table's table, the
+    pyramid built on the card) with the same weights and priorities, and
+    the table form against itself. Under torch's deterministic algorithms
+    (warn_only; the ops without one are listed) the table form must
+    repeat its bits and the packed form must give the same bits: losses
+    and every gradient. In the default mode the bf16 index_add of the
+    backward sums through atomics, so the gradients differ from run to
+    run; their largest differences against 1e-3 of the largest entry +
+    1e-5 (the card-vs-CPU check's tolerance) are printed, and the losses
+    must agree within 1e-4 of the largest."""
+    import copy
+    import warnings
+    from detection_3d_tpu_torch.data.packing import to_device, unpack_table
+    from detection_3d_tpu_torch.data.pyramid_packing import unpack_pyramid
+    from detection_3d_tpu_torch.engine.trainer import total_loss
+    from detection_3d_tpu_torch.models.detector import SparseRCNN
+    from detection_3d_tpu_torch.models.structures import Boxes3D
+    base = SparseRCNN(cfg, seed=0)
+    g = torch.Generator(device=dev).manual_seed(3)
+    pri = {k: torch.rand((n,), generator=g, device=dev)
+           for k, n in base.priority_shapes().items()}
+    b = to_device(packed_np, dev)
+
+    def run(form):
+        model = copy.deepcopy(base).to(dev).train()
+        pyr = unpack_pyramid(cfg, b, backward=True) \
+            if form == "packed" else None
+        table = pyr["tables"][0] if pyr else unpack_table(cfg, b)
+        losses = model(table, Boxes3D(b["gt_boxes"], b["gt_valid"]),
+                       b["gt_labels"], priorities=pri, pyramid=pyr)
+        total_loss(losses).backward()
+        return ({k: float(v.detach()) for k, v in losses.items()},
+                {n: None if p.grad is None else p.grad.float().cpu()
+                 for n, p in model.named_parameters()})
+
+    forms = ("table", "packed", "table_again")
+    res = {"default": {f: run(f) for f in forms}}
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            res["deterministic"] = {f: run(f) for f in forms}
+        finally:
+            torch.use_deterministic_algorithms(False)
+    no_det = sorted({str(w.message).split(" does not have")[0][:120]
+                     for w in caught if "determinis" in str(w.message)})
+    line = {"ops_without_a_deterministic_algorithm": no_det}
+    for mode, r in res.items():
+        lw, gw = r["table"]
+        for form in ("packed", "table_again"):
+            lg, gg = r[form]
+            same = lg == lw and all(
+                (gg[n] is None and gw[n] is None) or (
+                    gg[n] is not None and gw[n] is not None
+                    and torch.equal(gg[n], gw[n])) for n in gw)
+            line[f"{mode}.{form}"] = {
+                "losses": lg, "same_bits_as_table": same,
+                "loss_max_abs_err": max(abs(lg[k] - lw[k]) for k in lw),
+                **_grad_report(gg, gw)}
+    print("packed training step against the table-form step:",
+          json.dumps(line))
+    for mode, r in res.items():
+        for form in forms:
+            check(all(np.isfinite(v) for v in r[form][0].values()),
+                  f"{mode} {form} step: non-finite losses")
+    lw = res["default"]["table"][0]
+    check(line["default.packed"]["loss_max_abs_err"]
+          <= 1e-4 * max(1.0, *(abs(v) for v in lw.values())),
+          f"packed step: losses differ from the table-form step's: {line}")
+    check(line["deterministic.table_again"]["same_bits_as_table"],
+          "deterministic mode: the table-form step did not repeat its bits")
+    check(line["deterministic.packed"]["same_bits_as_table"],
+          "deterministic mode: the packed step's losses or gradients differ "
+          f"from the table-form step's: {line['deterministic.packed']}")
+    return line
+
+
+class _Fingerprints:
+    """Record each scene the trainer pads (its point count and first
+    point), to compare the scene order of two runs."""
+
+    def __enter__(self):
+        from detection_3d_tpu_torch.engine import trainer as trainer_mod
+        self.mod, self.pad, self.seen = trainer_mod, trainer_mod.pad_scene, []
+
+        def pad(cfg, scene):
+            self.seen.append((int(scene["points"].shape[0]),
+                              tuple(float(x) for x in scene["points"][0])))
+            return self.pad(cfg, scene)
+        trainer_mod.pad_scene = pad
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.pad_scene = self.pad
+
+
+def _history_line(history, skip_first=1):
+    secs = [h[3] for h in history]
+    timed = secs[skip_first:] or secs
+    return {"steps": len(secs), "applied": sum(bool(h[2]) for h in history),
+            "s_per_step": sum(timed) / len(timed), "step_seconds": secs,
+            "totals": [h[0] for h in history]}
+
+
+def _check_history(name, history, steps):
+    check(len(history) == steps, f"{name}: {len(history)} steps, expected "
+          f"{steps}")
+    for i, (total, losses, ok, _) in enumerate(history):
+        check(np.isfinite(total) and all(np.isfinite(v)
+                                         for v in losses.values()),
+              f"{name} step {i}: non-finite loss {losses}")
+        check(ok, f"{name} step {i}: the update was not applied")
+
+
+def _check_launches(name, ln, b_launches):
+    for k in ("gather_conv", "gather_conv_dfeats", "gather_conv_dw",
+              "rotated_iou"):
+        check(ln[k] > 0, f"{name}: kernel {k} was not launched")
+    check((ln["subm_match"] > 0) == b_launches,
+          f"{name}: kernel B launches {ln['subm_match']}")
+
+
+def train_input_path(cfg, scenes, dev):
+    """The training input path at full width: scene packs and the C++
+    loader (one epoch over the loader and one over the list, alternating,
+    INPUT_RUNS each, same seed: same scene order, finite and applied
+    steps), the host training pyramid (:func:`host_training_pyramid_check`),
+    the packed step against the table-form step
+    (:func:`packed_vs_table_step`), the packed step through
+    Trainer.step, train_resident (chunk RESIDENT_CHUNK, RESIDENT_EPOCHS
+    epochs; pack time, resident MB, s/step per chunk, peak memory, the
+    non-finite count and a chunk under the profiler) and scan_steps =
+    SCAN_K over the list. Launch counts are set to 0 before each path
+    and read after: B on the loader and scanned paths, not on the packed
+    and resident ones. Returns the launches by path."""
+    import shutil
+    from detection_3d_tpu_torch.data.native_loader import NativeSceneLoader
+    from detection_3d_tpu_torch.data.native_packer import pack_pyramid_native
+    from detection_3d_tpu_torch.data.packing import to_device
+    from detection_3d_tpu_torch.engine.trainer import Trainer
+    from detection_3d_tpu_torch.ops import cuda_lib
+    root = cuda_lib.BUILD_DIR / "train_input_smoke"   # gitignored, removed
+    shutil.rmtree(root, ignore_errors=True)
+    main_scenes = scenes[:INPUT_BUILDINGS]
+    paths, _ = scene_packs_check(main_scenes, root / "packs")
+    launches = {}
+
+    def trainer(name):
+        return Trainer(cfg, output_dir=str(root / name), device=dev)
+
+    runs = {"loader": [], "list": []}
+    orders = {}
+    for r in range(INPUT_RUNS):
+        for form in ("loader", "list"):
+            tr = trainer(f"{form}{r}")
+            state = tr.init_state(seed=0, iters_per_epoch=len(main_scenes))
+            src = NativeSceneLoader(paths) if form == "loader" \
+                else main_scenes
+            torch.cuda.synchronize()
+            cuda_lib.reset_launches()
+            with _Fingerprints() as fp:
+                tr.train(src, state, epochs=1, seed=0)
+            torch.cuda.synchronize()
+            ln = dict(cuda_lib.launches)
+            if form == "loader":
+                src.close()
+            _check_history(f"train over the {form}", tr.history,
+                           len(main_scenes))
+            _check_launches(f"train over the {form}", ln, True)
+            launches.setdefault(f"train_{form}", ln)
+            orders.setdefault(form, fp.seen)
+            check(fp.seen == orders[form], f"{form}: scene order changed "
+                  "between runs with the same seed")
+            runs[form].append(_history_line(tr.history))
+            del tr, state
+    check(orders["loader"] == orders["list"], "loader and list epochs "
+          "trained the scenes in different orders")
+    print("loader against list epochs:", json.dumps(
+        {"same_scene_order": True, "order_point_counts":
+         [n for n, _ in orders["list"]],
+         "s_per_step": {f: [r["s_per_step"] for r in runs[f]]
+                        for f in runs},
+         "runs": runs, "launches": {f: launches[f"train_{f}"]
+                                    for f in runs}}))
+
+    packed_np = host_training_pyramid_check(cfg, main_scenes[0], dev)
+    packed_vs_table_step(cfg, packed_np, dev)
+    tr = trainer("packed")
+    state = tr.init_state(seed=0)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    secs = []
+    for i in range(3):
+        torch.cuda.synchronize()
+        cuda_lib.reset_launches()
+        t0 = time.perf_counter()
+        total, losses, ok, true_num = tr.step(state, packed_np, gen,
+                                              packed="pyramid")
+        secs.append(time.perf_counter() - t0)
+        check(np.isfinite(total) and ok, f"packed step {i}: total {total}, "
+              f"ok {ok}")
+    launches["train_packed"] = dict(cuda_lib.launches)
+    _check_launches("packed step", launches["train_packed"], False)
+    print("packed training step (Trainer.step(packed='pyramid'), the numpy "
+          "pack copied in each step):", json.dumps(
+              {"step_seconds": secs, "s_per_step": sum(secs[1:]) / 2,
+               "true_num": true_num, "launches_per_step":
+               launches["train_packed"]}))
+    del tr, state, packed_np
+
+    tr = trainer("resident")
+    state = tr.init_state(seed=0, iters_per_epoch=len(main_scenes))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_lib.reset_launches()
+    t0 = time.perf_counter()
+    state = tr.train_resident(main_scenes, state, RESIDENT_EPOCHS, seed=0,
+                              chunk=RESIDENT_CHUNK)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches["train_resident"] = dict(cuda_lib.launches)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    steps = RESIDENT_EPOCHS * len(main_scenes)
+    _check_history("train_resident", tr.history, steps)
+    _check_launches("train_resident", launches["train_resident"], False)
+    check(tr.resident_skipped == 0, f"train_resident: {tr.resident_skipped} "
+          "non-finite steps")
+    chunk_s = [tr.history[c * RESIDENT_CHUNK][3]
+               for c in range(steps // RESIDENT_CHUNK)]
+    packs = [to_device(pack_pyramid_native(cfg, s, backward=True), dev)
+             for s in main_scenes]
+    gen = torch.Generator(device=dev).manual_seed(2)
+    prof = _profile(lambda: tr.scan(state, packs, gen, packed="pyramid"))
+    del packs
+    resident = {"buildings": len(main_scenes), "chunk": RESIDENT_CHUNK,
+                "epochs": RESIDENT_EPOCHS, "steps": len(tr.history),
+                "pack_s": tr.pack_seconds,
+                "resident_mb": tr.resident_bytes / 1e6,
+                "s_per_step_by_chunk": chunk_s, "wall_s": wall,
+                "peak_device_memory_gib": peak,
+                "non_finite": tr.resident_skipped,
+                "totals": [h[0] for h in tr.history],
+                "launches": launches["train_resident"],
+                "profile_of_one_more_chunk": None if prof is None else {
+                    k: prof[k] for k in ("busy_ms", "memcpy_ms", "span_ms",
+                                         "idle_share_of_span",
+                                         "port_kernels_ms", "top_ms")}}
+    print("train_resident:", json.dumps(resident))
+    del tr, state
+
+    tr = trainer("scan")
+    tr.scan_steps = SCAN_K
+    state = tr.init_state(seed=0, iters_per_epoch=len(main_scenes))
+    torch.cuda.synchronize()
+    cuda_lib.reset_launches()
+    tr.train(main_scenes, state, epochs=1, seed=0)
+    torch.cuda.synchronize()
+    launches["train_scan"] = dict(cuda_lib.launches)
+    _check_history("scan_steps", tr.history, len(main_scenes))
+    _check_launches("scan_steps", launches["train_scan"], True)
+    scan = _history_line(tr.history, skip_first=SCAN_K)
+    print(f"scan_steps = {SCAN_K}:", json.dumps(
+        {**scan, "list_s_per_step": [r["s_per_step"] for r in runs["list"]],
+         "launches": launches["train_scan"]}))
+    del tr, state
+    shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     from concurrent.futures import ThreadPoolExecutor
     from detection_3d_tpu_torch.config.defaults import full_scale_config
-    from detection_3d_tpu_torch.data import native_packer
+    from detection_3d_tpu_torch.data import native_loader, native_packer
     from detection_3d_tpu_torch.data.synthetic import (
         synthetic_building, synthetic_multiroom)
     from detection_3d_tpu_torch.engine.inference import (
@@ -1897,14 +2338,16 @@ def main():
           f"{torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=1) as pool:   # g++ beside the nvccs
-        packer = pool.submit(native_packer.library)
+    with ThreadPoolExecutor(max_workers=2) as pool:   # g++ beside the nvccs
+        host_libs = [pool.submit(native_packer.library),
+                     pool.submit(native_loader.library)]
         per_src = cuda_lib.build()
-        packer.result()
+        for lib in host_libs:
+            lib.result()
     print(f"build: {time.perf_counter() - t0:.1f} s for "
           f"{len(per_src)} sources in parallel "
           + json.dumps({k: round(v, 1) for k, v in per_src.items()})
-          + " and the C++ pyramid packer (g++)")
+          + " and the C++ pyramid packer and scene loader (g++)")
     for name in cuda_lib.KERNELS:
         log = cuda_lib.lib_path(name).with_suffix(".log")
         if log.exists():
@@ -2003,6 +2446,12 @@ def main():
 
     pyramid_seconds(cfg, scenes[0], dev)
 
+    # ---- the training input path at full width --------------------------
+    t0 = time.perf_counter()
+    input_launches = train_input_path(cfg, scenes, dev)
+    torch.cuda.empty_cache()
+    print(f"training input phase: {time.perf_counter() - t0:.1f} s")
+
     # ---- the train-and-evaluate entry point at full width ---------------
     t0 = time.perf_counter()
     evaluate, rep_c["evaluator_shapes"] = train_eval_path(
@@ -2058,7 +2507,9 @@ def main():
                                  "match": match[name],
                                  "eval": evaluate[name],
                                  **{path: counts[name] for path, counts
-                                    in packed_launches.items()}},
+                                    in packed_launches.items()},
+                                 **{path: counts[name] for path, counts
+                                    in input_launches.items()}},
             "max_abs_err": rep["max_abs_err"], "ms": rep["ms"],
             "plain_ms": rep["plain_ms"], "bound_ms": rep["bound_ms"],
             "bound_by": rep["bound_by"],

@@ -6,49 +6,37 @@ pack_pyramid`'s dict and :func:`pack_table_native`
 :func:`data.packing.pack_table`'s, byte for byte
 (tests/test_torch_native_packer.py): the input layer's dedup, every
 downsample table and every conv, deconv, submanifold and BEV rulebook
-with its row order, built in C++ (the submanifold searches on
+with its row order, and with ``backward`` the backward books' entry
+lists and BEV transposes, built in C++ (the submanifold searches on
 ``n_threads`` threads). The call releases the interpreter lock while
 the C++ runs; the padding and the median origin before it are numpy.
 
-The library is compiled with g++ at first use into
-``detection_3d_tpu_torch/build/`` under a name that carries a digest of
-the source and flags, under a file lock, so concurrent processes build
-it once. A failed build or load raises with the compiler's output:
-there is no numpy fallback, so no timing is ever taken on the numpy
-packer by accident.
+The library is compiled with g++ at first use (data/native_build.py).
+A failed build or load raises with the compiler's output: there is no
+numpy fallback, so no timing is ever taken on the numpy packer by
+accident.
 """
 
 from __future__ import annotations
 
 import ctypes
-import fcntl
-import hashlib
-import os
-import subprocess
-import threading
-from pathlib import Path
 from typing import Dict
 
 import numpy as np
 
+from detection_3d_tpu_torch.data import native_build
 from detection_3d_tpu_torch.data.pyramid_packing import pyramid_pack_spec
 from detection_3d_tpu_torch.engine.trainer import pad_scene
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "native" / "pyramid_packer.cpp"
-BUILD_DIR = _PKG / "build"
-FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
-
-_libs: Dict[Path, ctypes.CDLL] = {}
-_lock = threading.Lock()
+SOURCE = native_build.PKG / "native" / "pyramid_packer.cpp"
 
 
 def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.pp_create.restype = p
-    lib.pp_create.argtypes = [i, i, i, i, p, p, p, p, i, i]
+    lib.pp_create.argtypes = [i, i, i, i, p, p, p, p, i, i, i]
     lib.pp_set_out.restype = None
-    lib.pp_set_out.argtypes = [p, ctypes.c_char_p, p]
+    lib.pp_set_out.argtypes = [p, ctypes.c_char_p, p, ctypes.c_int64]
     for run in (lib.pp_run, lib.pp_run_table):
         run.restype = i
         run.argtypes = [p, p, p, ctypes.c_int64]
@@ -60,48 +48,18 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 
 def library() -> ctypes.CDLL:
-    """The loaded packer library built from :data:`SOURCE`, compiled on
-    first use. Raises RuntimeError when the source is unreadable or g++
-    is missing or fails (with its output), and OSError when the library
-    does not load."""
-    source = SOURCE.resolve()
-    with _lock:
-        if source in _libs:
-            return _libs[source]
-        try:
-            text = source.read_bytes()
-        except OSError as e:
-            raise RuntimeError(
-                f"pyramid packer source unreadable: {e}") from e
-        digest = hashlib.sha1(text + " ".join(FLAGS).encode()).hexdigest()
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        so = BUILD_DIR / f"libpyramidpacker-{digest[:12]}.so"
-        with open(BUILD_DIR / "pyramid_packer.lock", "w") as lock_file:
-            fcntl.flock(lock_file, fcntl.LOCK_EX)
-            if not so.exists():
-                tmp = so.with_suffix(f".{os.getpid()}.tmp")
-                try:
-                    res = subprocess.run(
-                        ["g++", *FLAGS, str(source), "-o", str(tmp)],
-                        capture_output=True, text=True, timeout=300)
-                except (OSError, subprocess.TimeoutExpired) as e:
-                    raise RuntimeError(f"g++ could not build the pyramid "
-                                       f"packer: {e}") from e
-                if res.returncode != 0:
-                    raise RuntimeError(
-                        f"g++ failed to build {source} ({res.returncode}):"
-                        f"\n{res.stdout}{res.stderr}")
-                os.replace(tmp, so)
-        _libs[source] = _declare(ctypes.CDLL(str(so)))
-        return _libs[source]
+    """The loaded packer library built from :data:`SOURCE`
+    (data/native_build.load: raises when it cannot be built or
+    loaded)."""
+    return native_build.load(SOURCE, "libpyramidpacker", _declare)
 
 
 def _ptr(a: np.ndarray) -> int:
     return a.ctypes.data
 
 
-def _run(cfg, scene: Dict, n_threads: int,
-         table_only: bool) -> Dict[str, np.ndarray]:
+def _run(cfg, scene: Dict, n_threads: int, table_only: bool,
+         backward: bool = False) -> Dict[str, np.ndarray]:
     lib = library()
     if cfg.in_channels != 9:
         raise ValueError("pack supports the 9-channel layout only")
@@ -130,7 +88,9 @@ def _run(cfg, scene: Dict, n_threads: int,
         "true_num": np.empty((), np.int32),
     }
     if not table_only:
-        for name, (shape, dt) in pyramid_pack_spec(cfg).items():
+        # an _entries buffer holds its book's most entries; only the pages
+        # the packer writes are touched
+        for name, (shape, dt) in pyramid_pack_spec(cfg, backward).items():
             out[name] = np.empty(shape, dt)
 
     caps_a = np.asarray(caps, np.int64)
@@ -139,10 +99,11 @@ def _run(cfg, scene: Dict, n_threads: int,
     bev = np.asarray([n_scales - 1 - i for i in cfg.rpn.rpn_scales_from_top],
                      np.int32)
     h = lib.pp_create(X, Y, Z, n_scales, _ptr(caps_a), _ptr(kern),
-                      _ptr(strd), _ptr(bev), len(bev), n_threads)
+                      _ptr(strd), _ptr(bev), len(bev), n_threads,
+                      int(backward))
     try:
         for name, arr in out.items():
-            lib.pp_set_out(h, name.encode(), _ptr(arr))
+            lib.pp_set_out(h, name.encode(), _ptr(arr), arr.nbytes)
         runner = lib.pp_run_table if table_only else lib.pp_run
         rc = runner(h, _ptr(pts), _ptr(feats), m)
         if rc != 0:
@@ -155,6 +116,9 @@ def _run(cfg, scene: Dict, n_threads: int,
     for name, arr in out.items():     # the counts, as the numpy packers
         if arr.ndim == 0:
             out[name] = np.int32(arr)
+        elif name.endswith("_entries"):   # the entries written, own memory
+            out[name] = arr[:out[name[:-len("entries")] + "starts"][-1]
+                            ].copy()
     out["origin"] = origin
     out["gt_boxes"] = batch["gt_boxes"]
     out["gt_labels"] = batch["gt_labels"]
@@ -162,10 +126,11 @@ def _run(cfg, scene: Dict, n_threads: int,
     return out
 
 
-def pack_pyramid_native(cfg, scene: Dict,
-                        n_threads: int = 8) -> Dict[str, np.ndarray]:
-    """C++ :func:`data.pyramid_packing.pack_pyramid`."""
-    return _run(cfg, scene, n_threads, False)
+def pack_pyramid_native(cfg, scene: Dict, n_threads: int = 8,
+                        backward: bool = False) -> Dict[str, np.ndarray]:
+    """C++ :func:`data.pyramid_packing.pack_pyramid` (``backward`` as
+    there)."""
+    return _run(cfg, scene, n_threads, False, backward)
 
 
 def pack_table_native(cfg, scene: Dict,

@@ -18,11 +18,26 @@ and a count) and, for every book of models/backbone.build_pyramid,
     the masks, and ``masks`` holds them in that order, in the narrowest
     unsigned type that holds K bits (:func:`mask_dtype`).
 
-:func:`unpack_pyramid` rebuilds build_pyramid's dict (without the
-backward books) on the device by elementwise work and casts only: no
-sort, no scatter, no search. Every table, book and row order is bit
-equal to build_pyramid's on :func:`data.packing.unpack_table`'s table
-(tests/test_torch_pyramid_packing.py).
+With ``backward=True`` (a pack for a training step) it adds what the
+backward books (ops/sparse_conv.BackwardBook) need and cannot read off
+the books above (models/backbone.build_pyramid):
+
+  * ``{prefix}_entries`` (nnz, 2) int32 and ``{prefix}_starts`` (K + 1,)
+    int32 of every submanifold, downsample (conv side) and BEV book: the
+    real entries as (input row, output row) pairs, k-major and
+    row-ascending within an offset, as ``np.nonzero`` and
+    ``torch.nonzero`` give them. A submanifold book is its own transpose
+    (read reversed); a downsample's deconv book is its conv book's
+    transpose, and the deconv side's entries are the conv side's with
+    the columns swapped;
+  * ``bev{slot}_t_idx`` (Z, V_in) int32, the transposed BEV book, with
+    its row order ``bev{slot}_t_perm`` / ``bev{slot}_t_masks``.
+
+:func:`unpack_pyramid` rebuilds build_pyramid's dict on the device by
+elementwise work and casts only: no sort, no scatter, no search, no
+``nonzero``. Every table, book, row order and backward book is bit equal
+to build_pyramid's on :func:`data.packing.unpack_table`'s table
+(tests/test_torch_pyramid_packing.py, tests/test_torch_packed_training.py).
 
 The JAX package's windowed relayout fields (``_starts``, ``_local``,
 ``_hi``) are its TPU kernel's layout; kernel A here reads the row order
@@ -39,7 +54,7 @@ import torch
 from detection_3d_tpu_torch.data.packing import (
     device_table, pack_table, unpack_table,
 )
-from detection_3d_tpu_torch.ops.sparse_conv import RowOrder
+from detection_3d_tpu_torch.ops.sparse_conv import BackwardBook, RowOrder
 
 _NP_INVALID = np.int32(np.iinfo(np.int32).max)
 
@@ -206,6 +221,36 @@ def np_row_order(idx, num_out, v_in):
     return perm, masks[perm].astype(mask_dtype(k))
 
 
+def np_entries(idx, num_out, v_in):
+    """Numpy twin of ops/sparse_conv.rulebook_entries for a book whose
+    valid output rows are its first ``num_out``: (entries (nnz, 2) int32
+    of (input row, output row), k-major and row-ascending; starts (K + 1,)
+    int32)."""
+    k, v_out = idx.shape
+    real = (idx >= 0) & (idx < v_in) & (np.arange(v_out) < num_out)[None]
+    kk, ii = np.nonzero(real)
+    entries = np.stack([idx[kk, ii], ii], 1).astype(np.int32)
+    starts = np.zeros(k + 1, np.int32)
+    starts[1:] = np.cumsum(real.sum(1))
+    return entries, starts
+
+
+def np_transpose(idx, num_out, v_in):
+    """Numpy twin of ops/sparse_conv.transpose_rulebook's book: (K, V_in)
+    int32 with ``t[k, idx[k, i]] = i`` for each real entry, V_out
+    elsewhere. Raises ValueError when two real entries of one offset read
+    the same input row."""
+    k, v_out = idx.shape
+    real = (idx >= 0) & (idx < v_in) & (np.arange(v_out) < num_out)[None]
+    kk, ii = np.nonzero(real)
+    t = np.full((k, v_in), v_out, np.int32)
+    t[kk, idx[kk, ii]] = ii
+    if (t[kk, idx[kk, ii]] != ii).any():
+        raise ValueError("np_transpose: two entries of one offset read the "
+                         "same input row")
+    return t
+
+
 def _scale_dims(s3d):
     """Each scale's (X, Y, Z) grid."""
     dims = [tuple(s3d.voxel_full_scale)]
@@ -221,34 +266,54 @@ def _bev_scales(cfg):
             for slot, i in enumerate(cfg.rpn.rpn_scales_from_top)}
 
 
-def pyramid_pack_spec(cfg) -> Dict[str, Tuple[Tuple[int, ...], np.dtype]]:
+def pyramid_pack_spec(cfg, backward: bool = False
+                      ) -> Dict[str, Tuple[Tuple[int, ...], np.dtype]]:
     """{name: (shape, dtype)} of every array :func:`pack_pyramid` adds to
     the :func:`pack_table` fields for this config (the native packer's
-    output buffers, data/native_packer.py)."""
+    output buffers, data/native_packer.py). With ``backward``, each
+    ``_entries`` array is sized to the most entries its book can hold;
+    the pack holds the first ``_starts[-1]`` of them."""
     s3d = cfg.sparse3d
     n_scales = s3d.num_scales
     caps = cfg.caps.scale_caps(n_scales)
     dims = _scale_dims(s3d)
+    i32 = np.dtype(np.int32)
     spec: Dict[str, Tuple[Tuple[int, ...], np.dtype]] = {}
 
     def book(prefix, kvol, v_out):
-        spec[f"{prefix}_idx"] = ((kvol, v_out), np.dtype(np.int32))
-        spec[f"{prefix}_perm"] = ((v_out,), np.dtype(np.int32))
+        spec[f"{prefix}_idx"] = ((kvol, v_out), i32)
+        spec[f"{prefix}_perm"] = ((v_out,), i32)
         spec[f"{prefix}_masks"] = ((v_out,), mask_dtype(kvol))
 
+    def entries(prefix, kvol, most):
+        if backward:
+            spec[f"{prefix}_entries"] = ((most, 2), i32)
+            spec[f"{prefix}_starts"] = ((kvol + 1,), i32)
+
     for k in range(1, n_scales):
-        ks = s3d.kernels[k - 1]
+        ks, st = s3d.kernels[k - 1], s3d.strides[k - 1]
         kvol = ks[0] * ks[1] * ks[2]
+        reach = int(np.prod([max(1, -(-a // b)) for a, b in zip(ks, st)]))
         spec[f"t{k}_vox"] = ((caps[k], 3), np.dtype(np.uint16))
-        spec[f"t{k}_num"] = ((), np.dtype(np.int32))
+        spec[f"t{k}_num"] = ((), i32)
         book(f"down{k - 1}", kvol, caps[k])
+        # an input row feeds at most `reach` output rows, one offset each
+        entries(f"down{k - 1}", kvol, min(kvol * caps[k],
+                                          reach * caps[k - 1]))
         book(f"up{k - 1}", kvol, caps[k - 1])
     for k in range(n_scales):
         book(f"subm{k}", 27, caps[k])
+        entries(f"subm{k}", 27, 27 * caps[k])
     for slot, scale in _bev_scales(cfg).items():
+        z = dims[scale][2]
         spec[f"bev{slot}_vox"] = ((caps[scale], 3), np.dtype(np.uint16))
-        spec[f"bev{slot}_num"] = ((), np.dtype(np.int32))
-        book(f"bev{slot}", dims[scale][2], caps[scale])
+        spec[f"bev{slot}_num"] = ((), i32)
+        book(f"bev{slot}", z, caps[scale])
+        # every 3D row lies in at most one BEV entry
+        entries(f"bev{slot}", z, caps[scale])
+        if backward:
+            book(f"bev{slot}_t", z, caps[scale])
+            spec[f"bev{slot}_t_idx"] = ((z, caps[scale]), i32)
     return spec
 
 
@@ -258,6 +323,11 @@ def _book_entries(prefix, idx, num_out, v_in):
             f"{prefix}_masks": masks}
 
 
+def _entry_lists(prefix, idx, num_out, v_in):
+    entries, starts = np_entries(idx, num_out, v_in)
+    return {f"{prefix}_entries": entries, f"{prefix}_starts": starts}
+
+
 def _u16_table(vox, num):
     """Valid rows' coords as u16 (pad rows read INVALID on the device,
     which re-marks them by ``num``; u16 cannot hold it)."""
@@ -265,10 +335,12 @@ def _u16_table(vox, num):
                     0).astype(np.uint16)
 
 
-def pack_pyramid(cfg, scene: Dict) -> Dict[str, np.ndarray]:
+def pack_pyramid(cfg, scene: Dict,
+                 backward: bool = False) -> Dict[str, np.ndarray]:
     """Host: the quantized scale-0 table and every pyramid table, book
-    and row order. Flat dict of numpy arrays, :func:`pack_table`'s fields
-    included; :func:`unpack_pyramid` is the consumer."""
+    and row order, and with ``backward`` the backward books' entry lists
+    and BEV transposes. Flat dict of numpy arrays, :func:`pack_table`'s
+    fields included; :func:`unpack_pyramid` is the consumer."""
     out = dict(pack_table(cfg, scene))
     s3d = cfg.sparse3d
     n_scales = s3d.num_scales
@@ -286,19 +358,30 @@ def pack_pyramid(cfg, scene: Dict) -> Dict[str, np.ndarray]:
         out[f"t{k}_num"] = np.int32(num_o)
         out.update(_book_entries(f"down{k - 1}", crb, num_o, caps[k - 1]))
         out.update(_book_entries(f"up{k - 1}", drb, nin, caps[k]))
+        if backward:
+            out.update(_entry_lists(f"down{k - 1}", crb, num_o,
+                                    caps[k - 1]))
         tables.append((vox_o, num_o, out_size))
 
     for k, (vx, nm, sp) in enumerate(tables):
-        out.update(_book_entries(f"subm{k}", np_subm_idx_27(vx, nm, sp),
-                                 nm, vx.shape[0]))
+        idx = np_subm_idx_27(vx, nm, sp)
+        out.update(_book_entries(f"subm{k}", idx, nm, vx.shape[0]))
+        if backward:
+            out.update(_entry_lists(f"subm{k}", idx, nm, vx.shape[0]))
 
     for slot, scale in _bev_scales(cfg).items():
         vx, nm, sp = tables[scale]
-        bev_vox, bev_num, brb = np_bev_with_rulebook(vx, nm, sp,
-                                                     vx.shape[0])
+        v_in = vx.shape[0]
+        bev_vox, bev_num, brb = np_bev_with_rulebook(vx, nm, sp, v_in)
         out[f"bev{slot}_vox"] = _u16_table(bev_vox, bev_num)
         out[f"bev{slot}_num"] = np.int32(bev_num)
-        out.update(_book_entries(f"bev{slot}", brb, bev_num, vx.shape[0]))
+        out.update(_book_entries(f"bev{slot}", brb, bev_num, v_in))
+        if backward:
+            out.update(_entry_lists(f"bev{slot}", brb, bev_num, v_in))
+            # the transpose's rows are the 3D rows, every one wanted
+            out.update(_book_entries(f"bev{slot}_t",
+                                     np_transpose(brb, bev_num, v_in),
+                                     v_in, brb.shape[1]))
     return out
 
 
@@ -308,11 +391,40 @@ def _row_order(packed, prefix) -> RowOrder:
                     packed[f"{prefix}_masks"].to(torch.int64))
 
 
-def unpack_pyramid(cfg, packed) -> Dict:
+def _backward_books(packed, pyr, n_scales):
+    """The four backward-book entries of build_pyramid from a
+    ``backward`` pack and the forward books of ``pyr``: submanifold books
+    read reversed, each downsample's conv and deconv books as each
+    other's transposes (the deconv side's entries column-swapped), the
+    BEV books' shipped transposes."""
+    def lists(prefix):
+        return packed[f"{prefix}_entries"], packed[f"{prefix}_starts"]
+
+    subm_bwd = [BackwardBook(idx, order, *lists(f"subm{k}"), reversed=True)
+                for k, (idx, order) in enumerate(zip(pyr["subm_idx"],
+                                                     pyr["subm_order"]))]
+    up_idx, up_order = pyr["up_rb"][::-1], pyr["up_order"][::-1]
+    down_bwd, up_bwd = [], []
+    for k in range(n_scales - 1):
+        entries, starts = lists(f"down{k}")
+        down_bwd.append(BackwardBook(up_idx[k], up_order[k], entries,
+                                     starts))
+        up_bwd.append(BackwardBook(pyr["down_rb"][k], pyr["down_order"][k],
+                                   entries.flip(1), starts))
+    bev_bwd = {slot: BackwardBook(packed[f"bev{slot}_t_idx"],
+                                  _row_order(packed, f"bev{slot}_t"),
+                                  *lists(f"bev{slot}"))
+               for slot in pyr["bev"]}
+    return {"subm_bwd": subm_bwd, "down_bwd": down_bwd,
+            "up_bwd": up_bwd[::-1], "bev_bwd": bev_bwd}
+
+
+def unpack_pyramid(cfg, packed, backward: bool = False) -> Dict:
     """Device side: a :func:`pack_pyramid` dict (tensors) -> the dict of
-    models/backbone.build_pyramid without the backward books (tables,
-    subm_idx, down_rb, up_rb in decoder order, bev, and subm_order,
-    down_order, up_order, bev_order). ``tables[0]`` is
+    models/backbone.build_pyramid (tables, subm_idx, down_rb, up_rb in
+    decoder order, bev, and subm_order, down_order, up_order, bev_order;
+    with ``backward``, from a ``backward`` pack, also subm_bwd,
+    down_bwd, up_bwd and bev_bwd). ``tables[0]`` is
     :func:`data.packing.unpack_table`'s table, ``true_num`` included.
     Elementwise work and casts only."""
     n_scales = cfg.sparse3d.num_scales
@@ -330,12 +442,15 @@ def unpack_pyramid(cfg, packed) -> Dict:
                                   packed[f"bev{slot}_num"], (X, Y, 1)),
                      packed[f"bev{slot}_idx"])
         bev_order[slot] = _row_order(packed, f"bev{slot}")
-    return {"tables": tables,
-            "subm_idx": [packed[f"{p}_idx"] for p in subm],
-            "down_rb": [packed[f"{p}_idx"] for p in down],
-            "up_rb": [packed[f"{p}_idx"] for p in up],
-            "bev": bev,
-            "subm_order": [_row_order(packed, p) for p in subm],
-            "down_order": [_row_order(packed, p) for p in down],
-            "up_order": [_row_order(packed, p) for p in up],
-            "bev_order": bev_order}
+    pyr = {"tables": tables,
+           "subm_idx": [packed[f"{p}_idx"] for p in subm],
+           "down_rb": [packed[f"{p}_idx"] for p in down],
+           "up_rb": [packed[f"{p}_idx"] for p in up],
+           "bev": bev,
+           "subm_order": [_row_order(packed, p) for p in subm],
+           "down_order": [_row_order(packed, p) for p in down],
+           "up_order": [_row_order(packed, p) for p in up],
+           "bev_order": bev_order}
+    if backward:
+        pyr.update(_backward_books(packed, pyr, n_scales))
+    return pyr

@@ -1,4 +1,5 @@
-"""Training engine: one optimizer step per building, and the epoch loop.
+"""Training engine: one optimizer step per building, the epoch loop, the
+scanned loop and device-resident training.
 
 Counterpart of detection_3d_tpu/engine/trainer.py (reference
 engine/trainer_sparse3d.py:42-172) for one device: per-step schedule,
@@ -8,15 +9,26 @@ min-loss checkpoint and periodic / final checkpoints.
 
 A step runs pad -> voxelize_points -> forward with gt -> sum of the four
 losses -> backward -> one fused isfinite over the loss and every
-gradient -> SGD update when finite. The uniform draws of the two
-samplers come from one ``torch.Generator`` on the device, seeded by
-``train``'s seed. With ``cfg.eval_in_train`` = N, every N-th epoch
-(epoch 0 included) pools each step's train-time detections and
-evaluates them at the epoch's end (``Trainer.last_train_eval``).
+gradient -> the SGD update, committed on the device only where that
+isfinite holds (engine/solver.py). A packed step (``packed="pyramid"``)
+takes a host-packed pyramid with its backward books
+(data/pyramid_packing.pack_pyramid(..., backward=True)) instead of the
+padded points: the card runs no voxelization, sort, scatter or search.
+The uniform draws of the two samplers come from one ``torch.Generator``
+on the device, seeded by ``train``'s seed. With ``cfg.eval_in_train`` =
+N, every N-th epoch (epoch 0 included) pools each step's train-time
+detections and evaluates them at the epoch's end
+(``Trainer.last_train_eval``).
 
-Not ported yet: data parallelism over a mesh, and ``scan_steps``,
-``train_resident`` and a ``.epoch()`` loader object as ``scenes``, which
-need the host packers and the native loader.
+``scenes`` is a list of scene dicts or a loader with ``__len__`` and
+``epoch(order)`` (data/native_loader.NativeSceneLoader). With
+``scan_steps`` = K > 1, K steps run back to back with no host fetch
+between them and their results come back in one fetch (the forward's
+own host syncs, the greedy NMS and the ``.item()``s, remain).
+:meth:`Trainer.train_resident` packs every scene once, keeps the packs
+on the device and trains in chunks of such gated steps.
+
+Not ported yet: data parallelism over a mesh.
 """
 
 from __future__ import annotations
@@ -141,13 +153,24 @@ def total_loss(losses: Dict[str, torch.Tensor]):
     return sum(losses[k] for k in sorted(losses))
 
 
-def grads_finite(total, params) -> bool:
+def grads_finite(total, params):
     """One fused isfinite over the loss and every gradient (None counts
-    as zero)."""
+    as zero): a bool tensor on the loss's device, read by no one on the
+    host."""
     grads = [p.grad.reshape(-1) for p in params if p.grad is not None]
     flat = torch.cat([total.detach().reshape(1).to(torch.float32)]
                      + [g.to(torch.float32) for g in grads])
-    return bool(torch.isfinite(flat).all())
+    return torch.isfinite(flat).all()
+
+
+def chunk_generator(seed: int, chunk_index: int, device) -> torch.Generator:
+    """The sampler generator of ``train_resident``'s chunk ``chunk_index``,
+    seeded from (seed, chunk_index) alone, so a chunk draws the same
+    whether or not the chunks before it ran in this process."""
+    words = np.random.SeedSequence((seed + 123, chunk_index)).generate_state(
+        2, np.uint32)
+    return torch.Generator(device=device).manual_seed(
+        int(words[0]) << 32 | int(words[1]))
 
 
 class Trainer:
@@ -190,11 +213,6 @@ class Trainer:
         model.train()
         return TrainState(model, Solver(self.cfg, model, iters_per_epoch))
 
-    def train_resident(self, *args, **kwargs):
-        raise NotImplementedError(
-            "train_resident needs the host pyramid packer, which is not "
-            "ported yet")
-
     def _persist_bad_scenes(self, names):
         """Write the culled blocklist to <output_dir>/bad_scenes.json."""
         path = os.path.join(self.output_dir, "bad_scenes.json")
@@ -202,56 +220,105 @@ class Trainer:
         with open(path, "w") as f:
             json.dump(sorted(names), f)
 
+    def _device_step(self, state: TrainState, batch, generator, priorities,
+                     packed):
+        """One gated step with no host fetch: ((total, losses, ok,
+        true_num) as tensors on the device, the step's train-time
+        detections on the device with ``cfg.eval_in_train``, else
+        None)."""
+        # imported here: both modules import this one (pad_scene)
+        from detection_3d_tpu_torch.data.packing import to_device
+        from detection_3d_tpu_torch.data.pyramid_packing import (
+            unpack_pyramid)
+        cfg = self.cfg
+        if packed == "pyramid":
+            b = to_device(batch, self.device)
+            pyramid = unpack_pyramid(cfg, b, backward=True)
+            table, true_num = pyramid["tables"][0], b["true_num"]
+            gt, gt_labels = Boxes3D(b["gt_boxes"], b["gt_valid"]), \
+                b["gt_labels"]
+        elif packed is False:
+            (pts, fts, valid), gt, gt_labels = batch_to_device(batch,
+                                                               self.device)
+            table, pyramid = voxelize_points(cfg, pts, fts, valid), None
+            true_num = table.true_num
+        else:
+            raise ValueError(f"packed={packed!r}: expected False or "
+                             "'pyramid'")
+        state.solver.zero_grad()
+        losses = state.model(table, gt, gt_labels, generator=generator,
+                             priorities=priorities, pyramid=pyramid)
+        dets = None
+        if cfg.eval_in_train:
+            losses, dets = losses
+        total = total_loss(losses)
+        total.backward()
+        ok = grads_finite(total, state.solver.params)
+        state.solver.apply(ok)
+        state.step += 1
+        return (total.detach(), {k: v.detach() for k, v in losses.items()},
+                ok, true_num), dets
+
+    @staticmethod
+    def _fetch(outs):
+        """The host numbers of device steps in ONE copy: a list of
+        (total, losses, ok, true_num)."""
+        names = list(outs[0][1])
+        vals = torch.stack([torch.stack(
+            [total.double(), *(losses[k].double() for k in names),
+             ok.double(), tn.double()])
+            for total, losses, ok, tn in outs]).cpu().numpy()
+        return [(float(v[0]), {k: float(x) for k, x in zip(names, v[1:-2])},
+                 bool(v[-2]), int(v[-1])) for v in vals]
+
     def step(self, state: TrainState, batch: Dict[str, np.ndarray],
-             generator: Optional[torch.Generator] = None, priorities=None):
-        """One training step on a padded batch. Returns (total, losses,
+             generator: Optional[torch.Generator] = None, priorities=None,
+             packed=False):
+        """One training step on a padded batch (``packed=False``) or on a
+        pack_pyramid(..., backward=True) dict (``packed="pyramid"``,
+        numpy or tensors already on the device). Returns (total, losses,
         ok, true_num) as host numbers; the update is applied only when
         ``ok`` (finite loss and gradients). With ``cfg.eval_in_train``,
         ``self.last_detections`` holds the step's train-time detections
         ({boxes, scores, labels} of the valid rows, numpy)."""
-        (pts, fts, valid), gt, gt_labels = batch_to_device(batch,
-                                                           self.device)
-        table = voxelize_points(self.cfg, pts, fts, valid)
-        state.solver.zero_grad()
-        losses = state.model(table, gt, gt_labels, generator=generator,
-                             priorities=priorities)
-        if self.cfg.eval_in_train:
-            losses, dets = losses
+        out, dets = self._device_step(state, batch, generator, priorities,
+                                      packed)
+        if dets is not None:
             v = dets.valid.cpu().numpy()
             self.last_detections = {
                 "boxes": dets.boxes.cpu().numpy()[v],
                 "scores": dets.fields["scores"].cpu().numpy()[v],
                 "labels": dets.fields["labels"].cpu().numpy()[v]}
-        total = total_loss(losses)
-        total.backward()
-        ok = grads_finite(total, state.solver.params)
-        if ok:
-            state.solver.apply()
-        state.step += 1
-        return (float(total.detach()),
-                {k: float(v.detach()) for k, v in losses.items()}, ok,
-                int(table.true_num))
+        return self._fetch([out])[0]
+
+    def scan(self, state: TrainState, batches, generator=None,
+             packed=False):
+        """``len(batches)`` steps back to back (``step``'s forms), each
+        gated on the device, with no host fetch between them; their
+        (total, losses, ok, true_num) come back in one fetch."""
+        return self._fetch([self._device_step(state, b, generator, None,
+                                              packed)[0] for b in batches])
 
     def _save(self, name, state: TrainState):
         self.checkpointer.save(name, state.state_dict())
 
     def train(self, scenes, state: TrainState, epochs: int, seed: int = 0,
               checkpoint_period_epochs: Optional[int] = None):
-        """``epochs`` passes over ``scenes`` (a list of scene dicts), in a
-        fresh shuffle each epoch, one building per step. Returns the
-        state; ``self.history`` holds one (total, losses, ok, seconds)
-        per step, the seconds on the host clock (each step ends with the
-        losses on the host, so the clock covers its device work). An
-        eval-in-train epoch's result lands in ``self.last_train_eval``."""
+        """``epochs`` passes over ``scenes`` (a list of scene dicts, or a
+        loader with ``__len__`` and ``epoch(order)``), in a fresh shuffle
+        each epoch, one building per step; with ``scan_steps`` = K > 1,
+        K steps per :meth:`scan` (the order cycle-padded to K), except in
+        an eval-in-train epoch. Returns the state; ``self.history`` holds
+        one (total, losses, ok, seconds) per step, the seconds on the
+        host clock from the fetch of the step's scene (a loader's wait
+        included) through its padding to the losses on the host (so the
+        clock covers its device work; a scanned step is its group's
+        mean). An eval-in-train epoch's result lands in
+        ``self.last_train_eval``."""
         cfg = self.cfg
-        if self.scan_steps != 1:
-            raise NotImplementedError(
-                "scan_steps > 1 is not ported (it needs the host packer)")
-        if hasattr(scenes, "epoch"):
-            raise NotImplementedError(
-                "loader objects are not ported yet: pass a list of scene "
-                "dicts")
-        scenes = list(scenes)
+        source = scenes if hasattr(scenes, "epoch") else None
+        if source is None:
+            scenes = list(scenes)
         n_scenes = len(scenes)
         ckpt_period = checkpoint_period_epochs or \
             cfg.solver.checkpoint_period_epochs
@@ -279,44 +346,171 @@ class Trainer:
                     "trainer: every scene was culled as bad "
                     f"({len(culled)} scenes with >= "
                     f"{self.bad_scene_strikes} non-finite steps)")
-            for si in order:
-                batch = pad_scene(cfg, scenes[si])
+            stride = self.scan_steps if not eval_this_epoch else 1
+            order = cycle_pad(order, stride)
+            loaded = iter(source.epoch(order) if source is not None
+                          else (scenes[i] for i in order))
+            for start in range(0, len(order), stride):
+                sids = order[start:start + stride]
                 t0 = time.perf_counter()
-                total, losses, ok, true_num = self.step(state, batch, gen)
-                dt = time.perf_counter() - t0
-                self.history.append((total, losses, ok, dt))
-                if eval_this_epoch:
-                    epoch_preds.append(self.last_detections)
-                    epoch_gts.append({"boxes": scenes[si]["gt_boxes"],
-                                      "labels": scenes[si]["gt_labels"]})
-                if true_num > cap0 and self.logger:
-                    self.logger.warning(
-                        "iter %d: %d voxels exceed scale-0 capacity %d — "
-                        "input subsampled (raise caps)", it, true_num, cap0)
-                self.meters.update(loss=total, time=dt, **losses)
-                if not ok:
-                    self._strike(si, scenes, strikes, culled, culled_names,
-                                 it)
-                if self.logger and it % 20 == 0:
-                    eta = (time.time() - t_start) / (it + 1) * \
-                        (epochs * n_scenes - it - 1)
-                    self.logger.info(
-                        "iter %d epoch %d eta %.0fs lr %.5f %s", it, epoch,
-                        eta, state.solver.lr(state.solver.count),
-                        self.meters)
-                # min-loss checkpoint: track the minimum every step, write
-                # at most once per min_save_every steps
-                if np.isfinite(total) and total < self.min_loss:
-                    self.min_loss = total
-                    if it - self._last_min_save >= self.min_save_every:
-                        self._last_min_save = it
-                        self._save("model_min_loss", state)
-                it += 1
+                group = [next(loaded) for _ in sids]
+                if stride > 1:
+                    results = self.scan(state, [pad_scene(cfg, sc)
+                                                for sc in group], gen)
+                    dt = (time.perf_counter() - t0) / stride
+                else:
+                    results = [self.step(state, pad_scene(cfg, group[0]),
+                                         gen)]
+                    dt = time.perf_counter() - t0
+                for (total, losses, ok, true_num), si, scene in zip(
+                        results, sids, group):
+                    self.history.append((total, losses, ok, dt))
+                    if eval_this_epoch:
+                        epoch_preds.append(self.last_detections)
+                        epoch_gts.append({"boxes": scene["gt_boxes"],
+                                          "labels": scene["gt_labels"]})
+                    if true_num > cap0 and self.logger:
+                        self.logger.warning(
+                            "iter %d: %d voxels exceed scale-0 capacity %d "
+                            "— input subsampled (raise caps)", it, true_num,
+                            cap0)
+                    self.meters.update(loss=total, time=dt, **losses)
+                    if not ok:
+                        # a loader's scene is named by its index (JAX
+                        # trainer.py:683-685)
+                        name = str(si if source is not None
+                                   else scene.get("scene_name", si))
+                        self._strike(si, name, strikes, culled,
+                                     culled_names, n_scenes, it)
+                    if self.logger and it % 20 == 0:
+                        eta = (time.time() - t_start) / (it + 1) * \
+                            (epochs * n_scenes - it - 1)
+                        self.logger.info(
+                            "iter %d epoch %d eta %.0fs lr %.5f %s", it,
+                            epoch, eta, state.solver.lr(state.solver.count),
+                            self.meters)
+                    # min-loss checkpoint: track the minimum every step,
+                    # write at most once per min_save_every steps (under
+                    # scanning the state is the group's final one, as in
+                    # JAX trainer.py:699-703)
+                    if np.isfinite(total) and total < self.min_loss:
+                        self.min_loss = total
+                        if it - self._last_min_save >= self.min_save_every:
+                            self._last_min_save = it
+                            self._save("model_min_loss", state)
+                    it += 1
             if eval_this_epoch and epoch_preds:
                 self._evaluate_epoch(epoch, epoch_preds, epoch_gts)
             if (epoch + 1) % ckpt_period == 0:
                 self._save(f"model_{epoch:07d}", state)
         self._save("model_final", state)
+        return state
+
+    def train_resident(self, scenes, state: TrainState, epochs: int,
+                       seed: int = 0, chunk: int = 100,
+                       checkpoint_every_chunks: int = 10):
+        """Device-resident training (JAX trainer.py:380-500): every scene
+        is packed ONCE on the host with its backward books (the C++
+        packer, data/native_packer.pack_pyramid_native(..., backward=
+        True)) and kept on the device as a dict of tensors; then
+        ``epochs`` shuffled passes run as chunks of ``chunk`` packed
+        steps (:meth:`scan`), one host fetch a chunk. The order is JAX's:
+        a ``default_rng(seed + 77)`` permutation per epoch, cycle-padded
+        to a chunk multiple. Chunk c's sampler draws come from
+        :func:`chunk_generator` (seed, c).
+
+        No eval-in-train or strike culling on this path; a non-finite
+        step is skipped by the device gate and counted. ``model_min_loss``
+        is saved on a better chunk mean, ``model_resident_last`` every
+        ``checkpoint_every_chunks`` chunks. Resume: a ``state`` whose
+        ``step`` is a chunk multiple continues at that chunk; any other
+        step raises ValueError. ``self.history`` holds one (total,
+        losses, ok, seconds) per step run, the seconds its chunk's
+        mean; ``resident_bytes``, ``pack_seconds``, ``resident_order``
+        (every step's scene index) and ``resident_skipped`` (non-finite
+        steps) describe the run."""
+        from detection_3d_tpu_torch.data.native_packer import (
+            pack_pyramid_native)
+        from detection_3d_tpu_torch.data.packing import to_device
+        scenes = list(scenes)
+        n = len(scenes)
+        start_step = int(state.step)
+        if start_step % chunk:
+            raise ValueError(
+                f"resume step {start_step} is not a multiple of the chunk "
+                f"size {chunk}: resume from a model_resident_last "
+                "checkpoint (saved at chunk boundaries)")
+        t0 = time.perf_counter()
+        data = [to_device(pack_pyramid_native(self.cfg, s, backward=True),
+                          self.device) for s in scenes]
+        self.resident_bytes = sum(t.numel() * t.element_size()
+                                  for d in data for t in d.values())
+        self.pack_seconds = time.perf_counter() - t0
+        if self.logger:
+            self.logger.info(
+                "train_resident: packed %d scenes in %.1fs (%.0f MB "
+                "resident)", n, self.pack_seconds, self.resident_bytes / 1e6)
+
+        shuffle_rng = np.random.default_rng(seed + 77)
+        total_steps = epochs * n
+        order = [int(i) for _ in range(epochs)
+                 for i in shuffle_rng.permutation(n)]
+        # cycle_pad also when the pad exceeds the order (4 scenes x 10
+        # epochs, chunk 100)
+        order = cycle_pad(order, chunk)
+        n_chunks = len(order) // chunk
+        if self.logger and len(order) > total_steps:
+            self.logger.info(
+                "train_resident: padded %d -> %d steps (chunk %d); the extra "
+                "%d steps cycle the shuffled order", total_steps, len(order),
+                chunk, len(order) - total_steps)
+        start_chunk = start_step // chunk
+        if self.logger and start_chunk:
+            self.logger.info("train_resident: resuming at step %d (chunk "
+                             "%d/%d)", start_step, start_chunk, n_chunks)
+        state.model.train()
+        self.history = []
+        self.resident_order = order
+        skipped = 0
+        t_run = time.perf_counter()
+        for c in range(start_chunk, n_chunks):
+            gen = chunk_generator(seed, c, self.device)
+            idxs = order[c * chunk:(c + 1) * chunk]
+            t_chunk = time.perf_counter()
+            results = self.scan(state, [data[i] for i in idxs], gen,
+                                packed="pyramid")
+            dt = (time.perf_counter() - t_chunk) / chunk
+            totals = np.array([r[0] for r in results])
+            oks = np.array([r[2] for r in results])
+            self.history += [(total, losses, ok, dt)
+                             for total, losses, ok, _ in results]
+            for total, losses, _, _ in results:
+                self.meters.update(loss=total, time=dt, **losses)
+            skipped += int((~oks).sum())
+            mean_loss = float(np.mean(totals[oks])) if oks.any() else \
+                float("nan")
+            done = (c + 1) * chunk
+            if self.logger:
+                ran = done - start_step
+                eta = (time.perf_counter() - t_run) / ran * \
+                    max(total_steps - done, 0)
+                shown = min(done, total_steps)
+                self.logger.info(
+                    "resident step %d/%d epoch %d loss %.4f (chunk mean "
+                    "%.4f) time %.4fs/step eta %.0fs%s", shown, total_steps,
+                    shown // n, totals[-1], mean_loss, dt, eta,
+                    f" SKIPPED {skipped} non-finite" if skipped else "")
+            if np.isfinite(mean_loss) and mean_loss < self.min_loss:
+                self.min_loss = mean_loss
+                self._save("model_min_loss", state)
+            if (c + 1) % checkpoint_every_chunks == 0:
+                self._save("model_resident_last", state)
+        self.resident_skipped = skipped
+        if self.logger:
+            ran = max(n_chunks * chunk - start_step, 1)
+            secs = time.perf_counter() - t_run
+            self.logger.info("train_resident: %d steps in %.1fs (%.4fs/step)",
+                             ran, secs, secs / ran)
         return state
 
     def _evaluate_epoch(self, epoch, preds, gts):
@@ -331,9 +525,9 @@ class Trainer:
             self.logger.info("eval-in-train epoch %d:\n%s", epoch,
                              self.last_train_eval.summary())
 
-    def _strike(self, si, scenes, strikes, culled, culled_names, it):
-        """Count a non-finite step against its scene; cull the scene from
-        the rotation at ``bad_scene_strikes`` and persist the list."""
+    def _strike(self, si, name, strikes, culled, culled_names, n_scenes, it):
+        """Count a non-finite step against scene ``si``; cull it from the
+        rotation at ``bad_scene_strikes`` and persist the list."""
         if self.logger:
             self.logger.warning("non-finite loss at iter %d; update "
                                 "skipped", it)
@@ -341,10 +535,9 @@ class Trainer:
         if strikes[si] < self.bad_scene_strikes or si in culled:
             return
         culled.add(si)
-        name = str(scenes[si].get("scene_name", si))
         culled_names.append(name)
         self._persist_bad_scenes(culled_names)
         if self.logger:
             self.logger.warning(
                 "scene %s culled after %d non-finite steps (%d/%d scenes "
-                "culled)", name, strikes[si], len(culled), len(scenes))
+                "culled)", name, strikes[si], len(culled), n_scenes)

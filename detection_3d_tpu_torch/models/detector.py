@@ -102,8 +102,10 @@ class SparseRCNN(nn.Module):
 
         ``pyramid``, when given, is a host-built pyramid of ``table``
         (data/pyramid_packing.unpack_pyramid): the forward reads it
-        instead of calling build_pyramid. It carries no backward books,
-        so a forward that takes a gradient raises with it."""
+        instead of calling build_pyramid, with ``table`` (and its
+        features) in place of its ``tables[0]``. A forward that takes a
+        gradient needs its backward books (``unpack_pyramid(...,
+        backward=True)``) and raises without them."""
         cfg = self.cfg
         timed = phases.phase if phases is not None else \
             (lambda name: contextlib.nullcontext())
@@ -119,11 +121,11 @@ class SparseRCNN(nn.Module):
         if pyramid is None:
             with timed("pyramid"):
                 pyramid = build_pyramid(table, cfg, backward=wants_grad)
-        elif wants_grad:
+        elif wants_grad and "subm_bwd" not in pyramid:
             raise NotImplementedError(
-                "a training forward on a host-packed pyramid needs the "
-                "backward books, which the host packers do not build yet "
-                "(the training input path is the next slice of the port)")
+                "a training forward on a host-packed pyramid needs its "
+                "backward books: unpack it with unpack_pyramid(..., "
+                "backward=True) from a pack made with backward=True")
         else:
             pyramid = dict(pyramid, tables=[table, *pyramid["tables"][1:]])
         with timed("backbone"):

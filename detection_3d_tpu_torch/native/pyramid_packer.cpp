@@ -15,11 +15,21 @@
 // mask is set when the row is one of the first num_out and idx[k, row]
 // is a real input row (0 <= idx < V_in).
 //
+// With backward set (a pack for a training step) it also writes what the
+// backward books need: {prefix}_entries (nnz, 2) i32, the real entries
+// as (input row, output row) pairs, k-major and row-ascending, and
+// {prefix}_starts (K + 1,) i32 of every submanifold, downsample (conv
+// side) and BEV book, and each BEV book's transpose as a book of its own
+// named bev{s}_t (its _idx, _perm, _masks). An _entries buffer is sized
+// to the most entries its book can hold; _starts[K] says how many were
+// written, and a book with more entries than its buffer holds fails the
+// run.
+//
 // C API (ctypes; see data/native_packer.py):
 //   pp_create(X, Y, Z, n_scales, caps[n_scales], kernels[(n-1)*3],
 //             strides[(n-1)*3], bev_scales[n_bev], n_bev,
-//             n_threads) -> handle
-//   pp_set_out(handle, name, ptr)      // one per spec array + base
+//             n_threads, backward) -> handle
+//   pp_set_out(handle, name, ptr, nbytes)  // one per spec array + base
 //   pp_run(handle, pts*, feats*, m)    // pts: (m,3) f32 scaled coords
 //   pp_run_table(handle, pts*, feats*, m)   // the base table only
 //   pp_last_error(handle) -> const char*
@@ -43,9 +53,11 @@ namespace {
 
 struct Packer {
   int X, Y, Z, n_scales, n_bev, n_threads;
+  bool backward = false;
   std::vector<int64_t> caps;
   std::vector<int> kernels, strides, bev_scales;  // bev: scale index
   std::map<std::string, void*> out;
+  std::map<std::string, int64_t> out_bytes;
   std::string error;
 
   void* get(const std::string& name) {
@@ -254,6 +266,63 @@ bool book_out(Packer& p, const std::string& prefix,
   return true;
 }
 
+// ---- a rulebook's entry lists (ops/sparse_conv.rulebook_entries twin) --
+// The real entries of idx (kvol, v_out): idx[k, i] in [0, v_in) and
+// i < num_out, as (idx[k, i], i) pairs, k-major, i ascending.
+bool entries_out(Packer& p, const std::string& prefix,
+                 const std::vector<int32_t>& idx, int kvol, int64_t v_out,
+                 int64_t num_out, int64_t v_in) {
+  auto* oent = (int32_t*)p.get(prefix + "_entries");
+  auto* ostart = (int32_t*)p.get(prefix + "_starts");
+  if (!oent || !ostart) return false;
+  const int64_t room = p.out_bytes[prefix + "_entries"] /
+                       (int64_t)(2 * sizeof(int32_t));
+  const int64_t rows = std::min(num_out, v_out);
+  int64_t n = 0;
+  ostart[0] = 0;
+  for (int k = 0; k < kvol; ++k) {
+    const int32_t* row = idx.data() + (int64_t)k * v_out;
+    for (int64_t r = 0; r < rows; ++r)
+      if (row[r] >= 0 && row[r] < v_in) {
+        if (n == room) {
+          p.error = prefix + "_entries: more entries than its buffer of " +
+                    std::to_string(room) + " holds";
+          return false;
+        }
+        oent[2 * n] = row[r];
+        oent[2 * n + 1] = (int32_t)r;
+        ++n;
+      }
+    ostart[k + 1] = (int32_t)n;
+  }
+  return true;
+}
+
+// ---- a rulebook's transpose as a book of its own (transpose_rulebook) --
+// t (kvol, v_in) with t[k, idx[k, i]] = i for each real entry, v_out
+// elsewhere; every row of t is wanted. Fails when two real entries of
+// one offset read the same input row.
+bool transpose_out(Packer& p, const std::string& prefix,
+                   const std::vector<int32_t>& idx, int kvol,
+                   int64_t v_out, int64_t num_out, int64_t v_in) {
+  std::vector<int32_t> t((int64_t)kvol * v_in, (int32_t)v_out);
+  const int64_t rows = std::min(num_out, v_out);
+  for (int k = 0; k < kvol; ++k) {
+    const int32_t* row = idx.data() + (int64_t)k * v_out;
+    int32_t* trow = t.data() + (int64_t)k * v_in;
+    for (int64_t r = 0; r < rows; ++r)
+      if (row[r] >= 0 && row[r] < v_in) {
+        if (trow[row[r]] != (int32_t)v_out) {
+          p.error = prefix + ": two entries of one offset read the same "
+                    "input row";
+          return false;
+        }
+        trow[row[r]] = (int32_t)r;
+      }
+  }
+  return book_out(p, prefix + "_t", t, kvol, v_in, v_in, v_out);
+}
+
 // ---- downsample + conv/deconv rulebooks ----
 bool build_down(Packer& p, const Table& in, int level, Table& out) {
   const int* ks = &p.kernels[3 * level];
@@ -351,6 +420,8 @@ bool build_down(Packer& p, const Table& in, int level, Table& out) {
   }
   if (!book_out(p, dn, crb, kvol, cap, num, v_in)) return false;
   if (!book_out(p, un, drb, kvol, v_in, in.num, cap)) return false;
+  if (p.backward && !entries_out(p, dn, crb, kvol, cap, num, v_in))
+    return false;
   return true;
 }
 
@@ -399,8 +470,9 @@ bool build_subm(Packer& p, const Table& t, int scale) {
     if (k0 < k1) th.emplace_back(work, k0, k1);
   }
   for (auto& x : th) x.join();
-  return book_out(p, "subm" + std::to_string(scale), idx, 27, v,
-                      t.num, v);
+  const std::string name = "subm" + std::to_string(scale);
+  if (!book_out(p, name, idx, 27, v, t.num, v)) return false;
+  return !p.backward || entries_out(p, name, idx, 27, v, t.num, v);
 }
 
 }  // namespace
@@ -409,7 +481,8 @@ extern "C" {
 
 void* pp_create(int X, int Y, int Z, int n_scales, const int64_t* caps,
                 const int* kernels, const int* strides,
-                const int* bev_scales, int n_bev, int n_threads) {
+                const int* bev_scales, int n_bev, int n_threads,
+                int backward) {
   auto* p = new Packer();
   p->X = X; p->Y = Y; p->Z = Z; p->n_scales = n_scales;
   p->caps.assign(caps, caps + n_scales);
@@ -418,11 +491,13 @@ void* pp_create(int X, int Y, int Z, int n_scales, const int64_t* caps,
   p->bev_scales.assign(bev_scales, bev_scales + n_bev);
   p->n_bev = n_bev;
   p->n_threads = n_threads;
+  p->backward = backward != 0;
   return p;
 }
 
-void pp_set_out(void* h, const char* name, void* ptr) {
+void pp_set_out(void* h, const char* name, void* ptr, int64_t nbytes) {
   ((Packer*)h)->out[name] = ptr;
+  ((Packer*)h)->out_bytes[name] = nbytes;
 }
 
 const char* pp_last_error(void* h) {
@@ -478,6 +553,9 @@ int pp_run(void* h, const float* pts, const float* feats, int64_t m) {
         rb[(int64_t)t.vox[3 * i + 2] * cap + slot] = (int32_t)i;
     }
     if (!book_out(p, pre, rb, t.Z, cap, numb, v_in)) return 5;
+    if (p.backward && (!entries_out(p, pre, rb, t.Z, cap, numb, v_in) ||
+                       !transpose_out(p, pre, rb, t.Z, cap, numb, v_in)))
+      return 6;
   }
   return 0;
 }

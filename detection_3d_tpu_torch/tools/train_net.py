@@ -95,7 +95,8 @@ def main(argv=None):
     ap.add_argument("--synthetic", type=int, default=0,
                     help="use N synthetic buildings instead of SUNCG data")
     ap.add_argument("--scan-steps", type=int, default=1,
-                    help="train steps per call (only 1 is ported)")
+                    help="train steps per host fetch (K steps back to back, "
+                    "gated on the card)")
     ap.add_argument("--data-root", default=os.environ.get(
         "SUNCG_TORCH_PATH", ""))
     ap.add_argument("--device", default="cuda",

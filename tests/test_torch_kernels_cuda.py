@@ -604,3 +604,52 @@ def test_pipelined_on_card_matches_sequential(dev, pack_mode, batch_size):
         assert p["true_num"] == int(true_num)
         np.testing.assert_allclose(p["boxes"], a[v, :7], atol=1e-6, rtol=0)
         np.testing.assert_allclose(p["scores"], a[v, 7], atol=1e-6, rtol=0)
+
+
+def test_host_training_pyramid_on_card_matches_build_pyramid(dev):
+    """A pack with its backward books, unpacked on the card, against
+    build_pyramid(..., backward=True) on the card for the same pack's
+    table: every BackwardBook field bit equal, for every book kind."""
+    from detection_3d_tpu_torch.data.native_packer import pack_pyramid_native
+    from detection_3d_tpu_torch.data.packing import to_device, unpack_table
+    from detection_3d_tpu_torch.data.pyramid_packing import unpack_pyramid
+    from detection_3d_tpu_torch.models.backbone import build_pyramid
+    cfg, scene = _tiny_served(4)
+    packed = to_device(pack_pyramid_native(cfg, scene, backward=True), dev)
+    got = unpack_pyramid(cfg, packed, backward=True)
+    want = build_pyramid(unpack_table(cfg, packed), cfg, backward=True)
+    pairs = [(a, b) for key in ("subm_bwd", "down_bwd", "up_bwd")
+             for a, b in zip(got[key], want[key], strict=True)]
+    pairs += [(got["bev_bwd"][s], want["bev_bwd"][s]) for s in want["bev"]]
+    assert len(pairs) == 3 * cfg.sparse3d.num_scales - 2 + len(want["bev"])
+    for a, b in pairs:
+        for f in ("t_idx", "entries", "starts"):
+            x, y = getattr(a, f), getattr(b, f)
+            assert x.dtype == y.dtype and torch.equal(x, y), f
+        assert torch.equal(a.t_order.perm, b.t_order.perm)
+        assert torch.equal(a.t_order.masks, b.t_order.masks)
+        assert a.reversed == b.reversed
+
+
+def test_packed_training_step_launches(dev, tmp_path):
+    """Trainer.step(packed="pyramid") on the card: finite, applied, A,
+    dFeats, dW and C launched and B not; the raw step launches B."""
+    from detection_3d_tpu_torch.data.native_packer import pack_pyramid_native
+    from detection_3d_tpu_torch.engine.trainer import Trainer, pad_scene
+    cfg, scene = _tiny_served(5)
+    trainer = Trainer(cfg, output_dir=str(tmp_path), device=dev)
+    state = trainer.init_state(seed=0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for packed, batch in (("pyramid", pack_pyramid_native(cfg, scene,
+                                                          backward=True)),
+                          (False, pad_scene(cfg, scene))):
+        cuda_lib.reset_launches()
+        total, _, ok, true_num = trainer.step(state, batch, gen,
+                                              packed=packed)
+        launches = dict(cuda_lib.launches)
+        assert np.isfinite(total) and ok and true_num > 0
+        for name in ("gather_conv", "gather_conv_dfeats", "gather_conv_dw",
+                     "rotated_iou"):
+            assert launches[name] > 0, (packed, name)
+        assert (launches["subm_match"] > 0) == (packed is False), launches
+    assert state.solver.count == 2

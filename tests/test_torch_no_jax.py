@@ -52,9 +52,12 @@ def test_every_module_imports_with_jax_blocked():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     assert int(res.stdout.split()[-1]) >= 20     # every module was reached
-    # the host input path and its C++ packer's wrapper among them
+    # the host input paths, the C++ packer's and loader's wrappers, the
+    # scene packs and their converter among them
     for mod in ("data.packing", "data.pyramid_packing", "data.native_packer",
-                "engine.inference"):
+                "engine.inference", "data.scene_pack", "data.native_build",
+                "data.native_loader", "tools.convert_scene_packs",
+                "engine.trainer"):
         assert f"detection_3d_tpu_torch.{mod}" in res.stdout.split(), mod
 
 
@@ -90,4 +93,11 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch, tmp_path):
         evaluate_detections([], [], cfg.num_classes, 0.2)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train_and_evaluate(cfg.replace(output_dir=str(tmp_path)), [], [])
+    # the training entry points: the Trainer whose train, scan, step
+    # (raw and packed) and train_resident run on its device
+    from detection_3d_tpu_torch.engine.trainer import Trainer
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Trainer(cfg, output_dir=str(tmp_path))
+    assert Trainer(cfg, output_dir=str(tmp_path), device="cpu").device == \
+        torch.device("cpu")
     assert resolve_device("cpu") == torch.device("cpu")

@@ -80,8 +80,9 @@ def test_bad_forms_raise(weights):
 
 
 def test_training_forward_on_a_host_pyramid_raises(weights):
-    """A host pyramid carries no backward books: a forward with gt and a
-    gradient refuses it; without a gradient it serves."""
+    """A serving pack's pyramid carries no backward books: a forward with
+    gt and a gradient refuses it, naming the unpack that gives them;
+    without a gradient it serves."""
     from detection_3d_tpu_torch.data.packing import to_device
     from detection_3d_tpu_torch.data.pyramid_packing import unpack_pyramid
     from detection_3d_tpu_torch.models.structures import Boxes3D
@@ -89,7 +90,9 @@ def test_training_forward_on_a_host_pyramid_raises(weights):
     packed = to_device(pack_pyramid(tcfg, tiny_scene(6)), "cpu")
     pyr = unpack_pyramid(tcfg, packed)
     gt = Boxes3D(packed["gt_boxes"], packed["gt_valid"])
-    with pytest.raises(NotImplementedError, match="backward books"):
+    with pytest.raises(NotImplementedError,
+                       match=r"backward books.*unpack_pyramid\(\.\.\., "
+                       r"backward=True\)"):
         model(pyr["tables"][0], gt, packed["gt_labels"], pyramid=pyr)
     with torch.no_grad():
         losses = model(pyr["tables"][0], gt, packed["gt_labels"],

@@ -1,7 +1,7 @@
 """The port's training engine on the CPU: the torch Checkpointer (the
 counterparts of tests/test_utils.py's checkpoint tests), its metric
 logger, ``cycle_pad``, bad-scene culling, two epochs over two tiny
-buildings, and the parts the Trainer does not port yet.
+buildings, and the part the Trainer does not port yet.
 """
 
 import json
@@ -199,24 +199,13 @@ def test_two_epochs_over_two_buildings(tmp_path):
 
 
 def test_not_ported_parts_raise(tmp_path, monkeypatch):
-    """What the Trainer does not port raises; eval_in_train is ported
+    """What the Trainer does not port raises (a mesh), and so does asking
+    for the card without one; eval_in_train is ported
     (tests/test_torch_eval_in_train.py) and constructs."""
     _, tcfg = cfg_pair()
     with pytest.raises(NotImplementedError, match="mesh"):
         Trainer(tcfg, str(tmp_path), device="cpu", mesh=object())
     Trainer(tcfg.replace(eval_in_train=1), str(tmp_path), device="cpu")
-    trainer = Trainer(tcfg, str(tmp_path), device="cpu")
-    with pytest.raises(NotImplementedError, match="host pyramid packer"):
-        trainer.train_resident([tiny_scene(0)], None, 1)
-
-    class Loader:
-        def epoch(self, order):
-            return iter(())
-    with pytest.raises(NotImplementedError, match="loader objects"):
-        trainer.train(Loader(), trainer.init_state(), 1)
-    trainer.scan_steps = 4
-    with pytest.raises(NotImplementedError, match="host packer"):
-        trainer.train([tiny_scene(0)], trainer.init_state(), 1)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Trainer(tcfg, str(tmp_path))
