@@ -7,6 +7,8 @@
     python3 chip_smoke.py --compare      # only D at every book and the
                                          # pyramid's host time, in any
                                          # tree of the package
+    python3 chip_smoke.py --overfit      # only the overfit gate with the
+                                         # 3G6c groups (4000 steps)
 
 1. Prints the card's name and power limit (nvidia-smi).
 2. Builds the port's five CUDA sources from detection_3d_tpu_torch/csrc
@@ -102,6 +104,17 @@
    only_test that resumes from the checkpoint tag (parameters bit equal,
    detections within 1e-4). Prints the evaluator's host s/building, its
    kernel C launches and the eval-in-train step times.
+6b. The separate-classifier (3G6c) configuration: full_scale_config()
+   with the groups (("wall",), ("ceiling", "floor")) (3 groups, the
+   reference's 6c_Fpn4321 topology at full width and depth, seeded
+   random weights) serves 3 buildings through run_inference (labels
+   the original ids 1..5, finite, 3 x 100 rows) and trains 4 Trainer
+   steps (12 finite losses, moved parameters); A, dFeats, dW, B and C
+   must launch. Prints s/building, s/step, peak memory and C's launches
+   per building and per step. Then at the small configs: the grouped
+   model's predict and one training step card against CPU (as in 8),
+   and an rpn_only model's serve (labels 1, descending objectness) and
+   training step on the card.
 7. D's own path: conv_rulebook_match / deconv_rulebook_match over every
    downsample of a full-size building's pyramid, bit exact against the
    scatter-derived books.
@@ -114,7 +127,7 @@
 Launch counts are set to 0 just before each path (serve, serve_points,
 serve_table, serve_pyramid, pipelined_table, pipelined_pyramid, train,
 train_loader, train_list, train_packed, train_resident, train_scan,
-eval, match) and read just after;
+eval, serve_3g6c, train_3g6c, rpn_only, match) and read just after;
 launches made to compare a kernel with its plain version do not count.
 Any failed phase raises and exits non-zero; without CUDA, or without the
 package beside it, the script exits non-zero before printing a result.
@@ -225,6 +238,28 @@ def tiny_config():
         caps=CapacityConfig(max_points=8192,
                             voxel_caps=(4096, 2048, 1024, 512, 256),
                             max_gt=16))
+
+
+def tiny_3g6c_config():
+    """:func:`tiny_config` with 6 classes, the 3G6c groups and
+    class-matched anchors (a slab on the finest 3D map, a wall, a door),
+    as the grouped parity tests have them
+    (tests/test_torch_separate_classifier.sep_cfg)."""
+    import dataclasses
+    from detection_3d_tpu_torch.tools.overfit_check import (
+        CLASSES6, GROUPS_3G6C)
+    cfg = tiny_config()
+    return cfg.replace(
+        classes=CLASSES6, separate_classes=GROUPS_3G6C,
+        rpn=dataclasses.replace(
+            cfg.rpn, anchor_sizes_3d=((6.0, 6.0, 0.8), (0.4, 1.5, 3),
+                                      (0.2, 0.5, 3))))
+
+
+def tiny_scene(cfg, seed=0):
+    from detection_3d_tpu_torch.data.synthetic import synthetic_building
+    return synthetic_building(seed=seed, num_points=6000, room=6.0,
+                              classes=cfg.classes, voxel_scale=20)
 
 
 def conv_bound(feats, idx, w, valid):
@@ -1515,12 +1550,38 @@ def train_eval_path(cfg, buildings, dev, train_s_per_step):
         shutil.rmtree(root, ignore_errors=True)
 
 
-def tiny_train_card_vs_cpu(tcfg, scene, card="cuda"):
+def tiny_predict_card_vs_cpu(tcfg, scene, card="cuda", what="small building"):
+    """One small building through predict on the CPU (plain versions) and
+    on the card (kernels), same weights: equal true_num, the valid rows
+    the same set with equal labels, boxes and scores within 1e-4. Returns
+    the card's valid rows."""
+    from detection_3d_tpu_torch.engine.inference import (
+        make_predict_fn, pad_scene)
+    from detection_3d_tpu_torch.models.detector import SparseRCNN
+    tmodel = SparseRCNN(tcfg, seed=0)
+    tb = pad_scene(tcfg, scene)
+    cpu_out, cpu_tn = make_predict_fn(tcfg, tmodel, device="cpu")(tb)
+    gpu_out, gpu_tn = make_predict_fn(tcfg, tmodel, device=card)(tb)
+    want, got = valid_rows(cpu_out), valid_rows(gpu_out)
+    check(int(cpu_tn) == int(gpu_tn), f"{what}: true_num differs")
+    check(got.shape == want.shape and want.shape[0] > 0,
+          f"{what}: {got.shape[0]} valid rows on the card, "
+          f"{want.shape[0]} on the CPU")
+    check(np.array_equal(got[:, 8], want[:, 8]), f"{what}: labels")
+    err = float(np.abs(got[:, :8] - want[:, :8]).max())
+    check(err <= 1e-4, f"{what}: max abs err {err}")
+    print(f"{what}: {want.shape[0]} detections agree card vs CPU "
+          f"(max abs err {err:.2e}, tolerance 1e-4)")
+    return got
+
+
+def tiny_train_card_vs_cpu(tcfg, scene, card="cuda",
+                           what="tiny training step"):
     """One training step at the tiny config on the CPU (plain versions)
     and on the card (kernels), same weights and sampler draws. Losses
     within 1e-4; each gradient within 1e-3 of its largest entry + 1e-5
     (the card sums in other orders, through ~40 layers and batch
-    norms)."""
+    norms). Returns the card's losses."""
     import copy
     from detection_3d_tpu_torch.engine.trainer import (
         batch_to_device, pad_scene, total_loss)
@@ -1543,26 +1604,177 @@ def tiny_train_card_vs_cpu(tcfg, scene, card="cuda"):
                    for n, p in model.named_parameters()})
     (l_cpu, g_cpu), (l_gpu, g_gpu) = res["cpu"], res[card]
     loss_err = max(abs(l_cpu[k] - l_gpu[k]) for k in l_cpu)
-    check(loss_err <= 1e-4, f"tiny training step: losses differ card vs "
+    check(loss_err <= 1e-4, f"{what}: losses differ card vs "
           f"CPU by {loss_err}: {l_gpu} vs {l_cpu}")
     worst, worst_name = 0.0, None
     for n, want in g_cpu.items():
         got = g_gpu[n]
-        check((got is None) == (want is None), f"tiny training step: "
+        check((got is None) == (want is None), f"{what}: "
               f"gradient of {n} present on one side only")
         if want is None:
             continue
         err = float((got - want).abs().max())
         tol = 1e-3 * float(want.abs().max()) + 1e-5
-        check(err <= tol, f"tiny training step: gradient {n} max abs err "
+        check(err <= tol, f"{what}: gradient {n} max abs err "
               f"{err} > {tol}")
         rel = err / tol
         if rel > worst:
             worst, worst_name = rel, n
-    print(f"tiny training step: losses agree card vs CPU (max abs err "
+    print(f"{what}: losses agree card vs CPU (max abs err "
           f"{loss_err:.2e}, tolerance 1e-4): {json.dumps(l_gpu)}; "
           f"{len(g_cpu)} gradients agree, worst at {worst:.3f} of its "
           f"tolerance ({worst_name})")
+    return l_gpu
+
+
+G3_BUILDINGS = 3         # the 3G6c phase's served buildings (1 warms up)
+G3_STEPS = 4             # its training steps (the first warms up)
+KERNELS_3G6C = ("gather_conv", "gather_conv_dfeats", "gather_conv_dw",
+                "subm_match", "rotated_iou")
+
+
+def groups_3g6c_path(cfg, scenes, dev, tcfg=None, rcfg=None):
+    """The separate-classifier (3G6c) configuration: ``cfg`` (at full
+    width full_scale_config() with the groups (("wall",), ("ceiling",
+    "floor")), seeded random weights) serves G3_BUILDINGS buildings
+    through run_inference and trains G3_STEPS Trainer steps, with launch
+    counts set to 0 just before each and read just after. Checks finite
+    detections with original labels in 1..5, 4 losses per group all
+    finite, moved parameters, and A, dFeats, dW, B and C launched; prints
+    s/building, s/step, peak memory and C's launches per building and per
+    step. Then at the small configs: ``tcfg`` (grouped) predict and one
+    training step card against CPU, and ``rcfg`` (rpn_only) one serve
+    and one training step on the card. Returns {path: launches}."""
+    import shutil
+    from detection_3d_tpu_torch.engine.inference import (
+        make_predict_fn, pad_scene, run_inference)
+    from detection_3d_tpu_torch.engine.trainer import Trainer
+    from detection_3d_tpu_torch.models.detector import SparseRCNN
+    from detection_3d_tpu_torch.ops import cuda_lib
+    g = cfg.group_num
+    check(g == 3, f"3g6c: {g} groups")
+    n_fg = cfg.num_classes - 1
+
+    model = SparseRCNN(cfg, seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    cuda_lib.reset_launches()
+    t0 = time.perf_counter()
+    preds, _, sec = run_inference(cfg, model, scenes[:G3_BUILDINGS],
+                                  device=dev)
+    wall = time.perf_counter() - t0
+    serve = dict(cuda_lib.launches)
+    serve_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for i, p in enumerate(preds):
+        check(p["true_num"] > 0 and p["boxes"].shape[0] > 0,
+              f"3g6c building {i}: no voxels or no detections")
+        check(bool(np.isfinite(p["boxes"]).all()
+                   and np.isfinite(p["scores"]).all()),
+              f"3g6c building {i}: non-finite detections")
+        check(int(p["labels"].min()) >= 1 and int(p["labels"].max()) <= n_fg,
+              f"3g6c building {i}: labels {np.unique(p['labels'])} outside "
+              f"1..{n_fg}")
+    labels = np.unique(np.concatenate([p["labels"] for p in preds]))
+    print(f"3g6c serving: {len(preds)} buildings in {wall:.2f} s, "
+          f"{sec:.4f} s/building over buildings 2..{len(preds)} (host "
+          f"clock, padded arrays in -> detections on host), peak device "
+          f"memory {serve_peak:.2f} GiB, {g} groups x "
+          f"{cfg.roi_detections_per_img} rows, labels "
+          f"{labels.tolist()}, detections "
+          f"{[int(p['boxes'].shape[0]) for p in preds]}, C launches per "
+          f"building {serve['rotated_iou'] / len(preds):.2f}, launches "
+          f"{json.dumps(serve)}")
+    del preds
+
+    out_dir = cuda_lib.BUILD_DIR / "train_3g6c_smoke"   # gitignored, removed
+    trainer = Trainer(cfg, output_dir=str(out_dir), device=dev)
+    state = trainer.init_state(model=model)
+    before = [p.detach().clone() for p in state.model.parameters()]
+    torch.cuda.reset_peak_memory_stats()
+    cuda_lib.reset_launches()
+    t0 = time.perf_counter()
+    state = trainer.train(scenes[:G3_STEPS], state, epochs=1, seed=0)
+    wall = time.perf_counter() - t0
+    train = dict(cuda_lib.launches)
+    train_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    names = [f"loss_{k}_{gi}" for gi in range(g)
+             for k in ("objectness", "rpn_box_reg", "classifier_roi",
+                       "box_reg_roi")]
+    check(len(trainer.history) == G3_STEPS, "3g6c training: steps missing")
+    for i, (total, losses, ok, _) in enumerate(trainer.history):
+        check(sorted(losses) == sorted(names),
+              f"3g6c training step {i}: losses {sorted(losses)}")
+        check(np.isfinite(total) and all(np.isfinite(v)
+                                         for v in losses.values()),
+              f"3g6c training step {i}: non-finite loss {losses}")
+    check(state.solver.count >= 1, "3g6c training: no step was applied")
+    moved = sum(int(not torch.equal(p.detach(), b))
+                for p, b in zip(state.model.parameters(), before))
+    check(moved > 0, "3g6c training: the parameters did not change")
+    for path, counts in (("serving", serve), ("training", train)):
+        for name in KERNELS_3G6C:
+            if path == "serving" and name.startswith("gather_conv_d"):
+                continue
+            check(counts[name] > 0, f"3g6c {path}: kernel {name} was not "
+                  "launched")
+    secs = [h[3] for h in trainer.history]
+    step_s = sum(secs[1:]) / max(len(secs) - 1, 1)
+    print(f"3g6c training: {len(secs)} steps in {wall:.2f} s, {step_s:.4f} "
+          f"s/step over steps 2..{len(secs)} (host clock: scene fetched "
+          f"and padded -> losses on the host), peak device memory "
+          f"{train_peak:.2f} GiB, parameters moved {moved}/{len(before)}, "
+          f"C launches per step {train['rotated_iou'] / len(secs):.2f}, "
+          f"launches {json.dumps(train)}")
+    print("3g6c training losses (last step): "
+          + json.dumps({k: trainer.history[-1][1][k] for k in names}))
+    del trainer, state, model, before
+    shutil.rmtree(out_dir, ignore_errors=True)
+
+    out = {"serve_3g6c": serve, "train_3g6c": train,
+           "report": {"s_per_building": sec, "s_per_step": step_s,
+                      "serve_peak_gib": serve_peak,
+                      "train_peak_gib": train_peak,
+                      "c_per_building": serve["rotated_iou"] / G3_BUILDINGS,
+                      "c_per_step": train["rotated_iou"] / G3_STEPS}}
+    if tcfg is not None:
+        scene = tiny_scene(tcfg)
+        got = tiny_predict_card_vs_cpu(tcfg, scene, card=dev,
+                                       what="3g6c small building")
+        check(got[:, 8].min() >= 1 and got[:, 8].max() <= n_fg,
+              "3g6c small building: labels outside the original ids")
+        tiny_train_card_vs_cpu(tcfg, scene, card=dev,
+                               what="3g6c tiny training step")
+    if rcfg is not None:
+        scene = tiny_scene(rcfg)
+        rmodel = SparseRCNN(rcfg, seed=0)
+        cuda_lib.reset_launches()
+        packed_out, _ = make_predict_fn(rcfg, rmodel, device=dev)(
+            pad_scene(rcfg, scene))
+        a = packed_out.cpu().numpy()
+        v = a[:, 9] > 0.5
+        check(v.any() and bool(np.isfinite(a[v, :8]).all())
+              and bool((a[v, 8] == 1).all())
+              and bool((np.diff(a[v, 7]) <= 0).all()),
+              "rpn_only serve: proposals not finite, labelled 1 and in "
+              "descending objectness")
+        rdir = cuda_lib.BUILD_DIR / "train_rpn_only_smoke"
+        trainer = Trainer(rcfg, output_dir=str(rdir), device=dev)
+        state = trainer.init_state(model=rmodel)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        total, losses, ok, _ = trainer.step(state, pad_scene(rcfg, scene),
+                                            gen)
+        rpn = dict(cuda_lib.launches)
+        for name in ("gather_conv", "rotated_iou"):
+            check(rpn[name] > 0, f"rpn_only: kernel {name} was not "
+                  "launched")
+        check(ok and np.isfinite(total) and sorted(losses) == [
+            "loss_objectness", "loss_rpn_box_reg"],
+            f"rpn_only training step: {total} {losses} ok={ok}")
+        print(f"rpn_only (small config): {int(v.sum())} proposals served, "
+              f"one training step {json.dumps(losses)}, launches "
+              f"{json.dumps(rpn)}")
+        shutil.rmtree(rdir, ignore_errors=True)
+        out["rpn_only"] = rpn
+    return out
 
 
 PIPE_BUILDINGS = 6       # buildings of each pipelined run (unit 0 warms up)
@@ -2319,13 +2531,13 @@ def main():
     from concurrent.futures import ThreadPoolExecutor
     from detection_3d_tpu_torch.config.defaults import full_scale_config
     from detection_3d_tpu_torch.data import native_loader, native_packer
-    from detection_3d_tpu_torch.data.synthetic import (
-        synthetic_building, synthetic_multiroom)
+    from detection_3d_tpu_torch.data.synthetic import synthetic_multiroom
     from detection_3d_tpu_torch.engine.inference import (
         make_predict_fn, pad_scene, run_inference)
     from detection_3d_tpu_torch.models.detector import (
         SparseRCNN, voxelize_points)
     from detection_3d_tpu_torch.ops import cuda_lib
+    from detection_3d_tpu_torch.tools.overfit_check import GROUPS_3G6C
     from detection_3d_tpu_torch.utils.timing import PhaseTimer
 
     t_start = time.perf_counter()
@@ -2459,27 +2671,21 @@ def main():
     torch.cuda.empty_cache()
     print(f"train-and-evaluate phase: {time.perf_counter() - t0:.1f} s")
 
+    # ---- the separate-classifier (3G6c) configuration ------------------
+    t0 = time.perf_counter()
+    g3 = groups_3g6c_path(cfg.replace(separate_classes=GROUPS_3G6C), scenes,
+                          dev, tiny_3g6c_config(),
+                          tiny_config().replace(rpn_only=True))
+    torch.cuda.empty_cache()
+    print(f"3g6c phase: {time.perf_counter() - t0:.1f} s")
+
     # ---- kernel D's own entry points ------------------------------------
     match = match_path(cfg, scenes[0], dev)
 
     # ---- small-input reference: kernels on the card vs plain on the CPU -
     tcfg = tiny_config()
-    scene = synthetic_building(seed=0, num_points=6000, room=6.0,
-                               classes=tcfg.classes, voxel_scale=20)
-    tmodel = SparseRCNN(tcfg, seed=0)
-    tb = pad_scene(tcfg, scene)
-    cpu_out, cpu_tn = make_predict_fn(tcfg, tmodel, device="cpu")(tb)
-    gpu_out, gpu_tn = make_predict_fn(tcfg, tmodel, device="cuda")(tb)
-    want, got = valid_rows(cpu_out), valid_rows(gpu_out)
-    check(int(cpu_tn) == int(gpu_tn), "small building: true_num differs")
-    check(got.shape == want.shape and want.shape[0] > 0,
-          f"small building: {got.shape[0]} valid rows on the card, "
-          f"{want.shape[0]} on the CPU")
-    check(np.array_equal(got[:, 8], want[:, 8]), "small building: labels")
-    small_err = float(np.abs(got[:, :8] - want[:, :8]).max())
-    check(small_err <= 1e-4, f"small building: max abs err {small_err}")
-    print(f"small building: {want.shape[0]} detections agree card vs CPU "
-          f"(max abs err {small_err:.2e}, tolerance 1e-4)")
+    scene = tiny_scene(tcfg)
+    tiny_predict_card_vs_cpu(tcfg, scene)
     tiny_train_card_vs_cpu(tcfg, scene)
 
     # launches: each kernel's count on the path it serves (training for
@@ -2509,7 +2715,10 @@ def main():
                                  **{path: counts[name] for path, counts
                                     in packed_launches.items()},
                                  **{path: counts[name] for path, counts
-                                    in input_launches.items()}},
+                                    in input_launches.items()},
+                                 **{path: g3[path][name] for path in
+                                    ("serve_3g6c", "train_3g6c",
+                                     "rpn_only")}},
             "max_abs_err": rep["max_abs_err"], "ms": rep["ms"],
             "plain_ms": rep["plain_ms"], "bound_ms": rep["bound_ms"],
             "bound_by": rep["bound_by"],
@@ -2614,7 +2823,41 @@ def compare_main():
     return 0
 
 
-MODES = {"--bwd-shapes": bwd_shapes_main, "--compare": compare_main}
+def overfit_main():
+    """``--overfit``: the overfit gate with the 3G6c groups on the card
+    (tools/overfit_check.py ``--groups`` at its default 4000 steps): one
+    building, trained device-resident, evaluated, gated on per-class AP.
+    Prints the per-class AP, the mean AP and AIoU and the wall time
+    beside the card's line; exits with the gate's code."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    import shutil
+    from detection_3d_tpu_torch.data import native_packer
+    from detection_3d_tpu_torch.ops import cuda_lib
+    from detection_3d_tpu_torch.tools import overfit_check
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    print(f"card: {card}")
+    t0 = time.perf_counter()
+    cuda_lib.build()
+    native_packer.library()
+    print(f"build: {time.perf_counter() - t0:.1f} s")
+    out = cuda_lib.BUILD_DIR / "overfit_smoke"      # gitignored, removed
+    t0 = time.perf_counter()
+    code = overfit_check.main(["--groups", "--output-dir", str(out)])
+    wall = time.perf_counter() - t0
+    summary = json.loads((out / "summary.json").read_text())
+    shutil.rmtree(out, ignore_errors=True)
+    print("overfit gate (3G6c groups): " + json.dumps(
+        {"exit_code": code, "wall_s": wall, **summary}))
+    print(card_line())
+    return code
+
+
+MODES = {"--bwd-shapes": bwd_shapes_main, "--compare": compare_main,
+         "--overfit": overfit_main}
 
 if __name__ == "__main__":
     if len(sys.argv) > 2 or sys.argv[1:] and sys.argv[1] not in MODES:

@@ -7,9 +7,9 @@ the NaN gate (a step whose loss or any gradient is non-finite changes
 nothing), bad-scene strikes and culling, windowed metric logging, the
 min-loss checkpoint and periodic / final checkpoints.
 
-A step runs pad -> voxelize_points -> forward with gt -> sum of the four
-losses -> backward -> one fused isfinite over the loss and every
-gradient -> the SGD update, committed on the device only where that
+A step runs pad -> voxelize_points -> forward with gt -> sum of the
+losses (four, or four per separate-classifier group) -> backward -> one
+fused isfinite over the loss and every gradient -> the SGD update, committed on the device only where that
 isfinite holds (engine/solver.py). A packed step (``packed="pyramid"``)
 takes a host-packed pyramid with its backward books
 (data/pyramid_packing.pack_pyramid(..., backward=True)) instead of the

@@ -2,8 +2,10 @@
 
 Counterpart of detection_3d_tpu/models/rpn.py (reference
 rpn_sparse3d.py:80-131 for the head, loss_3d.py:88-250 for targets and
-loss, rpn/inference_3d.py:53-163 for proposal selection). One classifier
-group: separate-classifier groups are not ported.
+loss, rpn/inference_3d.py:53-163 for proposal selection). With
+separate-classifier groups (``cfg.separate_rpn``) the head predicts one
+objectness column and 7 box columns per group, and the RPN selects
+proposals and takes its losses per group.
 """
 
 from __future__ import annotations
@@ -41,20 +43,22 @@ def top_k(values, k: int):
 
 
 class RPNHead(nn.Module):
-    """Shared 1x1 conv + ReLU, then 1x1 cls (A logits) and box (A*7)
-    heads; weights shared across levels (init std 0.01). One classifier
-    group: separate-classifier groups are not ported."""
+    """Shared 1x1 conv + ReLU, then 1x1 cls (A*G logits) and box (A*7*G)
+    heads, G = cfg.group_num with ``cfg.separate_rpn``, else 1; weights
+    shared across levels (init std 0.01)."""
 
     def __init__(self, cfg: Config):
         super().__init__()
         a = cfg.rpn.num_anchors_per_location
+        g = cfg.group_num if cfg.separate_rpn else 1
         c = cfg.sparse3d.nplane_map
+        self.groups = g
         self.conv_w = nn.Parameter(torch.empty(c, c))
         self.conv_b = nn.Parameter(torch.zeros(c))
-        self.cls_w = nn.Parameter(torch.empty(c, a))
-        self.cls_b = nn.Parameter(torch.zeros(a))
-        self.box_w = nn.Parameter(torch.empty(c, a * 7))
-        self.box_b = nn.Parameter(torch.zeros(a * 7))
+        self.cls_w = nn.Parameter(torch.empty(c, a * g))
+        self.cls_b = nn.Parameter(torch.zeros(a * g))
+        self.box_w = nn.Parameter(torch.empty(c, a * 7 * g))
+        self.box_b = nn.Parameter(torch.zeros(a * 7 * g))
 
     def reset_parameters(self, gen):
         with torch.no_grad():
@@ -64,6 +68,11 @@ class RPNHead(nn.Module):
                 b.zero_()
 
     def forward(self, feats_per_level):
+        """(N_anchors, G) logits and (N_anchors, 7G) regressions: a
+        site's columns are anchor-major, then group (JAX's reshape to
+        (-1, A, G) and (-1, A, 7G)), so group gi's objectness is column
+        gi and its regression columns [7gi, 7gi + 7)."""
+        g = self.groups
         logits, regs = [], []
         for f in feats_per_level:
             dt = f.dtype
@@ -71,8 +80,8 @@ class RPNHead(nn.Module):
             lg = t @ self.cls_w.to(dt) + self.cls_b.to(dt)
             rg = t @ self.box_w.to(dt) + self.box_b.to(dt)
             # box/score math downstream is f32
-            logits.append(lg.reshape(-1).to(torch.float32))
-            regs.append(rg.reshape(-1, 7).to(torch.float32))
+            logits.append(lg.reshape(-1, g).to(torch.float32))
+            regs.append(rg.reshape(-1, 7 * g).to(torch.float32))
         return torch.cat(logits, 0), torch.cat(regs, 0)
 
 
@@ -171,24 +180,36 @@ def select_proposals(cfg: Config, anchors: Boxes3D, objectness, box_reg,
 
 
 class RPN(nn.Module):
-    """Head + anchors + proposal selection (one classifier group), and
-    with gt the two RPN losses."""
+    """Head + anchors + proposal selection per classifier group, and with
+    gt the two RPN losses per group."""
 
     def __init__(self, cfg: Config):
         super().__init__()
         self.cfg = cfg
         self.head = RPNHead(cfg)
 
-    def forward(self, rpn_maps: List[SparseTensor], gt: Boxes3D = None,
+    def forward(self, rpn_maps: List[SparseTensor], gt=None,
                 priorities=None):
-        """Returns (proposals, losses): ``losses`` is empty without gt;
-        with gt, ``priorities`` (N_anchors,) drives the sampler."""
+        """Returns (proposals per group, losses). ``gt`` is None or one
+        Boxes3D per group, and then ``priorities`` one (N_anchors,)
+        tensor per group drives the samplers. ``losses`` is empty
+        without gt; with one group it is {loss_objectness,
+        loss_rpn_box_reg}, with G groups those names with the suffix
+        ``_{gi}``."""
         objectness, box_reg = self.head([m.feats for m in rpn_maps])
         anchors = generate_anchors(self.cfg, rpn_maps)
-        proposals = select_proposals(self.cfg, anchors, objectness, box_reg,
-                                     gt is not None, gt)
-        if gt is None:
-            return proposals, {}
-        lo, lb = rpn_loss(self.cfg, priorities, anchors, objectness,
-                          box_reg, gt)
-        return proposals, {"loss_objectness": lo, "loss_rpn_box_reg": lb}
+        g = self.head.groups
+        proposals_g, losses = [], {}
+        for gi in range(g):
+            obj, reg = objectness[:, gi], box_reg[:, 7 * gi:7 * gi + 7]
+            gt_gi = None if gt is None else gt[gi]
+            proposals_g.append(select_proposals(
+                self.cfg, anchors, obj, reg, gt_gi is not None, gt_gi))
+            if gt_gi is None:
+                continue
+            lo, lb = rpn_loss(self.cfg, priorities[gi], anchors, obj, reg,
+                              gt_gi)
+            sfx = "" if g == 1 else f"_{gi}"
+            losses[f"loss_objectness{sfx}"] = lo
+            losses[f"loss_rpn_box_reg{sfx}"] = lb
+        return proposals_g, losses

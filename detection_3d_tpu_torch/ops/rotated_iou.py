@@ -16,10 +16,10 @@ IoU criteria (rbox1 = query, rbox2 = target box):
 
 :func:`rotated_iou_matrix` launches the hand-written CUDA kernel
 (csrc/rotated_iou.cu) for tensors on the card and takes the plain
-:func:`rotated_iou_plain` for tensors on the CPU. The plain version
+:func:`rotated_iou_pairs` for tensors on the CPU. The plain version
 works on explicit (N, K) pair matrices in the kernel's operation order
-and computes every pair; the kernel skips the pairs that
-:func:`iou_may_meet` rules out, and gives them the same bits.
+and computes every pair; the kernel, and rotated_iou_pairs, skip the
+pairs that :func:`iou_may_meet` rules out, and give them the same bits.
 """
 
 from __future__ import annotations
@@ -92,26 +92,51 @@ def _same_boxes(boxes, query_boxes):
 
 def rotated_iou_plain(boxes, query_boxes, criterion: int = -1,
                       same_box_fix: bool = False):
-    """Plain version of kernel C: (N, 5) x (K, 5) -> (N, K) f32.
+    """Plain version of kernel C: (N, 5) x (K, 5) -> (N, K) f32, every
+    pair computed.
 
     ``same_box_fix`` forces pairs whose five numbers all differ by less
     than 1e-6 to 1 (the reference's check_same_boxes)."""
-    iou = _iou_all_pairs(boxes, query_boxes, criterion)
+    bc = rbbox_corners_2d(boxes)                     # (N, 4, 2)
+    qc = rbbox_corners_2d(query_boxes)               # (K, 4, 2)
+    # targets as (N, 1) columns, queries as (1, K) rows
+    inter = _intersection(bc[:, None], qc[None, :])
+    return _finish(inter, boxes, query_boxes, criterion, same_box_fix)
+
+
+def rotated_iou_pairs(boxes, query_boxes, criterion: int = -1,
+                      same_box_fix: bool = False):
+    """:func:`rotated_iou_plain`'s bits, the intersection computed only
+    on the pairs :func:`iou_may_meet` keeps (the others' is +0, as in
+    the kernel): the CPU route of :func:`rotated_iou_matrix`, where the
+    anchors' pad rows and the far boxes would otherwise cost as much as
+    the pairs that meet."""
+    meet = iou_may_meet(boxes, query_boxes)
+    ti, qi = torch.nonzero(meet, as_tuple=True)
+    bc = rbbox_corners_2d(boxes)
+    qc = rbbox_corners_2d(query_boxes)
+    inter = torch.zeros(meet.shape, dtype=torch.float32,
+                        device=boxes.device)
+    inter[ti, qi] = _intersection(bc[ti], qc[qi])
+    return _finish(inter, boxes, query_boxes, criterion, same_box_fix)
+
+
+def _finish(inter, boxes, query_boxes, criterion, same_box_fix):
+    iou = _criterion(inter, boxes, query_boxes, criterion)
     if same_box_fix:
         iou = torch.where(_same_boxes(boxes, query_boxes), 1.0, iou)
     return iou
 
 
-def _iou_all_pairs(boxes, query_boxes, criterion):
-    n, k = boxes.shape[0], query_boxes.shape[0]
-    bc = rbbox_corners_2d(boxes)                     # (N, 4, 2)
-    qc = rbbox_corners_2d(query_boxes)               # (K, 4, 2)
-    # targets as (N, 1) columns, queries as (1, K) rows
-    bx = [bc[:, t, 0][:, None] for t in range(4)]
-    by = [bc[:, t, 1][:, None] for t in range(4)]
-    qx = [qc[:, t, 0][None, :] for t in range(4)]
-    qy = [qc[:, t, 1][None, :] for t in range(4)]
-    shape = (n, k)
+def _intersection(bc, qc):
+    """Intersection area of target corners ``bc`` (..., 4, 2) and query
+    corners ``qc`` (..., 4, 2) whose leading shapes broadcast to the
+    pairs' shape."""
+    bx = [bc[..., t, 0] for t in range(4)]
+    by = [bc[..., t, 1] for t in range(4)]
+    qx = [qc[..., t, 0] for t in range(4)]
+    qy = [qc[..., t, 1] for t in range(4)]
+    shape = torch.broadcast_shapes(bx[0].shape, qx[0].shape)
 
     xs, ys, vs = [], [], []
     for t in range(4):       # query corners inside the target
@@ -143,7 +168,7 @@ def _iou_all_pairs(boxes, query_boxes, criterion):
             vs.append((acd != bcd) & (abc != abd) & (dh != 0.0))
 
     # centroid of the valid candidates (sums in candidate order)
-    cnt = torch.zeros(shape, dtype=torch.float32, device=boxes.device)
+    cnt = torch.zeros(shape, dtype=torch.float32, device=bc.device)
     sx = torch.zeros_like(cnt)
     sy = torch.zeros_like(cnt)
     for t in range(_NC):
@@ -166,7 +191,7 @@ def _iou_all_pairs(boxes, query_boxes, criterion):
 
     ranks = []
     for a in range(_NC):
-        r = torch.zeros(shape, dtype=torch.int32, device=boxes.device)
+        r = torch.zeros(shape, dtype=torch.int32, device=bc.device)
         for c in range(_NC):
             if c == a:
                 continue
@@ -188,8 +213,10 @@ def _iou_all_pairs(boxes, query_boxes, criterion):
             vny = torch.where(sel, v1[c], vny)
         cross = v0[a] * vny - v1[a] * vnx
         area2 = area2 + torch.where(vs[a], cross, 0.0)
-    inter = 0.5 * torch.abs(area2)
+    return 0.5 * torch.abs(area2)
 
+
+def _criterion(inter, boxes, query_boxes, criterion):
     area_q = (query_boxes[:, 2] * query_boxes[:, 3])[None, :]
     area_b = (boxes[:, 2] * boxes[:, 3])[:, None]
     union = area_q + area_b - inter
@@ -234,7 +261,7 @@ def rotated_iou_cuda(boxes, query_boxes, criterion: int = -1,
 
 def rotated_iou_matrix(boxes, query_boxes, criterion: int = -1):
     """(N, 5) x (K, 5) -> (N, K) rotated IoU: kernel C on the card, the
-    plain version on the CPU. (Near-)identical 5-DoF boxes are forced to
+    plain version over the pairs that may meet on the CPU. (Near-)identical 5-DoF boxes are forced to
     IoU 1 (the reference's check_same_boxes, ``same_box_fix``): the
     inclusive corner tests can give an identical pair IoU 0."""
     boxes = boxes.to(torch.float32)
@@ -242,7 +269,7 @@ def rotated_iou_matrix(boxes, query_boxes, criterion: int = -1):
     if boxes.is_cuda:
         return rotated_iou_cuda(boxes, query_boxes, criterion,
                                 same_box_fix=True)
-    return rotated_iou_plain(boxes, query_boxes, criterion, same_box_fix=True)
+    return rotated_iou_pairs(boxes, query_boxes, criterion, same_box_fix=True)
 
 
 def z_interval_iou(targets_z, anchors_z):

@@ -8,7 +8,10 @@ box family, and it must rule out most pairs of a spread layout. The
 same-box fix now lives inside ``rotated_iou_plain`` (and the kernel):
 it must equal the JAX package's ``rotated_iou_matrix(same_box_fix=True)``
 within 1e-6 where it fires and leave ``rotated_iou_matrix``'s results as
-they were.
+they were. ``rotated_iou_pairs``, the CPU route of
+``rotated_iou_matrix``, computes the intersection only where
+``iou_may_meet`` holds and must give ``rotated_iou_plain``'s bits on
+every pair.
 """
 
 import numpy as np
@@ -19,7 +22,7 @@ import torch
 from detection_3d_tpu.ops.rotated_iou import rotated_iou_matrix as j_iou
 from detection_3d_tpu_torch.ops.rotated_iou import (
     PARK_QUERIES, PARK_TARGETS, _extents, iou_may_meet, park_invalid,
-    rotated_iou_matrix, rotated_iou_plain,
+    rotated_iou_matrix, rotated_iou_pairs, rotated_iou_plain,
 )
 from torch_iou_cases import adversarial_bev
 
@@ -154,3 +157,25 @@ def test_parked_rows_are_culled_against_every_box():
     pad_anchor = torch.tensor([[2 ** 31 * 32 / 50] * 2 + [0.4, 1.5, 0.0]],
                               dtype=torch.float32)
     assert bool(iou_may_meet(pad_anchor, real).all())
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+def test_pairs_route_gives_the_plain_bits(family):
+    """The bare intersection (criterion 3), the part the two routes
+    compute apart, bit for bit (NaNs included) on each box family against
+    itself, against the adversarial set and against parked rows; and
+    every criterion with the same-box fix (the shared finish) on one of
+    them."""
+    b = torch.from_numpy(_family(family).astype(np.float32))
+    adv = torch.from_numpy(adversarial_bev(1))
+    valid = torch.from_numpy(np.arange(b.shape[0]) % 4 != 1)
+    full = torch.zeros((b.shape[0], 7))
+    full[:, [0, 1, 3, 4, 6]] = b
+    parked = park_invalid(full, valid, PARK_QUERIES)[:, [0, 1, 3, 4, 6]]
+    cases = [(b, b, 3, False), (adv, b, 3, False), (b, parked, 3, False)]
+    cases += [(adv, b, c, True) for c in (-1, 0, 1, 2)]
+    for t, q, criterion, fix in cases:
+        want = rotated_iou_plain(t, q, criterion, fix)
+        got = rotated_iou_pairs(t, q, criterion, fix)
+        assert torch.equal(got.view(torch.int32),
+                           want.view(torch.int32)), (criterion, fix)

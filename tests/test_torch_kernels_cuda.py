@@ -653,3 +653,34 @@ def test_packed_training_step_launches(dev, tmp_path):
             assert launches[name] > 0, (packed, name)
         assert (launches["subm_match"] > 0) == (packed is False), launches
     assert state.solver.count == 2
+
+
+def test_grouped_forward_card_matches_cpu(dev):
+    """The 3G6c model (chip_smoke.tiny_3g6c_config: 3 groups) on the card
+    against the CPU with the same weights: the detections the same set
+    (boxes and scores within 1e-4) with original labels in 1..5, and one
+    training step's 12 losses within 1e-4 and gradients within 1e-3 of
+    each one's largest entry + 1e-5, kernels A, dFeats, dW, B and C
+    launched."""
+    from chip_smoke import (
+        tiny_3g6c_config, tiny_predict_card_vs_cpu, tiny_scene,
+        tiny_train_card_vs_cpu)
+    cfg = tiny_3g6c_config()
+    scene = tiny_scene(cfg)
+    cuda_lib.reset_launches()
+    rows = tiny_predict_card_vs_cpu(cfg, scene, card=dev)
+    assert rows[:, 8].min() >= 1 and rows[:, 8].max() <= 5
+    losses = tiny_train_card_vs_cpu(cfg, scene, card=dev)
+    assert len(losses) == 12
+    for name in ("gather_conv", "gather_conv_dfeats", "gather_conv_dw",
+                 "subm_match", "rotated_iou"):
+        assert cuda_lib.launches[name] > 0, name
+
+
+def test_rpn_only_forward_card_matches_cpu(dev):
+    """An rpn_only model (chip_smoke.tiny_config) on the card against the
+    CPU: its proposals the same set within 1e-4, every label 1."""
+    from chip_smoke import tiny_config, tiny_predict_card_vs_cpu, tiny_scene
+    cfg = tiny_config().replace(rpn_only=True)
+    rows = tiny_predict_card_vs_cpu(cfg, tiny_scene(cfg), card=dev)
+    assert np.all(rows[:, 8] == 1)

@@ -57,7 +57,9 @@ def test_every_module_imports_with_jax_blocked():
     for mod in ("data.packing", "data.pyramid_packing", "data.native_packer",
                 "engine.inference", "data.scene_pack", "data.native_build",
                 "data.native_loader", "tools.convert_scene_packs",
-                "engine.trainer"):
+                "engine.trainer", "models.separate_classifier",
+                "data.augment", "data.scene_packing", "tools.overfit_check",
+                "tools.generalization_check"):
         assert f"detection_3d_tpu_torch.{mod}" in res.stdout.split(), mod
 
 
@@ -101,3 +103,13 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch, tmp_path):
     assert Trainer(cfg, output_dir=str(tmp_path), device="cpu").device == \
         torch.device("cpu")
     assert resolve_device("cpu") == torch.device("cpu")
+    # the quality gates, and the grouped and RPN-only models' predict
+    from detection_3d_tpu_torch.tools import (
+        generalization_check, overfit_check)
+    for tool in (overfit_check, generalization_check):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            tool.main(["--output-dir", str(tmp_path / "gate")])
+    for kw in ({"separate_classes": (("wall",), ("ceiling", "floor"))},
+               {"rpn_only": True}):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make_predict_fn(cfg.replace(**kw))

@@ -147,3 +147,48 @@ def test_train_and_evaluate_resumes_bit_for_bit(tmp_path):
     _, _, none_preds, none_result = train_and_evaluate(
         cfg, train, test, only_test=True, skip_test=True, device="cpu")
     assert none_preds is None and none_result is None
+
+
+# the tiny config with the 3G6c groups and class-matched anchors
+# (tests/test_torch_separate_classifier.sep_cfg)
+TINY_3G6C_YAML = TINY_YAML.replace(
+    "CLASSES: ['background', 'wall', 'door', 'window']",
+    "CLASSES: ['background', 'wall', 'door', 'window', 'ceiling', "
+    "'floor']").replace(
+    "MODEL:\n",
+    "MODEL:\n  SEPARATE_CLASSES: [['wall'], ['ceiling', 'floor']]\n").replace(
+    "ANCHOR_SIZES_3D: [[0.2, 0.5, 3], [0.4, 1.5, 3], [0.6, 2.5, 3]]",
+    "ANCHOR_SIZES_3D: [[6.0, 6.0, 0.8], [0.4, 1.5, 3], [0.2, 0.5, 3]]")
+
+
+def test_cli_trains_evaluates_and_resumes_a_3g6c_yaml(tmp_path):
+    from test_torch_separate_classifier import sep_cfg
+    out = tmp_path / "out"
+    path = tmp_path / "tiny_3g6c.yaml"
+    path.write_text(TINY_3G6C_YAML.format(out=out))
+    cfg = _opts_to_config(load_yaml_config(str(path)), TINY_OPTS)
+    assert cfg == sep_cfg(tdefaults).replace(
+        output_dir=str(out), solver=cfg.solver)
+    assert cfg.group_num == 3
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
+    args = [sys.executable, "-m", "detection_3d_tpu_torch.tools.train_net",
+            "--config-file", str(path), "--synthetic", "2", "--device",
+            "cpu", *TINY_OPTS]
+    for extra in ([], ["--only-test"]):
+        res = subprocess.run(args + extra, cwd=ROOT, env=env,
+                             capture_output=True, text=True, timeout=600)
+        assert res.returncode == 0, res.stderr[-4000:]
+    log = (out / "log.txt").read_text()
+    for gi in range(3):
+        for name in ("loss_objectness", "loss_rpn_box_reg",
+                     "loss_classifier_roi", "loss_box_reg_roi"):
+            assert f"{name}_{gi}:" in log, (name, gi)
+    assert "loss_objectness:" not in log
+    assert log.count("iter 0 epoch 0") == 1
+    assert "Loaded checkpoint from" in log
+    assert log.count("class      AP      AIoU") == 2
+    for name in ("ceiling", "floor", "wall"):
+        assert f"\n{name} " in log
+    state = torch.load(out / "model_final.pt", weights_only=False)
+    a = cfg.rpn.num_anchors_per_location
+    assert state["model"]["rpn.head.cls_w"].shape[1] == 3 * a
