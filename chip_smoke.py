@@ -9,6 +9,7 @@
                                          # tree of the package
     python3 chip_smoke.py --overfit      # only the overfit gate with the
                                          # 3G6c groups (4000 steps)
+    python3 chip_smoke.py --parallel     # only the multi-device phase (7b)
 
 1. Prints the card's name and power limit (nvidia-smi).
 2. Builds the port's five CUDA sources from detection_3d_tpu_torch/csrc
@@ -118,6 +119,30 @@
 7. D's own path: conv_rulebook_match / deconv_rulebook_match over every
    downsample of a full-size building's pyramid, bit exact against the
    scatter-derived books.
+7b. The multi-device phase at full width (parallel/mesh.py,
+   parallel/spatial.py), each part in rank processes started by
+   parallel.mesh.launch (NCCL over distinct cards where there are as
+   many cards as ranks, else gloo with every rank on cuda:0; the kernels
+   built before): data parallelism on 2 ranks, 3 steps of one building
+   a rank (the first, under deterministic algorithms with given draws,
+   held against one process's step over the same two buildings: losses
+   within 1e-4, gradients within 1e-3 of the largest + 1e-5; the
+   parameters' digest equal on every rank after every step); spatial
+   sharding of one building (moved to the grid's middle) over 2 x-slabs
+   with shard and halo caps measured from the single-card pyramids, and
+   voxel caps that hold the building (full_scale_config()'s subsample
+   scale 1, which a shard would do otherwise) for both sides (the
+   gathered maps against one card's, the same rows and the largest
+   relative feature difference; kernel D on every book of each shard
+   pyramid bit exact against its plain version and timed; the bytes the
+   exchanges move a forward; spatial_predict and a spatial train step
+   with s/building, s/step and peak memory against one card; at the
+   small config, detections as sets and gradients against one card);
+   dp x sp = 2 x 2 over two buildings (two full-width steps; the small
+   config's gradients against the mean of the two buildings' one-card
+   gradients). Every rank must launch A, B, C and D (a data-parallel
+   rank: A, dFeats, dW, B and C), and a training one also dFeats and
+   dW.
 8. Small inputs, card against CPU: one building through predict, and one
    training step with the same weights and sampler draws (losses and
    every gradient).
@@ -127,7 +152,8 @@
 Launch counts are set to 0 just before each path (serve, serve_points,
 serve_table, serve_pyramid, pipelined_table, pipelined_pyramid, train,
 train_loader, train_list, train_packed, train_resident, train_scan,
-eval, serve_3g6c, train_3g6c, rpn_only, match) and read just after;
+eval, serve_3g6c, train_3g6c, rpn_only, match, and in each rank
+dp_train, sp_serve, sp_train, dpsp_train) and read just after;
 launches made to compare a kernel with its plain version do not count.
 Any failed phase raises and exits non-zero; without CUDA, or without the
 package beside it, the script exits non-zero before printing a result.
@@ -2524,6 +2550,713 @@ def train_input_path(cfg, scenes, dev):
     return launches
 
 
+# ---- the parallel phase: data parallelism, spatial sharding, dp x sp ------
+
+PAR_DP_STEPS = 3         # data-parallel steps (the first is held against
+                         # one process, the other two are timed)
+PAR_TIMEOUT = 420        # seconds a launch of ranks may take
+# the small spatial config's caps (tests/test_torch_spatial.py's)
+SMALL_SHARD_CAPS = (4096, 4096, 2048, 1024)
+SMALL_HALO_CAPS = (64, 64, 64, 32)
+CAP_MARGIN = {"shard": 1.10, "halo": 1.25}   # over the measured counts
+
+
+def tiny_spatial_config():
+    """:func:`tiny_config` on a 128 x 128 x 64 grid with 4 scales and caps
+    that hold every voxel of :func:`tiny_scene` (the spatial parity
+    tests' config, tests/test_torch_spatial.spatial_cfg)."""
+    from detection_3d_tpu_torch.config.defaults import (
+        CapacityConfig, Sparse3DConfig)
+    return tiny_config().replace(
+        sparse3d=Sparse3DConfig(
+            voxel_scale=20, voxel_full_scale=(128, 128, 64),
+            nplanes_front=(8, 16, 16, 32), kernels=((2, 2, 2),) * 3,
+            strides=((2, 2, 2),) * 3, nplane_map=16),
+        caps=CapacityConfig(max_points=8192,
+                            voxel_caps=(8192, 8192, 4096, 2048), max_gt=16))
+
+
+def centered(scene, cfg):
+    """``scene`` moved along x so that its middle sits at the grid's middle
+    (the x = X/2 slab boundary of 2 shards crosses the building; the
+    synthetic buildings start at x = 0)."""
+    shift = cfg.sparse3d.voxel_full_scale[0] / 2 - float(
+        scene["points"][:, 0].max() + scene["points"][:, 0].min()) / 2
+    shift = float(np.floor(shift))
+    out = dict(scene)
+    out["points"] = scene["points"] + np.array([shift, 0, 0], np.float32)
+    boxes = scene["gt_boxes"].copy()
+    boxes[:, 0] += shift / cfg.sparse3d.voxel_scale
+    out["gt_boxes"] = boxes
+    return out
+
+
+def _backend(n):
+    """NCCL over distinct cards when there is one per rank, else gloo with
+    every rank on cuda:0."""
+    return "nccl" if torch.cuda.device_count() >= n else "gloo"
+
+
+def _round_up(x, m):
+    return -(-int(x) // m) * m
+
+
+def measure_caps(cfg, batches, n_shards, dev):
+    """Capacities for ``n_shards`` x-slabs, from the single-card pyramids
+    of ``batches`` built under caps that hold every voxel (scale 0's cap
+    at every scale): at each scale the voxel count (x 1.10, rounded up
+    to 256, and no less than ``cfg``'s cap: the global caps, for the
+    single card and the gathered maps, since ``cfg``'s own caps may
+    subsample a scale, which a shard would do otherwise), the largest
+    own row count of a shard (x 1.10, rounded up to 256) and the largest
+    boundary column (the x-planes next to a slab edge; x 1.25, rounded
+    up to 32). Returns (cfg with the global caps, shard_caps, halo_caps,
+    measured)."""
+    import dataclasses
+    from detection_3d_tpu_torch.models.backbone import build_pyramid
+    from detection_3d_tpu_torch.models.detector import voxelize_points
+    n = cfg.sparse3d.num_scales
+    caps = cfg.caps.scale_caps(n)
+    big = cfg.replace(caps=dataclasses.replace(cfg.caps,
+                                               voxel_caps=(caps[0],) * n))
+    total, own, col = [0] * n, [0] * n, [0] * n
+    with torch.inference_mode():
+        for b in batches:
+            table0 = voxelize_points(big, *(torch.as_tensor(b[k]).to(dev)
+                                            for k in ("points", "feats",
+                                                      "points_valid")))
+            for s, t in enumerate(build_pyramid(table0, big)["tables"]):
+                check(int(t.true_num) <= t.capacity, f"scale {s}: "
+                      f"{int(t.true_num)} voxels over {t.capacity}")
+                total[s] = max(total[s], int(t.true_num))
+                x = t.coords[:, 0][t.row_valid]
+                w = t.spatial_size[0] // n_shards
+                for d in range(n_shards):
+                    own[s] = max(own[s], int(((x >= d * w)
+                                              & (x < (d + 1) * w)).sum()))
+                for d in range(1, n_shards):
+                    for e in (d * w - 1, d * w):
+                        col[s] = max(col[s], int((x == e).sum()))
+    glob = tuple(max(c, _round_up(CAP_MARGIN["shard"] * t, 256))
+                 for c, t in zip(caps, total))
+    shard = tuple(max(256, _round_up(CAP_MARGIN["shard"] * o, 256))
+                  for o in own)
+    halo = tuple(max(32, _round_up(CAP_MARGIN["halo"] * c, 32)) for c in col)
+    out_cfg = cfg.replace(caps=dataclasses.replace(cfg.caps,
+                                                   voxel_caps=glob))
+    return out_cfg, shard, halo, {"voxels": total, "own_rows": own,
+                                  "boundary_column": col,
+                                  "global_caps": glob}
+
+
+def _digest(model):
+    import hashlib
+    flat = torch.cat([p.detach().reshape(-1).float() for p in
+                      model.parameters()])
+    return hashlib.sha1(flat.cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+class _CommBytes:
+    """Count the bytes each rank receives through the collectives while
+    in use: the halo and topology exchanges (parallel/spatial's
+    gathers), the global maps' gathers and the all-reduces (BN's sums,
+    the gradient buffer)."""
+
+    def __init__(self):
+        self.bytes = {"halo_exchange": 0, "map_gather": 0, "all_reduce": 0}
+
+    def __enter__(self):
+        import torch.distributed as dist
+        from detection_3d_tpu_torch.parallel import collectives, spatial
+        self._orig = (spatial._gather, collectives._gather,
+                      collectives._reduce_sum)
+
+        def counted(kind, fn):
+            def wrapped(x, group=None):
+                self.bytes[kind] += (x.numel() * x.element_size()
+                                     * dist.get_world_size(group))
+                return fn(x, group)
+            return wrapped
+
+        spatial._gather = counted("halo_exchange", self._orig[0])
+        collectives._gather = counted("map_gather", self._orig[1])
+        collectives._reduce_sum = counted("all_reduce", self._orig[2])
+        return self
+
+    def __exit__(self, *exc):
+        from detection_3d_tpu_torch.parallel import collectives, spatial
+        (spatial._gather, collectives._gather,
+         collectives._reduce_sum) = self._orig
+
+
+def _timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _single_card_grads(cfg, model, batches, priorities, dev):
+    """One process, one card: the mean over ``batches`` of the training
+    losses, and the gradient of the mean loss (each building's loss /
+    len(batches), backward accumulated), with the given draws."""
+    from detection_3d_tpu_torch.engine.trainer import (
+        batch_to_device, total_loss)
+    from detection_3d_tpu_torch.models.detector import voxelize_points
+    from detection_3d_tpu_torch.parallel.checks import grads
+    model.zero_grad(set_to_none=True)
+    sums = {}
+    for b, pri in zip(batches, priorities):
+        (pts, fts, valid), gt, gtl = batch_to_device(b, dev)
+        losses = model(voxelize_points(cfg, pts, fts, valid), gt, gtl,
+                       priorities={k: torch.as_tensor(v).to(dev)
+                                   for k, v in pri.items()})
+        if cfg.eval_in_train:
+            losses = losses[0]
+        total = total_loss(losses)
+        (total / len(batches)).backward()
+        for k, v in [("total", total), *losses.items()]:
+            sums[k] = sums.get(k, 0.0) + float(v.detach()) / len(batches)
+    return sums, grads(model)
+
+
+def _dets_agree(got, want, what):
+    """Detections (parallel/checks.detections dicts) as sets: equal
+    labels, scores within 1e-3 and boxes within 5e-3
+    (tests/test_spatial.py's tolerances)."""
+    n = got["scores"].shape[0]
+    check(n == want["scores"].shape[0], f"{what}: {n} detections, "
+          f"{want['scores'].shape[0]} on one card")
+    og = np.lexsort((got["scores"], got["labels"]))
+    ow = np.lexsort((want["scores"], want["labels"]))
+    check(np.array_equal(got["labels"][og], want["labels"][ow]),
+          f"{what}: labels differ")
+    err_s = float(np.abs(got["scores"][og] - want["scores"][ow]).max(
+        initial=0.0))
+    err_b = float(np.abs(got["boxes"][og] - want["boxes"][ow]).max(
+        initial=0.0))
+    check(err_s <= 1e-3 and err_b <= 5e-3, f"{what}: scores off by "
+          f"{err_s}, boxes by {err_b}")
+    return {"detections": n, "score_max_abs_err": err_s,
+            "box_max_abs_err": err_b}
+
+
+def _launches():
+    from detection_3d_tpu_torch.ops import cuda_lib
+    torch.cuda.synchronize()
+    return dict(cuda_lib.launches)
+
+
+def par_dp_rank(cfg, batches, priorities):
+    """Rank job of the data-parallel check (2 ranks, one building each a
+    step): rank 0 first takes the single-process step of the first two
+    buildings with the same draws, under deterministic algorithms (its
+    losses and gradients, and the single-card s/step over the two
+    buildings, timed on a second run in the default mode); then
+    PAR_DP_STEPS data-parallel
+    steps (parallel/mesh.batched_train_step), the first deterministic
+    with those draws and held against the single-process step, the
+    others from the rank's generator and timed; the parameters' digest
+    after every step, the launches of the steps and the peak memory."""
+    import copy
+    import warnings
+    import torch.distributed as dist
+    from detection_3d_tpu_torch.engine.solver import Solver
+    from detection_3d_tpu_torch.models.detector import SparseRCNN
+    from detection_3d_tpu_torch.ops import cuda_lib
+    from detection_3d_tpu_torch.parallel.checks import grads
+    from detection_3d_tpu_torch.parallel.mesh import (
+        batched_train_step, make_mesh, rank_generator)
+    warnings.simplefilter("ignore")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh(axis="dp", device="cuda")
+    dev, r = mesh.device, mesh.rank
+    model = SparseRCNN(cfg, seed=0).to(dev).train()
+    out = {"rank": r, "device": str(dev)}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    if r == 0:
+        ref = copy.deepcopy(model)
+        ref_losses, ref_grads = _single_card_grads(cfg, ref, batches[:2],
+                                                   priorities, dev)
+        # the time in the default mode, as the timed steps run
+        torch.use_deterministic_algorithms(False)
+        _, out["single_card_s_per_step"] = _timed(
+            lambda: _single_card_grads(cfg, ref, batches[:2], priorities,
+                                       dev))
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        del ref
+    dist.barrier()
+    solver = Solver(cfg, model, 1)
+    step = batched_train_step(cfg, model, solver, mesh)
+    gen = rank_generator(0, r, dev)
+    torch.cuda.reset_peak_memory_stats()
+    cuda_lib.reset_launches()
+    digests, secs = [], []
+    for i in range(PAR_DP_STEPS):
+        mine = [batches[2 * i + r]]
+        pri = [{k: torch.as_tensor(v).to(dev) for k, v in
+                priorities[r].items()}] if i == 0 else None
+        (total, losses, ok, _, _), sec = _timed(
+            lambda: step(mine, gen, pri))
+        check(bool(ok), f"data-parallel step {i}: not finite")
+        if i == 0:
+            torch.use_deterministic_algorithms(False)
+            got = {"total": float(total),
+                   **{k: float(v) for k, v in losses.items()}}
+            if r == 0:
+                loss_err = max(abs(got[k] - ref_losses[k]) for k in got)
+                rep = _grad_report(grads(model), ref_grads)
+                check(loss_err <= 1e-4, f"data-parallel step: losses "
+                      f"{got} against one process's {ref_losses}")
+                check(rep["worst_share_of_tolerance"] <= 1.0,
+                      f"data-parallel step: gradients {rep}")
+                out["first_step"] = {"losses": got,
+                                     "loss_max_abs_err": loss_err, **rep}
+        else:
+            secs.append(sec)
+        digests.append(_digest(model))
+    out.update(launches=_launches(), digests=digests, s_per_step=secs,
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    return out
+
+
+def _edge_rows(t, n_shards):
+    """The valid rows of map ``t`` within one x-column of a slab edge
+    (x = d * w - 1 or d * w, w = X / n_shards): the rows whose convs read
+    halo rows."""
+    x = t.coords[:, 0]
+    w = t.spatial_size[0] // n_shards
+    edge = torch.zeros_like(t.row_valid)
+    for d in range(1, n_shards):
+        edge |= (x == d * w - 1) | (x == d * w)
+    return edge & t.row_valid
+
+
+def _maps_against(got_maps, want_maps, what, n_shards=2):
+    """Global maps gathered from the shards against one card's maps: the
+    same coords (else fails), then the worst over the maps of the
+    difference over the rows within one column of a slab edge relative
+    to those rows' own size (Frobenius norms; these rows alone read the
+    halo exchange), the same over every row, and the largest difference
+    relative to the largest feature (bf16 features); and the edge rows
+    counted."""
+    out = {"edge_rel": 0.0, "all_rel": 0.0, "max_of_largest": 0.0,
+           "edge_rows": 0}
+    for i, (g, w) in enumerate(zip(got_maps, want_maps)):
+        gv, wv = g.row_valid, w.row_valid
+        check(torch.equal(g.coords[gv], w.coords[wv]),
+              f"{what} {i}: the gathered rows differ from one card's")
+        diff = g.feats[gv].float() - w.feats[wv].float()
+        ref = w.feats[wv].float()
+        edge = _edge_rows(w, n_shards)[wv]
+        rel = {"edge_rel": (diff[edge].norm(), ref[edge].norm()),
+               "all_rel": (diff.norm(), ref.norm()),
+               "max_of_largest": (diff.abs().max(), ref.abs().max())}
+        for k, (num, den) in rel.items():
+            out[k] = max(out[k], float(num) / max(float(den), 1e-30))
+        out["edge_rows"] += int(edge.sum())
+    return out
+
+
+# the full-width maps of 2 shards against one card's, by compute dtype:
+# the edge rows' and every row's difference relative to their own size
+# (see PERF.md)
+MAPS_REL_LIMITS = {"bfloat16": 2e-2, "float32": 1e-3}
+
+
+def _broken_refresh(kind):
+    """A HaloExchange.refresh with a planted fault, for the control runs
+    of the maps check: ``dropped`` leaves the halo rows zero,
+    ``misordered`` writes each halo row from the next site of its
+    column."""
+    from detection_3d_tpu_torch.parallel.spatial import HaloExchange
+    exact = HaloExchange.refresh
+
+    def refresh(self, feats):
+        if kind == "misordered":
+            feats = exact(self, feats)
+        out = feats.clone()
+        for idx, ok in ((self.recv_lo, self.recv_lo_ok),
+                        (self.recv_hi, self.recv_hi_ok)):
+            rows = idx[ok]
+            out[rows] = 0 if kind == "dropped" else feats[rows.roll(1)]
+        return out
+    return refresh
+
+
+def _maps_check(cfg, model, batch, group, shard_caps, halo_caps):
+    """The sharded trunk's gathered maps against one card's (on the
+    group's rank 0) in ``cfg``'s compute dtype: the exact exchange within
+    MAPS_REL_LIMITS and each planted fault (:func:`_broken_refresh`)
+    above it on the edge rows. Returns rank 0's readings by run."""
+    import itertools
+    import torch.distributed as dist
+    from detection_3d_tpu_torch.engine.trainer import batch_to_device
+    from detection_3d_tpu_torch.models.backbone import build_pyramid
+    from detection_3d_tpu_torch.models.detector import voxelize_points
+    from detection_3d_tpu_torch.parallel import spatial
+    limit = MAPS_REL_LIMITS[cfg.compute_dtype]
+    first = dist.get_rank(group) == 0
+    out = {}
+    with torch.no_grad():
+        if first:
+            dev = next(model.parameters()).device
+            (pts, fts, valid), _, _ = batch_to_device(batch, dev)
+            table = voxelize_points(cfg, pts, fts, valid)
+            table = table.with_feats(
+                table.feats.to(getattr(torch, cfg.compute_dtype)))
+            single = list(itertools.chain(*model.backbone(
+                table, build_pyramid(table, cfg))))
+        exact = spatial.HaloExchange.refresh
+        for kind in ("exact", "dropped", "misordered"):
+            if kind != "exact":
+                spatial.HaloExchange.refresh = _broken_refresh(kind)
+            try:
+                grpn, groi, _ = spatial.spatial_maps(
+                    cfg, model, batch, group, shard_caps, halo_caps)
+            finally:
+                spatial.HaloExchange.refresh = exact
+            if not first:
+                continue
+            got = out[kind] = _maps_against([*grpn, *groi], single,
+                                            f"{kind} {cfg.compute_dtype} map")
+            if kind == "exact":
+                check(max(got["edge_rel"], got["all_rel"]) <= limit,
+                      f"spatial maps ({cfg.compute_dtype}) against one "
+                      f"card's: {got} (limit {limit})")
+            else:
+                check(got["edge_rel"] > limit, f"spatial maps "
+                      f"({cfg.compute_dtype}): the check passes a {kind} "
+                      f"halo ({got}, limit {limit})")
+    return out
+
+
+def _shard_d_books(cfg, spyr):
+    """Kernel D on the queries of every conv and deconv book of this
+    shard's pyramid: bit exact against multi_match_plain on the card and
+    equal to the pyramid's books; CUDA event times of both, summed per
+    shard pyramid."""
+    from detection_3d_tpu_torch.ops.multi_match import (
+        multi_match_cuda, multi_match_plain)
+    s3d = cfg.sparse3d
+    tables = spyr["tables"]
+    sums = {"books": 0, "ms": 0.0, "plain_ms": 0.0, "queries": 0}
+    for k in range(1, s3d.num_scales):
+        fine, coarse = tables[k - 1], tables[k]
+        q, _, qd, _ = multi_match_queries(fine, coarse, s3d.kernels[k - 1],
+                                          s3d.strides[k - 1])
+        for keys, qs, book in ((fine.keys, q, spyr["down_rb"][k - 1]),
+                               (coarse.keys, qd,
+                                spyr["up_rb"][s3d.num_scales - 1 - k])):
+            got = multi_match_cuda(keys, qs)
+            check(torch.equal(got, multi_match_plain(keys, qs)),
+                  f"kernel D on a shard book of scale {k}: differs from "
+                  "multi_match_plain")
+            check(torch.equal(got.reshape(book.shape), book),
+                  f"kernel D: the shard pyramid's book of scale {k}")
+            sums["books"] += 1
+            sums["queries"] += qs.numel()
+            sums["ms"] += time_ms(lambda: multi_match_cuda(keys, qs))
+            sums["plain_ms"] += time_ms(lambda: multi_match_plain(keys, qs),
+                                        3)
+    return sums
+
+
+def par_sp_rank(cfg, batch, shard_caps, halo_caps, tcfg, tbatch, tpri):
+    """Rank job of the spatial check (one building over the ranks'
+    x-slabs): rank 0 first serves and trains the building on one card
+    (s/building, s/step); then every rank builds its shard pyramid and
+    runs the sharded trunk (the bytes the exchanges move a forward; the
+    gathered maps held against one card's in bf16 and f32, with planted
+    halo faults, :func:`_maps_check`; D's books bit exact and timed),
+    spatial_predict (s/building, launches) and a
+    spatial train step (s/step, launches), its peak memory; and at the
+    small config the detections and gradients against one card."""
+    import warnings
+    import torch.distributed as dist
+    from detection_3d_tpu_torch.engine.solver import Solver
+    from detection_3d_tpu_torch.engine.trainer import (
+        batch_to_device, total_loss)
+    from detection_3d_tpu_torch.models.detector import (
+        SparseRCNN, voxelize_points)
+    from detection_3d_tpu_torch.ops import cuda_lib
+    from detection_3d_tpu_torch.parallel.checks import detections, grads
+    from detection_3d_tpu_torch.parallel.mesh import (
+        make_mesh, rank_generator)
+    from detection_3d_tpu_torch.parallel.spatial import (
+        make_spatial_grad_fn, make_spatial_train_step, spatial_maps,
+        spatial_predict)
+    warnings.simplefilter("ignore")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh(axis="sp", device="cuda")
+    dev, r, group = mesh.device, mesh.rank, mesh.group("sp")
+    model = SparseRCNN(cfg, seed=0).to(dev)
+    out = {"rank": r, "device": str(dev)}
+    gen = torch.Generator(device=dev).manual_seed(5)
+    if r == 0:
+        (pts, fts, valid), gt, gtl = batch_to_device(batch, dev)
+        with torch.no_grad():
+            model.eval()
+            model(voxelize_points(cfg, pts, fts, valid))
+            _, out["single_card_s_per_building"] = _timed(
+                lambda: model(voxelize_points(cfg, pts, fts, valid)))
+        model.train()
+
+        def one_step():
+            model.zero_grad(set_to_none=True)
+            total_loss(model(voxelize_points(cfg, pts, fts, valid), gt, gtl,
+                             generator=gen)).backward()
+        one_step()
+        _, out["single_card_s_per_step"] = _timed(one_step)
+        model.zero_grad(set_to_none=True)
+    dist.barrier()
+    model.eval()
+    with torch.no_grad(), _CommBytes() as comm:
+        grpn, groi, spyr = spatial_maps(cfg, model, batch, group,
+                                        shard_caps, halo_caps)
+        torch.cuda.synchronize()
+    out["bytes_received_per_forward"] = comm.bytes
+    out["own_rows"] = [int(o.sum()) for o in spyr["own_valid"]]
+    out["halo_rows"] = [int(h.recv_lo_ok.sum() + h.recv_hi_ok.sum())
+                        for h in spyr["subm_halo"]]
+    check(not bool(spyr["halo_overflow"]), "spatial: halo overflow")
+    # the gathered maps against one card's, in bf16 and in f32, each with
+    # two planted halo faults that must fail
+    out["maps"] = {dt: _maps_check(cfg.replace(compute_dtype=dt), model,
+                                   batch, group, shard_caps, halo_caps)
+                   for dt in MAPS_REL_LIMITS}
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        out["d_books"] = _shard_d_books(cfg, spyr)
+    del grpn, groi, spyr
+    spatial_predict(cfg, mesh, model, batch, shard_caps, halo_caps)
+    cuda_lib.reset_launches()
+    (det, ovf), out["s_per_building"] = _timed(lambda: spatial_predict(
+        cfg, mesh, model, batch, shard_caps, halo_caps))
+    out["serve_launches"] = _launches()
+    check(not bool(ovf) and bool(det.valid.any()),
+          "spatial_predict: overflow or no detections")
+    out["detections"] = int(det.valid.sum())
+    model.train()
+    step = make_spatial_train_step(cfg, mesh, model, Solver(cfg, model, 1),
+                                   shard_caps, halo_caps)
+    sgen = rank_generator(0, 0, dev)     # every shard draws alike
+    step(batch, sgen)
+    cuda_lib.reset_launches()
+    (total, _, ok, ovf), out["s_per_step"] = _timed(
+        lambda: step(batch, sgen))
+    out["train_launches"] = _launches()
+    check(bool(ok) and not bool(ovf), "spatial train step: not finite or "
+          "overflow")
+    out["total_loss"] = float(total)
+    out["digest"] = _digest(model)
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    # the small config: detections and gradients against one card
+    tmodel = SparseRCNN(tcfg, seed=0).to(dev)
+    tdet, _ = spatial_predict(tcfg, mesh, tmodel.eval(), tbatch,
+                              SMALL_SHARD_CAPS, SMALL_HALO_CAPS)
+    pri = {k: torch.as_tensor(v).to(dev) for k, v in tpri.items()}
+    tmodel.train()
+    total, _, _, _ = make_spatial_grad_fn(
+        tcfg, mesh, tmodel, SMALL_SHARD_CAPS, SMALL_HALO_CAPS)(
+            tbatch, priorities=pri)
+    if r == 0:
+        got = grads(tmodel)
+        tmodel.eval()
+        with torch.no_grad():
+            (pts, fts, valid), _, _ = batch_to_device(tbatch, dev)
+            want_det = tmodel(voxelize_points(tcfg, pts, fts, valid))
+        tmodel.train()
+        ref, ref_grads = _single_card_grads(tcfg, tmodel, [tbatch], [tpri],
+                                            dev)
+        rep = _grad_report(got, ref_grads)
+        check(rep["worst_share_of_tolerance"] <= 1.0 and abs(
+            float(total) - ref["total"]) <= 1e-4, f"spatial gradients at "
+            f"the small config: {rep}, loss {float(total)} against "
+            f"{ref['total']}")
+        out["small"] = {"detections": _dets_agree(
+            detections(tdet), detections(want_det),
+            "spatial_predict at the small config"),
+            "loss_max_abs_err": abs(float(total) - ref["total"]), **rep}
+    return out
+
+
+def par_dpsp_rank(cfg, batches, shard_caps, halo_caps, tcfg, tbatches,
+                  tpris):
+    """Rank job of the dp x sp check (2 x 2 ranks): two full-width
+    make_dp_spatial_train_steps over two buildings (the second's
+    launches and s/step; the digest after both, peak memory), then at
+    the small config the gradient of make_dp_spatial_grad_fn against
+    the mean of the two buildings' one-card gradients (rank 0)."""
+    import warnings
+    from detection_3d_tpu_torch.engine.solver import Solver
+    from detection_3d_tpu_torch.models.detector import SparseRCNN
+    from detection_3d_tpu_torch.ops import cuda_lib
+    from detection_3d_tpu_torch.parallel.checks import grads
+    from detection_3d_tpu_torch.parallel.mesh import (
+        make_mesh_2d, rank_generator)
+    from detection_3d_tpu_torch.parallel.spatial import (
+        make_dp_spatial_grad_fn, make_dp_spatial_train_step)
+    warnings.simplefilter("ignore")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh_2d(2, 2, device="cuda")
+    dev = mesh.device
+    model = SparseRCNN(cfg, seed=0).to(dev).train()
+    step = make_dp_spatial_train_step(cfg, mesh, model,
+                                      Solver(cfg, model, 1), shard_caps,
+                                      halo_caps)
+    gen = rank_generator(0, mesh.coord("dp"), dev)
+    torch.cuda.reset_peak_memory_stats()
+    step(batches, gen)        # warms up, and waits for the slowest rank
+    cuda_lib.reset_launches()
+    (total, _, ok, ovf), sec = _timed(lambda: step(batches, gen))
+    out = {"rank": mesh.rank, "coords": mesh.coords,
+           "launches": _launches(), "s_per_step": sec,
+           "total_loss": float(total), "digest": _digest(model),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    check(bool(ok) and not bool(ovf), "dp x sp step: not finite or overflow")
+    tmodel = SparseRCNN(tcfg, seed=0).to(dev).train()
+    pri = [{k: torch.as_tensor(v).to(dev) for k, v in p.items()}
+           for p in tpris]
+    total, _, _, _ = make_dp_spatial_grad_fn(
+        tcfg, mesh, tmodel, SMALL_SHARD_CAPS, SMALL_HALO_CAPS)(
+            tbatches, None, pri)
+    if mesh.rank == 0:
+        got = grads(tmodel)
+        ref, ref_grads = _single_card_grads(tcfg, tmodel, tbatches, tpris,
+                                            dev)
+        rep = _grad_report(got, ref_grads)
+        check(rep["worst_share_of_tolerance"] <= 1.0 and abs(
+            float(total) - ref["total"]) <= 1e-4, f"dp x sp gradients at "
+            f"the small config: {rep}")
+        out["small"] = {"loss_max_abs_err": abs(float(total) - ref["total"]),
+                        **rep}
+    return out
+
+
+# the kernels each rank must launch: serving a shard, training a shard,
+# a data-parallel step (its pyramid takes no book from D)
+PAR_KERNELS = ("gather_conv", "subm_match", "rotated_iou", "multi_match")
+PAR_TRAIN_KERNELS = PAR_KERNELS + ("gather_conv_dfeats", "gather_conv_dw")
+DP_KERNELS = ("gather_conv", "gather_conv_dfeats", "gather_conv_dw",
+              "subm_match", "rotated_iou")
+
+
+def parallel_path(cfg, scenes, dev="cuda"):
+    """The multi-device phase at full width (full_scale_config(), seeded
+    random weights), each part in its own ranks started by
+    parallel/mesh.launch after the kernels were built here: data
+    parallelism on 2 ranks over 2 * PAR_DP_STEPS buildings
+    (:func:`par_dp_rank`), spatial sharding of one building over 2
+    x-slabs (:func:`par_sp_rank`) and dp x sp = 2 x 2 over two buildings
+    (:func:`par_dpsp_rank`); NCCL over distinct cards where there are as
+    many cards as ranks, else gloo with every rank on cuda:0. Fails on a
+    rank that fails or a kernel a rank did not launch. Returns every
+    rank's launches by path and the spatial D books' sums. ``dev`` is
+    where the caps are measured."""
+    import shutil
+    from detection_3d_tpu_torch.engine.trainer import pad_scene
+    from detection_3d_tpu_torch.models.detector import SparseRCNN
+    from detection_3d_tpu_torch.ops import cuda_lib
+    from detection_3d_tpu_torch.parallel.mesh import launch
+    init_dir = cuda_lib.BUILD_DIR / "parallel_init"   # gitignored, removed
+    shutil.rmtree(init_dir, ignore_errors=True)
+    init_dir.mkdir(parents=True)
+    cards = torch.cuda.device_count()
+    print(f"parallel phase: {cards} card(s) seen; 2 ranks on "
+          f"{_backend(2)}, 4 ranks on {_backend(4)}"
+          + ("" if cards >= 2 else " (every rank on cuda:0: the times "
+             "measure correctness and overhead, not scaling)"))
+    launches = {}
+
+    def run(name, fn, n, args):
+        t0 = time.perf_counter()
+        res = launch(fn, n, _backend(n), str(init_dir / name), args=args,
+                     timeout=PAR_TIMEOUT, cpu_threads=0)
+        print(f"parallel {name}: {n} ranks in "
+              f"{time.perf_counter() - t0:.1f} s")
+        return res
+
+    # data parallelism: 2 ranks, one building each a step
+    batches = [pad_scene(cfg, s) for s in scenes[:2 * PAR_DP_STEPS]]
+    g = torch.Generator().manual_seed(9)
+    shapes = SparseRCNN(cfg).priority_shapes()
+    pri = [{k: torch.rand((m,), generator=g).numpy()
+            for k, m in shapes.items()} for _ in range(2)]
+    dp = run("dp", par_dp_rank, 2, (cfg, batches, pri))
+    for r in dp:
+        check(r["digests"] == dp[0]["digests"], "data parallelism: the "
+              "parameters differ across ranks")
+        for k in DP_KERNELS:
+            check(r["launches"][k] > 0, f"data parallelism: rank "
+                  f"{r['rank']} did not launch {k}")
+        launches[f"dp_train_rank{r['rank']}"] = r["launches"]
+    print("parallel dp: " + json.dumps(
+        {"first_step_against_one_process": dp[0]["first_step"],
+         "single_card_s_per_step_2_buildings":
+             dp[0]["single_card_s_per_step"],
+         "s_per_step_by_rank": [r["s_per_step"] for r in dp],
+         "peak_gib_by_rank": [r["peak_gib"] for r in dp],
+         "launches_by_rank": [r["launches"] for r in dp],
+         "param_digests_equal_every_step": True}))
+
+    # spatial sharding: one building over 2 x-slabs; dp x sp: two
+    sp_batches = [pad_scene(cfg, centered(s, cfg)) for s in scenes[:2]]
+    cfg, shard_caps, halo_caps, measured = measure_caps(cfg, sp_batches, 2,
+                                                        dev)
+    print("parallel caps (2 x-slabs, from the single-card pyramids of the "
+          "two buildings; voxels and shard rows x 1.10 rounded up to 256, "
+          "halo x 1.25 rounded up to 32): " + json.dumps(
+              {"shard_caps": shard_caps, "halo_caps": halo_caps,
+               **measured}))
+    tcfg = tiny_spatial_config()
+    tbatches = [pad_scene(tcfg, tiny_scene(tcfg, s)) for s in (0, 1)]
+    tshapes = SparseRCNN(tcfg).priority_shapes()
+    tpri = [{k: torch.rand((m,), generator=g).numpy()
+             for k, m in tshapes.items()} for _ in range(2)]
+    sp = run("sp", par_sp_rank, 2, (cfg, sp_batches[0], shard_caps,
+                                    halo_caps, tcfg, tbatches[0], tpri[0]))
+    for r in sp:
+        check(r["digest"] == sp[0]["digest"], "spatial step: the "
+              "parameters differ across shards")
+        for path, kernels in (("serve", PAR_KERNELS),
+                              ("train", PAR_TRAIN_KERNELS)):
+            counts = r[f"{path}_launches"]
+            for k in kernels:
+                check(counts[k] > 0, f"spatial {path}: rank {r['rank']} "
+                      f"did not launch {k}")
+            launches[f"sp_{path}_rank{r['rank']}"] = counts
+    print("parallel sp: " + json.dumps({
+        k: [r.get(k) for r in sp] for k in (
+            "own_rows", "halo_rows", "bytes_received_per_forward",
+            "d_books", "s_per_building", "s_per_step", "peak_gib",
+            "serve_launches", "train_launches", "detections",
+            "total_loss")}))
+    print("parallel sp against one card: " + json.dumps({
+        "maps": sp[0]["maps"], "maps_rel_limits": MAPS_REL_LIMITS,
+        "single_card_s_per_building": sp[0]["single_card_s_per_building"],
+        "single_card_s_per_step": sp[0]["single_card_s_per_step"],
+        "small_config": sp[0]["small"]}))
+    dpsp = run("dpsp", par_dpsp_rank, 4, (cfg, sp_batches, shard_caps,
+                                          halo_caps, tcfg, tbatches, tpri))
+    for r in dpsp:
+        check(r["digest"] == dpsp[0]["digest"], "dp x sp: the parameters "
+              "differ across ranks")
+        for k in PAR_TRAIN_KERNELS:
+            check(r["launches"][k] > 0, f"dp x sp: rank {r['rank']} did "
+                  f"not launch {k}")
+        launches[f"dpsp_train_rank{r['rank']}"] = r["launches"]
+    print("parallel dp x sp: " + json.dumps({
+        "s_per_step_by_rank": [r["s_per_step"] for r in dpsp],
+        "peak_gib_by_rank": [r["peak_gib"] for r in dpsp],
+        "total_loss": dpsp[0]["total_loss"],
+        "small_config_against_one_card": dpsp[0]["small"]}))
+    shutil.rmtree(init_dir, ignore_errors=True)
+    return launches, sp[0]["d_books"]
+
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2682,6 +3415,11 @@ def main():
     # ---- kernel D's own entry points ------------------------------------
     match = match_path(cfg, scenes[0], dev)
 
+    # ---- multi-device: data parallelism, spatial sharding, dp x sp ------
+    t0 = time.perf_counter()
+    par_launches, rep_d["sp_shard_books"] = parallel_path(cfg, scenes, dev)
+    print(f"parallel phase: {time.perf_counter() - t0:.1f} s")
+
     # ---- small-input reference: kernels on the card vs plain on the CPU -
     tcfg = tiny_config()
     scene = tiny_scene(tcfg)
@@ -2689,7 +3427,8 @@ def main():
     tiny_train_card_vs_cpu(tcfg, scene)
 
     # launches: each kernel's count on the path it serves (training for
-    # A, A', B, C; D's own entry points for D); every path's count beside
+    # A, A', B, C; a spatial shard's serving, rank 0's, for D); every
+    # path's count beside
     pg = "detection_3d_tpu/ops/pallas/"
     spec = [("gather_conv", "gather_conv.cu",
              pg + "gather_conv_kernel.py:245", rep_a, train),
@@ -2702,7 +3441,7 @@ def main():
             ("rotated_iou", "rotated_iou.cu",
              pg + "rotated_iou_kernel.py:196", rep_c, train),
             ("multi_match", "multi_match.cu", pg + "match_kernel.py:399",
-             rep_d, match)]
+             rep_d, par_launches["sp_serve_rank0"])]
     kernels = []
     for name, src, replaces, rep, path in spec:
         kernels.append({
@@ -2718,7 +3457,9 @@ def main():
                                     in input_launches.items()},
                                  **{path: g3[path][name] for path in
                                     ("serve_3g6c", "train_3g6c",
-                                     "rpn_only")}},
+                                     "rpn_only")},
+                                 **{path: counts[name] for path, counts
+                                    in par_launches.items()}},
             "max_abs_err": rep["max_abs_err"], "ms": rep["ms"],
             "plain_ms": rep["plain_ms"], "bound_ms": rep["bound_ms"],
             "bound_by": rep["bound_by"],
@@ -2733,6 +3474,8 @@ def main():
             kernels[-1].update(rep_b_sum)
         if name == "multi_match":  # the sums over the 16 books of a pyramid
             kernels[-1].update(rep_d_sum)
+            # and over the 16 books of a spatial shard's pyramid (rank 0)
+            kernels[-1]["sp_shard_books"] = rep_d["sp_shard_books"]
         part = {"gather_conv_dfeats": "dfeats", "gather_conv_dw": "dw"}.get(
             name)
         if part:     # the sums over every shape of one training step
@@ -2856,8 +3599,40 @@ def overfit_main():
     return code
 
 
+def parallel_main():
+    """``--parallel``: only the multi-device phase (:func:`parallel_path`)
+    at full width, after building the kernels; prints the card line and
+    the ok line as the whole run does."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    from detection_3d_tpu_torch.config.defaults import full_scale_config
+    from detection_3d_tpu_torch.data.synthetic import synthetic_multiroom
+    from detection_3d_tpu_torch.ops import cuda_lib
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"card: {card_line()}")
+    t0 = time.perf_counter()
+    cuda_lib.build()
+    print(f"build: {time.perf_counter() - t0:.1f} s")
+    cfg = full_scale_config()
+    scenes = [synthetic_multiroom(seed=100 + i, num_points=POINTS,
+                                  rooms_xy=(5, 5), room=8.0,
+                                  voxel_scale=cfg.sparse3d.voxel_scale)
+              for i in range(2 * PAR_DP_STEPS)]
+    t0 = time.perf_counter()
+    launches, books = parallel_path(cfg, scenes)
+    print(f"parallel phase: {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"launches_by_path": launches,
+                      "sp_shard_books": books}))
+    print(card_line())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 MODES = {"--bwd-shapes": bwd_shapes_main, "--compare": compare_main,
-         "--overfit": overfit_main}
+         "--overfit": overfit_main, "--parallel": parallel_main}
 
 if __name__ == "__main__":
     if len(sys.argv) > 2 or sys.argv[1:] and sys.argv[1] not in MODES:

@@ -40,7 +40,8 @@ from detection_3d_tpu_torch.data.packing import (
     to_device, unpack_batch, unpack_table,
 )
 from detection_3d_tpu_torch.data.pyramid_packing import unpack_pyramid
-from detection_3d_tpu_torch.engine.trainer import pad_scene
+from detection_3d_tpu_torch.engine.trainer import (
+    pack_detections, pad_scene, unpack_detections)
 from detection_3d_tpu_torch.evaluation.detection_eval import (
     eval_aug_thickness, evaluate_detections,
 )
@@ -70,11 +71,7 @@ def _predict_one(cfg, model, packed, dev, batch, phases=None):
             table = voxelize_points(cfg, b["points"], b["feats"],
                                     b["points_valid"])
     det = model(table, phases=phases, pyramid=pyramid)
-    packed_out = torch.cat(
-        [det.boxes, det.fields["scores"][:, None],
-         det.fields["labels"].to(torch.float32)[:, None],
-         det.valid.to(torch.float32)[:, None]], -1)
-    return packed_out, table.true_num
+    return pack_detections(det), table.true_num
 
 
 def _model_on(cfg, model, dev):
@@ -292,10 +289,7 @@ def run_inference(cfg: Config, model: Optional[SparseRCNN],
                 "scene %d: %d voxels exceed the scale-0 capacity %d — "
                 "input subsampled (raise caps.voxel_caps / max_points)",
                 i, true_num, cap0)
-        v = packed_out[:, 9] > 0.5
-        preds[i] = {"boxes": packed_out[v, :7], "scores": packed_out[v, 7],
-                    "labels": packed_out[v, 8].astype(np.int32),
-                    "true_num": true_num}
+        preds[i] = {**unpack_detections(packed_out), "true_num": true_num}
 
     if pipelined:
         dev = resolve_device(device)

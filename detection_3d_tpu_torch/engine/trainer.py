@@ -28,7 +28,15 @@ own host syncs, the greedy NMS and the ``.item()``s, remain).
 :meth:`Trainer.train_resident` packs every scene once, keeps the packs
 on the device and trains in chunks of such gated steps.
 
-Not ported yet: data parallelism over a mesh.
+With a ``mesh`` (parallel/mesh.make_mesh, one process per rank) a step
+is data-parallel, as JAX's batched step: it takes ``bsz = max(
+ims_per_batch, dp)`` buildings rounded up to a multiple of dp, each
+rank runs its bsz / dp of them in JAX's sharding order (rank r the r-th
+run of them) through parallel/mesh.batched_train_step (one all-reduce
+of the loss sums and every gradient; the NaN gate on the reduced
+buffer), each rank's samplers draw from a generator seeded from (seed,
+rank), the eval-in-train detections are gathered from every rank,
+``scan_steps`` is off, and only rank 0 logs and writes checkpoints.
 """
 
 from __future__ import annotations
@@ -50,6 +58,8 @@ from detection_3d_tpu_torch.evaluation.detection_eval import (
 )
 from detection_3d_tpu_torch.models.detector import SparseRCNN, voxelize_points
 from detection_3d_tpu_torch.models.structures import Boxes3D
+from detection_3d_tpu_torch.parallel.mesh import (
+    batched_train_step, dp_batch_size, rank_generator)
 from detection_3d_tpu_torch.utils.checkpoint import Checkpointer
 from detection_3d_tpu_torch.utils.device import resolve_device
 from detection_3d_tpu_torch.utils.metric_logger import MetricLogger
@@ -120,6 +130,22 @@ def check_capacities(cfg: Config, scene: Dict, logger=None, device="cuda"):
     return out
 
 
+def pack_detections(det) -> torch.Tensor:
+    """A Boxes3D of detections as one (K, 10) f32 tensor ``[boxes7 |
+    score | label | valid]`` (the serving output's packed form)."""
+    return torch.cat([det.boxes, det.fields["scores"][:, None],
+                      det.fields["labels"].to(torch.float32)[:, None],
+                      det.valid.to(torch.float32)[:, None]], -1)
+
+
+def unpack_detections(packed: np.ndarray) -> Dict[str, np.ndarray]:
+    """The valid rows of a (K, 10) ``[boxes7 | score | label | valid]``
+    detections array as {boxes, scores, labels}."""
+    v = packed[:, 9] > 0.5
+    return {"boxes": packed[v, :7], "scores": packed[v, 7],
+            "labels": packed[v, 8].astype(np.int32)}
+
+
 def cycle_pad(order: list, k: int) -> list:
     """Pad ``order`` to a multiple of ``k`` by cycling it (correct even
     when the pad exceeds len(order))."""
@@ -163,6 +189,34 @@ def grads_finite(total, params):
     return torch.isfinite(flat).all()
 
 
+def training_forward(cfg: Config, model, batch, device, generator=None,
+                     priorities=None, packed=False):
+    """The training forward of one building, a padded batch
+    (``packed=False``) or a pack_pyramid(..., backward=True) dict
+    (``packed="pyramid"``): (losses, the train-time detections with
+    ``cfg.eval_in_train`` else None, true_num), on the device."""
+    # imported here: both modules import this one (pad_scene)
+    from detection_3d_tpu_torch.data.packing import to_device
+    from detection_3d_tpu_torch.data.pyramid_packing import unpack_pyramid
+    if packed == "pyramid":
+        b = to_device(batch, device)
+        pyramid = unpack_pyramid(cfg, b, backward=True)
+        table, true_num = pyramid["tables"][0], b["true_num"]
+        gt, gt_labels = Boxes3D(b["gt_boxes"], b["gt_valid"]), b["gt_labels"]
+    elif packed is False:
+        (pts, fts, valid), gt, gt_labels = batch_to_device(batch, device)
+        table, pyramid = voxelize_points(cfg, pts, fts, valid), None
+        true_num = table.true_num
+    else:
+        raise ValueError(f"packed={packed!r}: expected False or 'pyramid'")
+    losses = model(table, gt, gt_labels, generator=generator,
+                   priorities=priorities, pyramid=pyramid)
+    dets = None
+    if cfg.eval_in_train:
+        losses, dets = losses
+    return losses, dets, true_num
+
+
 def chunk_generator(seed: int, chunk_index: int, device) -> torch.Generator:
     """The sampler generator of ``train_resident``'s chunk ``chunk_index``,
     seeded from (seed, chunk_index) alone, so a chunk draws the same
@@ -174,19 +228,27 @@ def chunk_generator(seed: int, chunk_index: int, device) -> torch.Generator:
 
 
 class Trainer:
-    """Single-device training loop (on the card unless ``device`` says
-    the CPU; asking for the card without one raises)."""
+    """Training loop on one device (on the card unless ``device`` says
+    the CPU; asking for the card without one raises), or data-parallel
+    over a ``mesh`` (parallel/mesh.Mesh, ``dp`` axis) on the mesh's
+    device, ``device`` unused."""
 
     def __init__(self, cfg: Config, output_dir: Optional[str] = None,
                  logger=None, device="cuda", mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "data-parallel training over a mesh is not ported yet")
+        if mesh is not None and mesh.axes != ("dp",):
+            raise ValueError(f"Trainer: a data-parallel mesh has the one "
+                             f"axis 'dp', this mesh has {mesh.axes} (train "
+                             f"a spatially sharded model with "
+                             f"parallel/spatial's steps)")
         self.cfg = cfg
-        self.device = resolve_device(device)
-        self.logger = logger
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else \
+            resolve_device(device)
+        self.is_main = mesh is None or mesh.is_main
+        # only the first rank logs and writes files
+        self.logger = logger if self.is_main else None
         self.output_dir = output_dir or cfg.output_dir
-        self.checkpointer = Checkpointer(self.output_dir, logger)
+        self.checkpointer = Checkpointer(self.output_dir, self.logger)
         self.meters = MetricLogger()
         self.min_loss = float("inf")
         self.min_save_every = 50
@@ -210,11 +272,17 @@ class Trainer:
         JAX trainer's signature."""
         model = (model if model is not None
                  else SparseRCNN(self.cfg, seed=seed)).to(self.device)
+        if self.mesh is not None:     # every rank starts from rank 0's
+            with torch.no_grad():
+                for t in model.state_dict().values():
+                    torch.distributed.broadcast(t, 0)
         model.train()
         return TrainState(model, Solver(self.cfg, model, iters_per_epoch))
 
     def _persist_bad_scenes(self, names):
         """Write the culled blocklist to <output_dir>/bad_scenes.json."""
+        if not self.is_main:
+            return
         path = os.path.join(self.output_dir, "bad_scenes.json")
         os.makedirs(self.output_dir, exist_ok=True)
         with open(path, "w") as f:
@@ -226,31 +294,10 @@ class Trainer:
         true_num) as tensors on the device, the step's train-time
         detections on the device with ``cfg.eval_in_train``, else
         None)."""
-        # imported here: both modules import this one (pad_scene)
-        from detection_3d_tpu_torch.data.packing import to_device
-        from detection_3d_tpu_torch.data.pyramid_packing import (
-            unpack_pyramid)
-        cfg = self.cfg
-        if packed == "pyramid":
-            b = to_device(batch, self.device)
-            pyramid = unpack_pyramid(cfg, b, backward=True)
-            table, true_num = pyramid["tables"][0], b["true_num"]
-            gt, gt_labels = Boxes3D(b["gt_boxes"], b["gt_valid"]), \
-                b["gt_labels"]
-        elif packed is False:
-            (pts, fts, valid), gt, gt_labels = batch_to_device(batch,
-                                                               self.device)
-            table, pyramid = voxelize_points(cfg, pts, fts, valid), None
-            true_num = table.true_num
-        else:
-            raise ValueError(f"packed={packed!r}: expected False or "
-                             "'pyramid'")
         state.solver.zero_grad()
-        losses = state.model(table, gt, gt_labels, generator=generator,
-                             priorities=priorities, pyramid=pyramid)
-        dets = None
-        if cfg.eval_in_train:
-            losses, dets = losses
+        losses, dets, true_num = training_forward(
+            self.cfg, state.model, batch, self.device, generator,
+            priorities, packed)
         total = total_loss(losses)
         total.backward()
         ok = grads_finite(total, state.solver.params)
@@ -284,11 +331,8 @@ class Trainer:
         out, dets = self._device_step(state, batch, generator, priorities,
                                       packed)
         if dets is not None:
-            v = dets.valid.cpu().numpy()
-            self.last_detections = {
-                "boxes": dets.boxes.cpu().numpy()[v],
-                "scores": dets.fields["scores"].cpu().numpy()[v],
-                "labels": dets.fields["labels"].cpu().numpy()[v]}
+            self.last_detections = unpack_detections(
+                pack_detections(dets).cpu().numpy())
         return self._fetch([out])[0]
 
     def scan(self, state: TrainState, batches, generator=None,
@@ -300,7 +344,32 @@ class Trainer:
                                               packed)[0] for b in batches])
 
     def _save(self, name, state: TrainState):
-        self.checkpointer.save(name, state.state_dict())
+        if self.is_main:
+            self.checkpointer.save(name, state.state_dict())
+
+    def batch_size(self) -> int:
+        """Buildings a step takes: 1, or under a mesh ``ims_per_batch``
+        rounded up to a multiple of the ranks (at least one each)."""
+        if self.mesh is None:
+            return 1
+        return dp_batch_size(self.cfg.solver.ims_per_batch,
+                             self.mesh.size("dp"))
+
+    def dp_step(self, state: TrainState, batches, generator=None,
+                priorities=None):
+        """One data-parallel step (parallel/mesh.batched_train_step) over
+        this rank's padded ``batches``; returns (total, losses, ok,
+        true_num) as host numbers, the same on every rank. With
+        ``cfg.eval_in_train``, ``self.last_detections`` becomes the list
+        of every building's train-time detections, in batch order."""
+        total, losses, ok, tn, dets = batched_train_step(
+            self.cfg, state.model, state.solver, self.mesh)(
+                batches, generator, priorities)
+        state.step += 1
+        if dets is not None:
+            self.last_detections = [unpack_detections(d)
+                                    for d in dets.cpu().numpy()]
+        return self._fetch([(total, losses, ok, tn)])[0]
 
     def train(self, scenes, state: TrainState, epochs: int, seed: int = 0,
               checkpoint_period_epochs: Optional[int] = None):
@@ -322,7 +391,12 @@ class Trainer:
         n_scenes = len(scenes)
         ckpt_period = checkpoint_period_epochs or \
             cfg.solver.checkpoint_period_epochs
-        gen = torch.Generator(device=self.device).manual_seed(seed + 123)
+        mesh = self.mesh
+        if mesh is None:
+            gen = torch.Generator(device=self.device).manual_seed(seed + 123)
+        else:
+            gen = rank_generator(seed, mesh.coord("dp"), self.device)
+        bsz = self.batch_size()
         shuffle_rng = np.random.default_rng(seed + 77)
         cap0 = cfg.caps.scale_caps(cfg.sparse3d.num_scales)[0]
         strikes = np.zeros(n_scenes, np.int64)
@@ -346,7 +420,10 @@ class Trainer:
                     "trainer: every scene was culled as bad "
                     f"({len(culled)} scenes with >= "
                     f"{self.bad_scene_strikes} non-finite steps)")
-            stride = self.scan_steps if not eval_this_epoch else 1
+            if mesh is not None:     # one data-parallel step of bsz
+                stride = bsz
+            else:
+                stride = self.scan_steps if not eval_this_epoch else 1
             order = cycle_pad(order, stride)
             loaded = iter(source.epoch(order) if source is not None
                           else (scenes[i] for i in order))
@@ -354,28 +431,43 @@ class Trainer:
                 sids = order[start:start + stride]
                 t0 = time.perf_counter()
                 group = [next(loaded) for _ in sids]
-                if stride > 1:
+                if mesh is not None:
+                    # rank r takes the r-th run of the step's buildings
+                    lb = bsz // mesh.size("dp")
+                    r = mesh.coord("dp")
+                    results = [self.dp_step(
+                        state, [pad_scene(cfg, sc)
+                                for sc in group[r * lb:(r + 1) * lb]], gen)]
+                    dt = time.perf_counter() - t0
+                    steps = [(sids, group)]
+                elif stride > 1:
                     results = self.scan(state, [pad_scene(cfg, sc)
                                                 for sc in group], gen)
                     dt = (time.perf_counter() - t0) / stride
+                    steps = [([si], [sc]) for si, sc in zip(sids, group)]
                 else:
                     results = [self.step(state, pad_scene(cfg, group[0]),
                                          gen)]
                     dt = time.perf_counter() - t0
-                for (total, losses, ok, true_num), si, scene in zip(
-                        results, sids, group):
+                    steps = [(sids, group)]
+                for (total, losses, ok, true_num), (step_sids, step_scenes) \
+                        in zip(results, steps):
                     self.history.append((total, losses, ok, dt))
                     if eval_this_epoch:
-                        epoch_preds.append(self.last_detections)
-                        epoch_gts.append({"boxes": scene["gt_boxes"],
-                                          "labels": scene["gt_labels"]})
+                        dets = self.last_detections
+                        epoch_preds += dets if mesh is not None else [dets]
+                        epoch_gts += [{"boxes": sc["gt_boxes"],
+                                       "labels": sc["gt_labels"]}
+                                      for sc in step_scenes]
                     if true_num > cap0 and self.logger:
                         self.logger.warning(
                             "iter %d: %d voxels exceed scale-0 capacity %d "
                             "— input subsampled (raise caps)", it, true_num,
                             cap0)
                     self.meters.update(loss=total, time=dt, **losses)
-                    if not ok:
+                    for si, scene in zip(step_sids, step_scenes):
+                        if ok:      # a non-finite step strikes its scenes
+                            break
                         # a loader's scene is named by its index (JAX
                         # trainer.py:683-685)
                         name = str(si if source is not None
@@ -384,7 +476,7 @@ class Trainer:
                                      culled_names, n_scenes, it)
                     if self.logger and it % 20 == 0:
                         eta = (time.time() - t_start) / (it + 1) * \
-                            (epochs * n_scenes - it - 1)
+                            (epochs * -(-n_scenes // bsz) - it - 1)
                         self.logger.info(
                             "iter %d epoch %d eta %.0fs lr %.5f %s", it,
                             epoch, eta, state.solver.lr(state.solver.count),
@@ -432,6 +524,10 @@ class Trainer:
         from detection_3d_tpu_torch.data.native_packer import (
             pack_pyramid_native)
         from detection_3d_tpu_torch.data.packing import to_device
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "train_resident runs on one device; train over a mesh with "
+                "train()")
         scenes = list(scenes)
         n = len(scenes)
         start_step = int(state.step)

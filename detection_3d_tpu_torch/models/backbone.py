@@ -158,9 +158,9 @@ class SubmConv(nn.Module):
     def reset_parameters(self, gen):
         he_normal_(self.w, gen)
 
-    def forward(self, feats, nidx, valid, order, bwd=None):
+    def forward(self, feats, nidx, valid, order, bwd=None, halo=None):
         return submanifold_conv(feats, nidx, self.w.to(feats.dtype), valid,
-                                order, bwd)
+                                order, bwd, halo)
 
 
 class NiN(nn.Module):
@@ -176,7 +176,9 @@ class NiN(nn.Module):
 
 
 class BNLeakyReLU(nn.Module):
-    """Masked batch-statistics BN + ReLU (the configs' leakiness 0)."""
+    """Masked batch-statistics BN + ReLU (the configs' leakiness 0);
+    statistics summed over ``group``'s ranks when one is given (JAX's
+    ``sp_axis``)."""
 
     def __init__(self, c: int):
         super().__init__()
@@ -188,8 +190,9 @@ class BNLeakyReLU(nn.Module):
             self.scale.fill_(1.0)
             self.bias.zero_()
 
-    def forward(self, feats, valid):
-        return batch_norm_leaky_relu(feats, valid, self.scale, self.bias)
+    def forward(self, feats, valid, group=None):
+        return batch_norm_leaky_relu(feats, valid, self.scale, self.bias,
+                                     process_group=group)
 
 
 class ResidualBlock(nn.Module):
@@ -203,10 +206,13 @@ class ResidualBlock(nn.Module):
         self.bn2 = BNLeakyReLU(cout)
         self.conv2 = SubmConv(cout, cout)
 
-    def forward(self, feats, nidx, valid, order, bwd=None):
+    def forward(self, feats, nidx, valid, order, bwd=None, halo=None,
+                group=None):
         sc = feats if self.shortcut is None else self.shortcut(feats, valid)
-        h = self.conv1(self.bn1(feats, valid), nidx, valid, order, bwd)
-        h = self.conv2(self.bn2(h, valid), nidx, valid, order, bwd)
+        h = self.conv1(self.bn1(feats, valid, group), nidx, valid, order, bwd,
+                       halo)
+        h = self.conv2(self.bn2(h, valid, group), nidx, valid, order, bwd,
+                       halo)
         return sc + h
 
 
@@ -221,8 +227,9 @@ class DownLayer(nn.Module):
     def reset_parameters(self, gen):
         he_normal_(self.w, gen)
 
-    def forward(self, feats, rulebook, in_valid, out_valid, order, bwd=None):
-        h = self.bn(feats, in_valid)
+    def forward(self, feats, rulebook, in_valid, out_valid, order, bwd=None,
+                group=None):
+        h = self.bn(feats, in_valid, group)
         return strided_conv(h, rulebook, self.w.to(h.dtype), out_valid,
                             order, bwd)
 
@@ -230,10 +237,11 @@ class DownLayer(nn.Module):
 class UpLayer(DownLayer):
     """BN-ReLU + deconv (fpn_net.py:86-92)."""
 
-    def forward(self, feats, rulebook, in_valid, out_valid, order, bwd=None):
-        h = self.bn(feats, in_valid)
+    def forward(self, feats, rulebook, in_valid, out_valid, order, bwd=None,
+                group=None, halo=None):
+        h = self.bn(feats, in_valid, group)
         return deconv(h, rulebook, self.w.to(h.dtype), out_valid, order,
-                      bwd)
+                      bwd, halo)
 
 
 class BEVConv(nn.Module):
@@ -263,6 +271,12 @@ class SparseFPN(nn.Module):
     below the deepest map the RPN and ROI heads read, and BEV convs of
     unselected slots, are not computed (XLA removes them from the JAX
     graph the same way); their parameters still exist.
+
+    A spatial shard's pyramid (parallel/spatial.build_spatial_pyramid)
+    also carries ``own_valid`` (the rows this shard owns: the validity
+    of every BN, conv output and map), ``subm_halo`` / ``up_halo`` (the
+    HaloExchange each submanifold / deconv book refreshes its input
+    with) and ``process_group`` (BN statistics summed over the shards).
     """
 
     def __init__(self, cfg: Config):
@@ -306,7 +320,11 @@ class SparseFPN(nn.Module):
         down_bwd = pyramid.get("down_bwd") or [None] * (n - 1)
         up_bwd = pyramid.get("up_bwd") or [None] * (n - 1)
         bev_bwd = pyramid.get("bev_bwd") or {}
-        valids = [t.row_valid for t in tables]
+        # a spatial shard's pyramid: own rows, halo exchanges, BN group
+        valids = pyramid.get("own_valid") or [t.row_valid for t in tables]
+        subm_halo = pyramid.get("subm_halo") or [None] * n
+        up_halo = pyramid.get("up_halo") or [None] * (n - 1)
+        group = pyramid.get("process_group")
         n3d = len(cfg.rpn.rpn_scales_from_top)
         sel = cfg.rpn.rpn_3d_2d_selector
         # feature maps (counted from the top) that some head reads
@@ -314,23 +332,23 @@ class SparseFPN(nn.Module):
         used |= set(cfg.roi.pooler_scales_from_top)
 
         h = self.conv_in(table0.feats, subm_idx[0], valids[0], subm_order[0],
-                         subm_bwd[0])
+                         subm_bwd[0], subm_halo[0])
         downs = []
         for k in range(n):
             if k > 0:
                 h = getattr(self, f"down{k}")(
                     h, pyramid["down_rb"][k - 1], valids[k - 1], valids[k],
-                    pyramid["down_order"][k - 1], down_bwd[k - 1])
+                    pyramid["down_order"][k - 1], down_bwd[k - 1], group)
             for r in range(s3d.block_reps):
                 if s3d.residual_block:
                     h = getattr(self, f"block{k}_{r}")(
                         h, subm_idx[k], valids[k], subm_order[k],
-                        subm_bwd[k])
+                        subm_bwd[k], subm_halo[k], group)
                 else:
-                    hh = getattr(self, f"vgg_bn{k}_{r}")(h, valids[k])
+                    hh = getattr(self, f"vgg_bn{k}_{r}")(h, valids[k], group)
                     h = getattr(self, f"vgg_conv{k}_{r}")(
                         hh, subm_idx[k], valids[k], subm_order[k],
-                        subm_bwd[k])
+                        subm_bwd[k], subm_halo[k])
             downs.append(h)
 
         net = getattr(self, f"shortcut{n - 1}")(downs[-1], valids[-1])
@@ -341,10 +359,12 @@ class SparseFPN(nn.Module):
             j = k - 1
             net = getattr(self, f"up{j}")(net, pyramid["up_rb"][i],
                                           valids[k], valids[j],
-                                          pyramid["up_order"][i], up_bwd[i])
+                                          pyramid["up_order"][i], up_bwd[i],
+                                          group, up_halo[i])
             net = net + getattr(self, f"shortcut{j}")(downs[j], valids[j])
             net = getattr(self, f"merge{j}")(net, subm_idx[j], valids[j],
-                                             subm_order[j], subm_bwd[j])
+                                             subm_order[j], subm_bwd[j],
+                                             subm_halo[j])
             ups.append(net)
 
         maps = {}

@@ -35,12 +35,16 @@ from detection_3d_tpu_torch.utils.checkpoint import load_jax_checkpoint
 from detection_3d_tpu_torch.utils.convert import convert_jax_params
 
 
-def voxelize_points(cfg: Config, points_xyz, feats, valid) -> SparseTensor:
+def voxelize_points(cfg: Config, points_xyz, feats, valid,
+                    capacity: Optional[int] = None) -> SparseTensor:
     """Continuous scaled coords -> deduplicated scale-0 voxel table: floor
-    to int voxels and average the features of points sharing a voxel."""
+    to int voxels and average the features of points sharing a voxel.
+    ``capacity`` overrides the configured scale-0 table size (a spatial
+    shard's own rows, parallel/spatial.py)."""
     coords = torch.floor(points_xyz).to(torch.int32)
     coords4 = torch.cat([coords, torch.zeros_like(coords[:, :1])], -1)
-    capacity = cfg.caps.scale_caps(cfg.sparse3d.num_scales)[0]
+    if capacity is None:
+        capacity = cfg.caps.scale_caps(cfg.sparse3d.num_scales)[0]
     return build_sparse_tensor(coords4, feats, valid,
                                cfg.sparse3d.voxel_full_scale, 1, capacity)
 
@@ -157,6 +161,19 @@ class SparseRCNN(nn.Module):
             pyramid = dict(pyramid, tables=[table, *pyramid["tables"][1:]])
         with timed("backbone"):
             rpn_maps, roi_maps = self.backbone(table, pyramid)
+        return self.heads(rpn_maps, roi_maps, gt, gt_labels,
+                          priorities=priorities, phases=phases)
+
+    def heads(self, rpn_maps, roi_maps, gt: Optional[Boxes3D] = None,
+              gt_labels=None, *, priorities=None, phases=None):
+        """Everything of :meth:`forward` after the backbone: the RPN and
+        ROI stages on the backbone's maps, with :meth:`forward`'s
+        results. Spatial sharding runs them replicated on the gathered
+        global maps (parallel/spatial.py). With ``gt``, ``priorities``
+        is the dict of the samplers' draws (:meth:`priority_shapes`)."""
+        cfg = self.cfg
+        timed = phases.phase if phases is not None else \
+            (lambda name: contextlib.nullcontext())
         # group-wise gt (one group takes the gt as it is)
         if gt is None:
             gt_groups = None

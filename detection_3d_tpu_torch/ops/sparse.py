@@ -299,26 +299,20 @@ def neighbor_match_3x3x3(table: SparseTensor):
     return neighbor_match_columns(table)
 
 
-def downsample_with_rulebooks(table: SparseTensor, kernel, stride,
-                              capacity: int):
-    """Strided-conv output table + conv AND deconv rulebooks in one pass.
+def _downsample_candidates(table: SparseTensor, kernel, stride):
+    """Every (output site, kernel offset) a strided conv's input rows
+    reach: an output site exists iff >= 1 active input lies in its
+    receptive field [o*stride, o*stride + kernel) (SCN
+    ConvolutionRules.h:11-60); each input at x reaches the outputs
+    ceil((x-k+1)/s) .. floor(x/s), prod(ceil(k/s)) candidates a row.
 
-    Every (input row, output site, kernel offset) triple of the strided
-    conv is expanded, the dedup sort of :func:`build_sparse_tensor`
-    assigns each candidate its output row (``return_row_map``), and both
-    rulebooks are single scatters of that mapping.
-
-    Returns (out_table, conv_rb (K, capacity), deconv_rb (K, V_in)),
-    int32, with pad entries V_in and capacity respectively.
-    """
+    Returns (coords (n_rep * V_in, 4), valid, kernel offset index, output
+    spatial size, n_rep), the candidates of input row i at rows i,
+    V_in + i, ..."""
     ksz = tuple(kernel)
     st = tuple(stride)
     reach = [max(1, -(-k // s)) for k, s in zip(ksz, st)]
     out_size = tuple(-(-d // s) for d, s in zip(table.spatial_size, st))
-    v_in = table.capacity
-    kvol = ksz[0] * ksz[1] * ksz[2]
-    dev = table.device
-
     x, y, z, b = table.coords.unbind(-1)
     rv = table.row_valid
     cand_coords, cand_valid, cand_koff = [], [], []
@@ -339,10 +333,42 @@ def downsample_with_rulebooks(table: SparseTensor, kernel, stride,
                 cand_coords.append(torch.stack([ox, oy, oz, b], dim=-1))
                 cand_valid.append(okx & oky & okz & rv)
                 cand_koff.append((kx * ksz[1] + ky) * ksz[2] + kz)
-    coords_all = torch.cat(cand_coords, 0)
-    valid_all = torch.cat(cand_valid, 0)
-    koff_all = torch.cat(cand_koff, 0)
-    n_rep = len(cand_coords)
+    return (torch.cat(cand_coords, 0), torch.cat(cand_valid, 0),
+            torch.cat(cand_koff, 0), out_size, len(cand_coords))
+
+
+def downsample_table(table: SparseTensor, kernel, stride, capacity: int):
+    """The strided conv's output table alone (zero-channel features), as
+    JAX's ops/sparse.downsample_table builds it: the dedup sort of
+    :func:`_downsample_candidates`. The spatial pyramid takes its books
+    from kernel D instead of this sort's scatters
+    (parallel/spatial.build_spatial_pyramid)."""
+    coords_all, valid_all, _, out_size, _ = _downsample_candidates(
+        table, kernel, stride)
+    empty = torch.zeros((coords_all.shape[0], 0), dtype=table.feats.dtype,
+                        device=table.device)
+    return build_sparse_tensor(coords_all, empty, valid_all, out_size,
+                               table.batch_size, capacity, reduce="sum")
+
+
+def downsample_with_rulebooks(table: SparseTensor, kernel, stride,
+                              capacity: int):
+    """Strided-conv output table + conv AND deconv rulebooks in one pass.
+
+    Every (input row, output site, kernel offset) triple of the strided
+    conv is expanded, the dedup sort of :func:`build_sparse_tensor`
+    assigns each candidate its output row (``return_row_map``), and both
+    rulebooks are single scatters of that mapping.
+
+    Returns (out_table, conv_rb (K, capacity), deconv_rb (K, V_in)),
+    int32, with pad entries V_in and capacity respectively.
+    """
+    ksz = tuple(kernel)
+    v_in = table.capacity
+    kvol = ksz[0] * ksz[1] * ksz[2]
+    dev = table.device
+    coords_all, valid_all, koff_all, out_size, n_rep = \
+        _downsample_candidates(table, kernel, stride)
 
     empty = torch.zeros((coords_all.shape[0], 0), dtype=table.feats.dtype,
                         device=dev)

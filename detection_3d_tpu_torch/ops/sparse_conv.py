@@ -442,12 +442,17 @@ class GatherConv(torch.autograd.Function):
 
 def sparse_conv(feats, neighbor_idx, weights, out_valid,
                 order: Optional[RowOrder] = None,
-                bwd: Optional[BackwardBook] = None):
+                bwd: Optional[BackwardBook] = None, halo=None):
     """Kernel A for tensors on the card, the plain version on the CPU;
     through :class:`GatherConv` when a gradient is wanted. ``order`` is
     the rulebook's :class:`RowOrder` (kernel A's wrapper builds one when
     it is None), ``bwd`` its :class:`BackwardBook` (the backward builds
-    one when it is None)."""
+    one when it is None). ``halo``, a book's
+    parallel/spatial.HaloExchange on a spatially sharded table, first
+    refreshes the input's halo rows from the neighbouring shards (JAX
+    ops/sparse_conv.py:71-81)."""
+    if halo is not None:
+        feats = halo.refresh(feats)
     if torch.is_grad_enabled() and (feats.requires_grad
                                     or weights.requires_grad):
         return GatherConv.apply(feats, neighbor_idx, weights, out_valid,
@@ -460,10 +465,10 @@ def sparse_conv(feats, neighbor_idx, weights, out_valid,
 
 def submanifold_conv(table_feats, neighbor_idx, weights, out_valid,
                      order: Optional[RowOrder] = None,
-                     bwd: Optional[BackwardBook] = None):
+                     bwd: Optional[BackwardBook] = None, halo=None):
     """Submanifold conv: output sites == input sites (27-offset book)."""
     return sparse_conv(table_feats, neighbor_idx, weights, out_valid, order,
-                       bwd)
+                       bwd, halo)
 
 
 def strided_conv(in_feats, rulebook_idx, weights, out_valid,
@@ -476,11 +481,11 @@ def strided_conv(in_feats, rulebook_idx, weights, out_valid,
 
 def deconv(in_feats, rulebook_idx, weights, out_valid,
            order: Optional[RowOrder] = None,
-           bwd: Optional[BackwardBook] = None):
+           bwd: Optional[BackwardBook] = None, halo=None):
     """Transposed conv back onto a finer table: ``rulebook_idx`` (K,
     V_fine) indexes the coarse table (the reversed strided book)."""
     return sparse_conv(in_feats, rulebook_idx, weights, out_valid, order,
-                       bwd)
+                       bwd, halo)
 
 
 def nin_conv(feats, weight, out_valid):

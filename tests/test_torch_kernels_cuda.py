@@ -684,3 +684,40 @@ def test_rpn_only_forward_card_matches_cpu(dev):
     cfg = tiny_config().replace(rpn_only=True)
     rows = tiny_predict_card_vs_cpu(cfg, tiny_scene(cfg), card=dev)
     assert np.all(rows[:, 8] == 1)
+
+
+@pytest.mark.parametrize("shards", [2, 3])
+def test_kernel_d_and_backward_on_shard_pyramids(dev, tmp_path, shards):
+    """Spatial shards (gloo ranks sharing the card) build their training
+    pyramids over extended tables: every strided and deconv book kernel D
+    gives is bit equal to its plain version on the same tables, and
+    dFeats and dW on every submanifold and deconv book's BackwardBook
+    (halo rows as inputs, own rows as outputs) are within 1e-4 of the
+    plain versions' largest value; B and D launched on every rank."""
+    from chip_smoke import (
+        SMALL_HALO_CAPS, SMALL_SHARD_CAPS, tiny_scene, tiny_spatial_config)
+    from detection_3d_tpu_torch.engine.trainer import pad_scene
+    from detection_3d_tpu_torch.parallel.checks import shard_kernels_job
+    from detection_3d_tpu_torch.parallel.mesh import launch
+    cfg, halo_caps = tiny_spatial_config(), SMALL_HALO_CAPS
+    if shards == 3:
+        # X = 192 is divisible by 3 shards x 8; the third slab is empty,
+        # and at scale 3 the x = 122 wall lies on a slab edge: its
+        # column takes the exact bound Y_3 * Z_3 = 128
+        import dataclasses
+        cfg = cfg.replace(sparse3d=dataclasses.replace(
+            cfg.sparse3d, voxel_full_scale=(192, 128, 64)))
+        halo_caps = halo_caps[:3] + (128,)
+    cuda_lib.build()            # once, before the ranks start
+    batch = pad_scene(cfg, tiny_scene(cfg))
+    res = launch(shard_kernels_job, shards, "gloo", str(tmp_path / "init"),
+                 args=(cfg, batch, SMALL_SHARD_CAPS, halo_caps),
+                 cpu_threads=0)
+    n = cfg.sparse3d.num_scales
+    for r in res:
+        assert all(r["down_equal"]) and all(r["up_equal"])
+        assert r["errs"]["dfeats"] < 1e-4 and r["errs"]["dw"] < 1e-4, r
+        assert r["launches"]["multi_match"] == 2 * (n - 1)
+        assert r["launches"]["subm_match"] == n
+        assert not bool(r["overflow"])
+    assert sum(sum(r["halo_rows"]) for r in res) > 0

@@ -59,7 +59,8 @@ def test_every_module_imports_with_jax_blocked():
                 "data.native_loader", "tools.convert_scene_packs",
                 "engine.trainer", "models.separate_classifier",
                 "data.augment", "data.scene_packing", "tools.overfit_check",
-                "tools.generalization_check"):
+                "tools.generalization_check", "parallel.collectives",
+                "parallel.mesh", "parallel.spatial", "parallel.checks"):
         assert f"detection_3d_tpu_torch.{mod}" in res.stdout.split(), mod
 
 
@@ -113,3 +114,19 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch, tmp_path):
                {"rpn_only": True}):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             make_predict_fn(cfg.replace(**kw))
+    # the ranks of a mesh: on the card unless the CPU is asked for (with
+    # gloo); NCCL never runs on the CPU
+    from detection_3d_tpu_torch.parallel.mesh import rank_device
+    for backend in ("nccl", "gloo"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            rank_device(backend)
+    assert rank_device("gloo", "cpu") == torch.device("cpu")
+    with pytest.raises(ValueError, match="gloo"):
+        rank_device("nccl", "cpu")
+    # NCCL with fewer cards than ranks raises, never falls back to gloo
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setenv("LOCAL_RANK", "1")
+    monkeypatch.setenv("LOCAL_WORLD_SIZE", "2")
+    with pytest.raises(RuntimeError, match="nccl needs one card per rank"):
+        rank_device("nccl")

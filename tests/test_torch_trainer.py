@@ -199,12 +199,20 @@ def test_two_epochs_over_two_buildings(tmp_path):
 
 
 def test_not_ported_parts_raise(tmp_path, monkeypatch):
-    """What the Trainer does not port raises (a mesh), and so does asking
-    for the card without one; eval_in_train is ported
+    """What the Trainer does not take raises (a mesh without a dp axis,
+    train_resident over a mesh: data-parallel training goes through
+    train, tests/test_torch_parallel_mesh.py), and so does asking for
+    the card without one; eval_in_train is ported
     (tests/test_torch_eval_in_train.py) and constructs."""
+    from detection_3d_tpu_torch.parallel.mesh import Mesh
     _, tcfg = cfg_pair()
+    cpu = torch.device("cpu")
+    with pytest.raises(ValueError, match="mesh"):
+        Trainer(tcfg, str(tmp_path), mesh=Mesh(("sp",), (1,), 0, 1, cpu,
+                                               "gloo"))
+    dp1 = Mesh(("dp",), (1,), 0, 1, cpu, "gloo", {"dp": None}, {"dp": 0})
     with pytest.raises(NotImplementedError, match="mesh"):
-        Trainer(tcfg, str(tmp_path), device="cpu", mesh=object())
+        Trainer(tcfg, str(tmp_path), mesh=dp1).train_resident([], None, 1)
     Trainer(tcfg.replace(eval_in_train=1), str(tmp_path), device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
