@@ -116,6 +116,27 @@
    model's predict and one training step card against CPU (as in 8),
    and an rpn_only model's serve (labels 1, descending objectness) and
    training step on the card.
+6c. The generic sparse networks at full width (models/factories.py):
+   SparseUNet(nplanes 32..224, reps 2, residual), SparseConvNet's ScanNet
+   UNet at m = 32, over plan_levels of one full-size building with level
+   caps measured to hold every voxel (x 1.10, printed); a bf16 forward and
+   the backward of (out ** 2).sum(), twice (finite outputs and
+   gradients; A, dFeats, dW and B launched, counted over the first);
+   SparseVGG (C, C, MP / C3/2 a level) and FullyConvolutionalNet forward
+   on the same plan; A, dFeats and dW at the UNet's level-0 and deepest
+   shapes against their plain versions, with bounds; and a small UNet
+   and VGG card against CPU (books bit equal, f32 outputs and gradients).
+   Prints s per forward and backward, peak GiB and launches.
+6d. Dataset preparation: a SUNCG-format house of 5 x 5 rooms
+   (tests/torch_house_cases.py) through parse_house_file,
+   refine_house_boxes and house_point_cloud(method="render", 500k
+   points), written as a reference-format .pth, read back through
+   SUNCGDataset and trained one full-width step on the card; each
+   stage's host seconds, box counts by class and the point count.
+6e. rotate_nms_3d on 2000 boxes (kernel C; keep set equal to nms_boxes
+   on the card and on the CPU), and conv_rulebook / deconv_rulebook
+   (kernel D) on the building's scale-0 -> 1 tables, bit equal to the
+   scatter books.
 7. D's own path: conv_rulebook_match / deconv_rulebook_match over every
    downsample of a full-size building's pyramid, bit exact against the
    scatter-derived books.
@@ -152,8 +173,9 @@
 Launch counts are set to 0 just before each path (serve, serve_points,
 serve_table, serve_pyramid, pipelined_table, pipelined_pyramid, train,
 train_loader, train_list, train_packed, train_resident, train_scan,
-eval, serve_3g6c, train_3g6c, rpn_only, match, and in each rank
-dp_train, sp_serve, sp_train, dpsp_train) and read just after;
+eval, serve_3g6c, train_3g6c, rpn_only, zoo, zoo_vgg, zoo_fcn,
+dataprep, api_nms, api_books, match, and in each rank dp_train,
+sp_serve, sp_train, dpsp_train) and read just after;
 launches made to compare a kernel with its plain version do not count.
 Any failed phase raises and exits non-zero; without CUDA, or without the
 package beside it, the script exits non-zero before printing a result.
@@ -3257,6 +3279,412 @@ def parallel_path(cfg, scenes, dev="cuda"):
 
 
 
+# ---- the generic sparse networks and dataset preparation ----------------
+
+# SparseConvNet's ScanNet UNet (examples/ScanNet/unet.py: UNet(3,
+# block_reps, [m, 2m, ..., 7m], residual_blocks)) at its largest
+# documented setting, m = 32, block_reps = 2, residual blocks
+ZOO_PLANES = (32, 64, 96, 128, 160, 192, 224)
+ZOO_REPS = 2
+ZOO_CAP_MARGIN = 1.10    # a level's cap over its measured voxel count
+ZOO_KERNELS = ("gather_conv", "gather_conv_dfeats", "gather_conv_dw",
+               "subm_match")
+
+
+def zoo_vgg_layers(planes):
+    """SparseVGG over the zoo's levels: two 3^3 convs a level, then a max
+    pool (from even levels) or a strided conv (from odd ones) down to the
+    next, and two convs at the deepest."""
+    layers = []
+    for k, c in enumerate(planes):
+        layers += [("C", c), ("C", c)]
+        if k < len(planes) - 1:
+            layers.append(("MP",) if k % 2 == 0 else ("C3/2", planes[k + 1]))
+    return tuple(layers)
+
+
+def zoo_caps(table0, n_levels):
+    """plan_levels caps over ``table0`` that hold every voxel: each
+    level's count under caps of table0's capacity (which must hold them),
+    x ZOO_CAP_MARGIN, rounded up to 256; level 0 is table0. Returns
+    (caps, counts)."""
+    from detection_3d_tpu_torch.models.factories import plan_levels
+    with torch.no_grad():
+        big = plan_levels(table0, (table0.capacity,) * n_levels)
+    counts = []
+    for k, t in enumerate(big["tables"]):
+        check(int(t.true_num) <= t.capacity, f"zoo level {k}: "
+              f"{int(t.true_num)} voxels over {t.capacity}")
+        counts.append(int(t.true_num))
+    caps = (table0.capacity,) + tuple(
+        _round_up(ZOO_CAP_MARGIN * c, 256) for c in counts[1:])
+    return caps, counts
+
+
+def zoo_kernel_shapes(plan, dev, gen):
+    """Kernels A and A' at the UNet's level-0 (32 -> 32) and deepest
+    (224 -> 224) submanifold convs, bf16 as the net runs, on the plan's
+    book, row order and BackwardBook, against gather_conv and
+    gather_conv_backward: within 1e-2 of the largest wanted value (one
+    bf16 rounding of f32 sums), timed by CUDA events beside the plain
+    versions, with conv_bound / bwd_bound. Returns the lines."""
+    from detection_3d_tpu_torch.ops.sparse_conv import (
+        gather_conv, gather_conv_backward, gather_conv_cuda,
+        gather_conv_dfeats_cuda, gather_conv_dw_cuda)
+    lines = []
+    last = len(ZOO_PLANES) - 1
+    for lvl in (0, last):
+        c = ZOO_PLANES[lvl]
+        t = plan["tables"][lvl]
+        idx, order = plan["subm_idx"][lvl], plan["subm_order"][lvl]
+        book, valid = plan["subm_bwd"][lvl], t.row_valid
+        feats = (torch.randn((t.capacity, c), generator=gen, device=dev)
+                 * valid[:, None]).to(torch.bfloat16)
+        w = (torch.randn((27, c, c), generator=gen, device=dev)
+             * (2.0 / (27 * c)) ** 0.5).to(torch.bfloat16)
+        g = torch.randn((t.capacity, c), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        want_f, want_w = gather_conv_backward(feats, idx, w, valid, g)
+        runs = {"A": (lambda: gather_conv_cuda(feats, idx, w, valid, order),
+                      gather_conv(feats, idx, w, valid), 1.0),
+                "dfeats": (lambda: gather_conv_dfeats_cuda(g, w, book),
+                           want_f, 1e-30),
+                "dw": (lambda: gather_conv_dw_cuda(feats, g, book), want_w,
+                       1e-30)}
+        a_ms, a_by, nnz = conv_bound(feats, idx, w, valid)
+        b_bounds, _ = bwd_bound(feats, idx, w, valid)
+        plain = {"A": time_ms(lambda: gather_conv(feats, idx, w, valid), 3)}
+        plain["dfeats"] = plain["dw"] = time_ms(
+            lambda: gather_conv_backward(feats, idx, w, valid, g), 3)
+        for part, (fn, want, floor) in runs.items():
+            want = want.float()
+            err = float((fn().float() - want).abs().max())
+            tol = 1e-2 * max(float(want.abs().max()), floor)
+            check(err <= tol, f"zoo kernel {part} level {lvl}: max abs err "
+                  f"{err} > {tol}")
+            b_ms, b_by = (a_ms, a_by) if part == "A" else b_bounds[part]
+            line = {"part": part, "level": lvl, "case": f"subm {c}->{c}",
+                    "dtype": "bfloat16", "V": t.capacity,
+                    "rows": int(t.num), "nnz": nnz, "max_abs_err": err,
+                    "tolerance": tol, "ms": time_ms(fn),
+                    "plain_ms": plain[part],
+                    "plain_computes": ("gather_conv" if part == "A" else
+                                       "gather_conv_backward, both parts"),
+                    "bound_ms": b_ms, "bound_by": b_by}
+            print("zoo kernel", json.dumps(line))
+            lines.append(line)
+    return lines
+
+
+def small_zoo_card_vs_cpu(card="cuda", what="small zoo"):
+    """plan_levels, a residual SparseUNet (leakiness 0.1) and a SparseVGG
+    (C, MP, C3/2) on a small random table, on the CPU (plain versions) and
+    on the card (kernels), same weights, f32: every table and book bit
+    equal; outputs within 1e-4 of the largest (at least 1); each
+    gradient within 1e-3 of its largest entry + 1e-5 (as the tiny
+    training step)."""
+    import copy
+    from detection_3d_tpu_torch.models.factories import (
+        SparseUNet, SparseVGG, plan_levels)
+    from detection_3d_tpu_torch.ops.sparse import build_sparse_tensor
+    rng = np.random.RandomState(0)
+    spatial, n = (64, 48, 32), 3000
+    coords = np.c_[rng.randint(0, 64, n), rng.randint(0, 48, n),
+                   rng.randint(0, 32, n), np.zeros(n)].astype(np.int32)
+    feats = rng.randn(n, 4).astype(np.float32)
+    caps = (4096, 2048, 1024, 512)
+    nets = {"unet": SparseUNet(4, (8, 16, 24, 32), reps=2, residual=True,
+                               leakiness=0.1, seed=1),
+            "vgg": SparseVGG(4, (("C", 8), ("C", 8), ("MP",), ("C", 16),
+                                 ("C3/2", 24), ("C", 24)), seed=2)}
+    res = {}
+    for d in ("cpu", card):
+        table = build_sparse_tensor(
+            torch.from_numpy(coords).to(d), torch.from_numpy(feats).to(d),
+            None, spatial, 1, caps[0])
+        plan = plan_levels(table, caps, backward=True)
+        outs = {}
+        for name, base in nets.items():
+            net = copy.deepcopy(base).to(d)
+            out = net(plan)
+            out = out[0] if isinstance(out, tuple) else out
+            out.square().sum().backward()
+            outs[name] = (out.detach().cpu(),
+                          {k: p.grad.cpu() for k, p in
+                           net.named_parameters()})
+        res[d] = (plan, outs)
+    (p_cpu, o_cpu), (p_gpu, o_gpu) = res["cpu"], res[card]
+    for key in ("subm_idx", "down_rb", "up_rb"):
+        for k, (a, b) in enumerate(zip(p_cpu[key], p_gpu[key])):
+            check(torch.equal(a, b.cpu()), f"{what}: {key}[{k}] differs "
+                  "card vs CPU")
+    report = {}
+    for name in nets:
+        (want, g_want), (got, g_got) = o_cpu[name], o_gpu[name]
+        err = float((got - want).abs().max())
+        tol = 1e-4 * max(float(want.abs().max()), 1.0)
+        check(err <= tol, f"{what} {name}: output max abs err {err} > {tol}")
+        worst = 0.0
+        for k, gw in g_want.items():
+            gerr = float((g_got[k] - gw).abs().max())
+            gtol = 1e-3 * float(gw.abs().max()) + 1e-5
+            check(gerr <= gtol, f"{what} {name}: gradient {k} max abs err "
+                  f"{gerr} > {gtol}")
+            worst = max(worst, gerr / gtol)
+        report[name] = {"max_abs_err": err, "tolerance": tol,
+                        "gradients": len(g_want),
+                        "worst_gradient_share_of_tolerance": worst}
+    print(f"{what}: books bit equal, card vs CPU " + json.dumps(report))
+    return report
+
+
+def zoo_path(cfg, scene, dev, gen):
+    """SparseUNet(32..224, reps 2, residual) over plan_levels of one
+    full-size building at full_scale_config()'s grid, with caps measured
+    to hold every voxel (:func:`zoo_caps`): the plan (B for every
+    submanifold book), a bf16 forward and the backward of (out ** 2).sum()
+    (A and A'), twice, counts set to 0 before the first and read after
+    it; finite outputs and gradients. Then SparseVGG
+    (:func:`zoo_vgg_layers`) and FullyConvolutionalNet (the same widths,
+    reps 2) forward on the same plan, each counted alone; A and A' at the
+    UNet's level-0 and deepest shapes (:func:`zoo_kernel_shapes`); and the
+    small nets card against CPU (:func:`small_zoo_card_vs_cpu`). Returns
+    ({path: launches}, kernel lines)."""
+    from detection_3d_tpu_torch.engine.trainer import (
+        batch_to_device, pad_scene)
+    from detection_3d_tpu_torch.models.detector import voxelize_points
+    from detection_3d_tpu_torch.models.factories import (
+        FullyConvolutionalNet, SparseUNet, SparseVGG, plan_levels)
+    from detection_3d_tpu_torch.ops import cuda_lib
+    n = len(ZOO_PLANES)
+    (pts, fts, valid), _, _ = batch_to_device(pad_scene(cfg, scene), dev)
+    with torch.no_grad():
+        table0 = voxelize_points(cfg, pts, fts, valid)
+    check(int(table0.true_num) <= table0.capacity, "zoo: level 0 subsampled")
+    caps, counts = zoo_caps(table0, n)
+    print(f"zoo caps: voxels per level {counts}, caps (x {ZOO_CAP_MARGIN}, "
+          f"rounded up to 256; level 0 the scale-0 table) {list(caps)}")
+    unet = SparseUNet(cfg.in_channels, ZOO_PLANES, reps=ZOO_REPS,
+                      residual=True, seed=0).to(dev)
+    feats = table0.feats.to(torch.bfloat16)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rounds, launches = [], {}
+    for r in range(2):
+        if r == 0:
+            cuda_lib.reset_launches()
+        t0 = time.perf_counter()
+        plan = plan_levels(table0, caps, backward=True)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = unet(plan, feats)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        unet.zero_grad(set_to_none=True)
+        out.float().square().sum().backward()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        if r == 0:
+            launches["zoo"] = dict(cuda_lib.launches)
+        rounds.append({"plan_s": t1 - t0, "forward_s": t2 - t1,
+                       "backward_s": t3 - t2})
+        check(out.shape == (caps[0], ZOO_PLANES[0])
+              and bool(torch.isfinite(out).all()), "zoo: UNet output")
+        for k, p in unet.named_parameters():
+            check(p.grad is not None and bool(torch.isfinite(p.grad).all()),
+                  f"zoo: UNet gradient {k}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for name in ZOO_KERNELS:
+        check(launches["zoo"][name] > 0, f"kernel {name} was not launched "
+              "on the zoo path")
+    nparams = sum(p.numel() for p in unet.parameters())
+    print("zoo UNet: " + json.dumps({
+        "nplanes": ZOO_PLANES, "reps": ZOO_REPS, "residual": True,
+        "parameters": nparams, "level_rows": [int(t.num) for t in
+                                              plan["tables"]],
+        "rounds": rounds, "peak_device_memory_gib": peak,
+        "launches": launches["zoo"]}))
+    print(f"zoo UNet: forward {rounds[1]['forward_s']:.4f} s, backward "
+          f"{rounds[1]['backward_s']:.4f} s, plan {rounds[1]['plan_s']:.4f} "
+          f"s (second round; host clock, synchronised; bf16), peak "
+          f"{peak:.2f} GiB")
+    del unet, out
+    layers = zoo_vgg_layers(ZOO_PLANES)
+    for name, net in (("zoo_vgg", SparseVGG(cfg.in_channels, layers, seed=0)),
+                      ("zoo_fcn", FullyConvolutionalNet(
+                          cfg.in_channels, ZOO_PLANES, reps=ZOO_REPS,
+                          seed=0))):
+        net = net.to(dev)
+        with torch.no_grad():
+            cuda_lib.reset_launches()
+            t0 = time.perf_counter()
+            h = net(plan, feats)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            launches[name] = dict(cuda_lib.launches)
+        if name == "zoo_vgg":
+            h, lvl = h
+            check(lvl == n - 1 and h.shape == (caps[-1], ZOO_PLANES[-1]),
+                  "zoo: VGG output level and shape")
+        else:
+            check(h.shape == (caps[0], sum(ZOO_PLANES)), "zoo: FCN shape")
+        check(bool(torch.isfinite(h).all()), f"{name}: non-finite output")
+        check(launches[name]["gather_conv"] > 0, f"kernel A was not "
+              f"launched on {name}")
+        print(f"{name}: forward {sec:.4f} s (host clock, synchronised, "
+              f"bf16, first call), output {tuple(h.shape)}, launches "
+              f"{json.dumps(launches[name])}")
+        del net, h
+    lines = zoo_kernel_shapes(plan, dev, gen)
+    small_zoo_card_vs_cpu(dev)
+    return launches, lines
+
+
+DATAPREP_ROOMS = (5, 5)      # synthetic_multiroom's 5 x 5 rooms of 8 m
+DATAPREP_POINTS = 500_000
+
+
+def dataprep_path(cfg, dev):
+    """A SUNCG-format house (tests/torch_house_cases.py: house.json and
+    room OBJ meshes of walls, ceilings and floors, door and window nodes;
+    DATAPREP_ROOMS rooms of 8 m) through parse_house_file,
+    refine_house_boxes and house_point_cloud(method="render",
+    num_points=500k), written as a reference-format .pth (xyz, zero
+    colour and normal columns: the renderer yields xyz only) and read
+    back through SUNCGDataset, then one full-width Trainer step on the
+    card. Prints each stage's host seconds, box counts by class and the
+    point count. Returns the step's launches."""
+    import shutil
+    from detection_3d_tpu_torch.data.house_parser import (
+        house_point_cloud, parse_house_file, refine_house_boxes)
+    from detection_3d_tpu_torch.data.suncg import SUNCGDataset
+    from detection_3d_tpu_torch.engine.trainer import Trainer, pad_scene
+    from detection_3d_tpu_torch.ops import cuda_lib
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    from torch_house_cases import write_house      # shared with the tests
+    root = cuda_lib.BUILD_DIR / "dataprep_smoke"   # gitignored, removed
+    shutil.rmtree(root, ignore_errors=True)
+    secs = {}
+    t0 = time.perf_counter()
+    path, classes = write_house(str(root / "suncg"), rooms_xy=DATAPREP_ROOMS,
+                                room=8.0)
+    secs["write_house"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    raw = parse_house_file(path, classes, refine=False)
+    secs["parse"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    boxes = refine_house_boxes(raw, level_num=1)
+    secs["refine"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pts = house_point_cloud(boxes, num_points=DATAPREP_POINTS,
+                            method="render")
+    secs["render"] = time.perf_counter() - t0
+    check(pts.shape == (DATAPREP_POINTS, 3)
+          and bool(np.isfinite(pts).all()), f"dataprep: {pts.shape} points")
+    names = cfg.ordered_class_names()[1:]
+    kept = {n: boxes[n].astype(np.float32) for n in names if n in boxes}
+    for n in names:
+        check(kept.get(n, np.zeros((0, 7))).shape[0] > 0,
+              f"dataprep: no {n} box")
+    t0 = time.perf_counter()
+    data = root / "data"
+    (data / "houses" / "house_0").mkdir(parents=True)
+    pcl = np.c_[pts, np.zeros((pts.shape[0], 6))].astype(np.float32)
+    torch.save((pcl, kept), data / "houses" / "house_0" / "0.pth")
+    (data / "train_test_splited").mkdir()
+    (data / "train_test_splited" / "train.txt").write_text("house_0\n")
+    ds = SUNCGDataset("train", cfg, data_root=str(data))
+    scene = ds[0]
+    secs["write_and_read_pth"] = time.perf_counter() - t0
+    n_gt = sum(b.shape[0] for b in kept.values())
+    check(len(ds) == 1 and scene["points"].shape[0] == DATAPREP_POINTS
+          and scene["gt_labels"].shape[0] == n_gt, "dataprep: read-back")
+    trainer = Trainer(cfg, output_dir=str(root / "train"), device=dev)
+    state = trainer.init_state(seed=0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    batch = pad_scene(cfg, scene)
+    cuda_lib.reset_launches()
+    t0 = time.perf_counter()
+    total, losses, ok, true_num = trainer.step(state, batch, gen)
+    secs["train_step"] = time.perf_counter() - t0
+    launches = dict(cuda_lib.launches)
+    check(bool(ok) and np.isfinite(total) and true_num > 0,
+          f"dataprep: training step not applied ({total}, {losses})")
+    for name in ("gather_conv", "gather_conv_dfeats", "gather_conv_dw",
+                 "subm_match", "rotated_iou"):
+        check(launches[name] > 0, f"kernel {name} was not launched on the "
+              "dataprep training step")
+    print("dataprep: " + json.dumps({
+        "rooms": DATAPREP_ROOMS, "host_seconds": secs,
+        "raw_boxes": {k: int(v.shape[0]) for k, v in raw.items()},
+        "refined_boxes": {k: int(v.shape[0]) for k, v in boxes.items()},
+        "points": int(pts.shape[0]), "gt_boxes_read": n_gt,
+        "true_num": int(true_num), "loss": float(total), "losses": losses,
+        "launches": launches}))
+    del trainer, state
+    shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
+API_NMS_BOXES = 2000
+
+
+def api_path(cfg, scene, dev):
+    """The JAX package's names of two searches: rotate_nms_3d on 2000
+    NMS-like boxes (kernel C) with the keep set of nms_boxes on the card
+    and of its plain version on the CPU; conv_rulebook and
+    deconv_rulebook (kernel D) on the building's scale-0 and scale-1
+    tables, bit equal to downsample_with_rulebooks' scatter books. Counts
+    set to 0 before each and read after. Returns {path: launches}."""
+    from detection_3d_tpu_torch.engine.trainer import (
+        batch_to_device, pad_scene)
+    from detection_3d_tpu_torch.models.detector import voxelize_points
+    from detection_3d_tpu_torch.ops import cuda_lib
+    from detection_3d_tpu_torch.ops.nms import nms_boxes, rotate_nms_3d
+    from detection_3d_tpu_torch.ops.sparse import (
+        conv_rulebook, downsample_with_rulebooks)
+    from detection_3d_tpu_torch.ops.sparse_conv import deconv_rulebook
+    launches = {}
+    rng = np.random.RandomState(3)
+    host = (torch.from_numpy(_nms_boxes_np(API_NMS_BOXES, 3)),
+            torch.from_numpy(rng.rand(API_NMS_BOXES).astype(np.float32)),
+            torch.from_numpy(rng.rand(API_NMS_BOXES) > 0.05))
+    card = [x.to(dev) for x in host]
+    cuda_lib.reset_launches()
+    keep, count = rotate_nms_3d(*card, 0.3, API_NMS_BOXES)
+    torch.cuda.synchronize()
+    launches["api_nms"] = dict(cuda_lib.launches)
+    check(launches["api_nms"]["rotated_iou"] == 1, "rotate_nms_3d: kernel C "
+          "launch count")
+    k_card, _ = nms_boxes(*card, 0.3, API_NMS_BOXES)
+    k_cpu, c_cpu = nms_boxes(*host, 0.3, API_NMS_BOXES)
+    check(torch.equal(keep, k_card) and torch.equal(keep.cpu(), k_cpu)
+          and int(count) == int(c_cpu) > 0, "rotate_nms_3d: keep sets differ")
+    print(f"rotate_nms_3d: {API_NMS_BOXES} boxes, {int(count)} kept, keep "
+          f"set equal to nms_boxes on the card and on the CPU, launches "
+          f"{json.dumps(launches['api_nms'])}")
+    s3d = cfg.sparse3d
+    k, s = s3d.kernels[0], s3d.strides[0]
+    with torch.no_grad():
+        (pts, fts, valid), _, _ = batch_to_device(pad_scene(cfg, scene), dev)
+        t0 = voxelize_points(cfg, pts, fts, valid)
+        cap1 = cfg.caps.scale_caps(s3d.num_scales, base=t0.capacity)[1]
+        t1, crb, drb = downsample_with_rulebooks(t0, k, s, cap1)
+        cuda_lib.reset_launches()
+        conv = conv_rulebook(t1, t0, k, s)
+        dec = deconv_rulebook(t0, t1, k, s)
+        torch.cuda.synchronize()
+        launches["api_books"] = dict(cuda_lib.launches)
+    check(launches["api_books"]["multi_match"] == 2, "conv_rulebook / "
+          "deconv_rulebook: kernel D launch count")
+    check(torch.equal(conv, crb) and torch.equal(dec, drb),
+          "conv_rulebook / deconv_rulebook differ from the scatter books")
+    print(f"conv_rulebook {tuple(conv.shape)} and deconv_rulebook "
+          f"{tuple(dec.shape)} of scales 0 -> 1 bit equal to the scatter "
+          f"books, launches {json.dumps(launches['api_books'])}")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3412,6 +3840,23 @@ def main():
     torch.cuda.empty_cache()
     print(f"3g6c phase: {time.perf_counter() - t0:.1f} s")
 
+    # ---- the generic sparse networks (UNet, VGG, FCN) at full width -----
+    t0 = time.perf_counter()
+    zoo, zoo_lines = zoo_path(cfg, scenes[0], dev, gen)
+    torch.cuda.empty_cache()
+    print(f"zoo phase: {time.perf_counter() - t0:.1f} s")
+
+    # ---- dataset preparation from a SUNCG house to a training step ------
+    t0 = time.perf_counter()
+    dataprep = dataprep_path(cfg, dev)
+    torch.cuda.empty_cache()
+    print(f"dataprep phase: {time.perf_counter() - t0:.1f} s")
+
+    # ---- rotate_nms_3d (C), conv_rulebook / deconv_rulebook (D) ---------
+    t0 = time.perf_counter()
+    api = api_path(cfg, scenes[0], dev)
+    print(f"api phase: {time.perf_counter() - t0:.1f} s")
+
     # ---- kernel D's own entry points ------------------------------------
     match = match_path(cfg, scenes[0], dev)
 
@@ -3459,7 +3904,12 @@ def main():
                                     ("serve_3g6c", "train_3g6c",
                                      "rpn_only")},
                                  **{path: counts[name] for path, counts
-                                    in par_launches.items()}},
+                                    in par_launches.items()},
+                                 **{path: counts[name] for path, counts
+                                    in zoo.items()},
+                                 "dataprep": dataprep[name],
+                                 **{path: counts[name] for path, counts
+                                    in api.items()}},
             "max_abs_err": rep["max_abs_err"], "ms": rep["ms"],
             "plain_ms": rep["plain_ms"], "bound_ms": rep["bound_ms"],
             "bound_by": rep["bound_by"],
@@ -3476,6 +3926,11 @@ def main():
             kernels[-1].update(rep_d_sum)
             # and over the 16 books of a spatial shard's pyramid (rank 0)
             kernels[-1]["sp_shard_books"] = rep_d["sp_shard_books"]
+        zoo_part = {"gather_conv": "A", "gather_conv_dfeats": "dfeats",
+                    "gather_conv_dw": "dw"}.get(name)
+        if zoo_part:   # the UNet's level-0 and deepest shapes
+            kernels[-1]["zoo_shapes"] = [ln for ln in zoo_lines
+                                         if ln["part"] == zoo_part]
         part = {"gather_conv_dfeats": "dfeats", "gather_conv_dw": "dw"}.get(
             name)
         if part:     # the sums over every shape of one training step

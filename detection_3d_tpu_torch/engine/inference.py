@@ -256,7 +256,7 @@ def run_inference(cfg: Config, model: Optional[SparseRCNN],
     Without ``pipelined`` the buildings go one after another in the raw
     form; the time is the host clock from the padded arrays to the
     detections on the host, averaged over every building after the
-    first.
+    first. ``batch_size`` > 1 raises ValueError there.
 
     With ``pipelined`` the serving fast path runs: ``pack_workers``
     threads pack units (of ``batch_size`` buildings) with the C++ packer
@@ -268,7 +268,8 @@ def run_inference(cfg: Config, model: Optional[SparseRCNN],
     :func:`make_batch_predict_fn`'s stacked dict, the tail unit padded
     by repeating its last building. ``predict_fn`` replaces the
     predict of that form. The time is the host clock per building over
-    units 1.. (unit 0 warms up). ``timings``, when given, receives the
+    units 1.. (unit 0 warms up). With nothing timed (one building, or
+    one unit) the time is NaN and a warning is logged. ``timings``, when given, receives the
     summed seconds of ``wait_pack`` (pack and copy not hidden),
     ``dispatch`` (the predict call) and ``drain_fetch`` (the previous
     unit's detections to the host).
@@ -278,6 +279,10 @@ def run_inference(cfg: Config, model: Optional[SparseRCNN],
             f"pack_mode={pack_mode!r}: expected 'pyramid' or 'table'")
     if pack_workers < 1 or batch_size < 1:
         raise ValueError("pack_workers and batch_size must be >= 1")
+    if batch_size > 1 and not pipelined:
+        raise ValueError(f"batch_size={batch_size} needs pipelined=True: "
+                         "the sequential loop serves one building at a "
+                         "time")
     log = logger or _LOG
     scenes = list(scenes)
     cap0 = cfg.caps.scale_caps(cfg.sparse3d.num_scales)[0]
@@ -313,7 +318,12 @@ def run_inference(cfg: Config, model: Optional[SparseRCNN],
                 total_t += dt
                 n_timed += 1
             record(i, a, true_num)
-    sec_per_building = total_t / max(n_timed, 1)
+    if n_timed:
+        sec_per_building = total_t / n_timed
+    else:
+        sec_per_building = float("nan")
+        log.warning("no building was timed (the first %s warms up): "
+                    "s/building is NaN", "unit" if pipelined else "building")
     result = None
     if evaluate:
         gts = [{"boxes": s["gt_boxes"], "labels": s["gt_labels"]}

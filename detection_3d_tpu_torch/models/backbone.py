@@ -74,6 +74,61 @@ def bev_with_rulebook(table: SparseTensor, capacity: int):
     return bev_t, rb[:Z * capacity].reshape(Z, capacity)
 
 
+def pyramid_levels(table0: SparseTensor, kernels, strides, caps,
+                   backward: bool = False) -> Dict[str, Any]:
+    """Tables and rulebooks of ``len(caps)`` levels, all in level order
+    (level 0 = ``table0``; ``kernels[k]`` / ``strides[k]`` / ``caps[k +
+    1]`` make level k + 1):
+
+      tables; subm_idx (27, V_k) from kernel B; down_rb (K, V_{k+1}) and
+      up_rb (K, V_k), the conv and deconv books of downsample k, as
+      scatters of its dedup sort; subm_order, down_order, up_order: each
+      book's RowOrder (a submanifold book's from B's masks); with
+      ``backward`` subm_bwd, down_bwd, up_bwd: each book's BackwardBook.
+    """
+    tables = [table0]
+    down_rb, up_rb = [], []
+    for k in range(1, len(caps)):
+        t, crb, drb = downsample_with_rulebooks(
+            tables[-1], kernels[k - 1], strides[k - 1], caps[k])
+        down_rb.append(crb)
+        up_rb.append(drb)
+        tables.append(t)
+    matched = [neighbor_match_3x3x3(t) for t in tables]
+    subm_idx = [idx for idx, _ in matched]
+    valid = [t.row_valid for t in tables]
+    cap = [t.capacity for t in tables]
+    up_order = [rulebook_row_order(rb, cap[k + 1], valid[k])
+                for k, rb in enumerate(up_rb)]
+    down_order = [rulebook_row_order(rb, cap[k], valid[k + 1])
+                  for k, rb in enumerate(down_rb)]
+    subm_order = [masks_row_order(masks) for _, masks in matched]
+    lv = {"tables": tables, "subm_idx": subm_idx, "down_rb": down_rb,
+          "up_rb": up_rb, "subm_order": subm_order, "down_order": down_order,
+          "up_order": up_order}
+    if not backward:
+        return lv
+    # the transposes come without a scatter where one is known (tests/
+    # test_torch_backward_books.py holds each against transpose_rulebook):
+    # a submanifold book is its own transpose with the offsets reversed
+    # (offset k is the negation of offset K - 1 - k), so dFeats reads it
+    # as it is, with its order, and W reversed; a downsample's conv and
+    # deconv books, two scatters of one mapping, are each other's, row
+    # orders and entries (columns swapped) too.
+    subm_bwd = [BackwardBook(rb, subm_order[k],
+                             *rulebook_entries(rb, cap[k], valid[k]),
+                             reversed=True)
+                for k, rb in enumerate(subm_idx)]
+    down_bwd, up_bwd = [], []
+    for k, rb in enumerate(down_rb):
+        entries, starts = rulebook_entries(rb, cap[k], valid[k + 1])
+        down_bwd.append(BackwardBook(up_rb[k], up_order[k], entries, starts))
+        up_bwd.append(BackwardBook(rb, down_order[k], entries.flip(1),
+                                   starts))
+    lv.update(subm_bwd=subm_bwd, down_bwd=down_bwd, up_bwd=up_bwd)
+    return lv
+
+
 def build_pyramid(table0: SparseTensor, cfg: Config,
                   backward: bool = False) -> Dict[str, Any]:
     """All tables + rulebooks for one forward pass.
@@ -88,21 +143,14 @@ def build_pyramid(table0: SparseTensor, cfg: Config,
       rulebook above, in the same layout (kernel A's row order);
       with ``backward`` (a forward whose gradient is wanted) also
       subm_bwd, down_bwd, up_bwd, bev_bwd: the BackwardBook of each
-      rulebook, in the same layout.
+      rulebook, in the same layout (the BEV books' by the transposing
+      scatter).
     """
     s3d = cfg.sparse3d
     n_scales = s3d.num_scales
     caps = cfg.caps.scale_caps(n_scales, base=table0.capacity)
-    tables = [table0]
-    down_rb, up_rb_by_scale = [], []
-    for k in range(1, n_scales):
-        t, crb, drb = downsample_with_rulebooks(
-            tables[-1], s3d.kernels[k - 1], s3d.strides[k - 1], caps[k])
-        down_rb.append(crb)
-        up_rb_by_scale.append(drb)
-        tables.append(t)
-    matched = [neighbor_match_3x3x3(t) for t in tables]
-    subm_idx = [idx for idx, _ in matched]
+    pyr = pyramid_levels(table0, s3d.kernels, s3d.strides, caps, backward)
+    tables = pyr["tables"]
     bev, bev_order, bev_v_in = {}, {}, {}
     for slot, i_from_top in enumerate(cfg.rpn.rpn_scales_from_top):
         t3d = tables[n_scales - 1 - i_from_top]
@@ -110,41 +158,13 @@ def build_pyramid(table0: SparseTensor, cfg: Config,
         bev_v_in[slot] = t3d.capacity
         bev_order[slot] = rulebook_row_order(bev[slot][1], t3d.capacity,
                                              bev[slot][0].row_valid)
-    valid = [t.row_valid for t in tables]
-    cap = [t.capacity for t in tables]
-    up_order = [rulebook_row_order(rb, cap[k + 1], valid[k])
-                for k, rb in enumerate(up_rb_by_scale)]
-    down_order = [rulebook_row_order(rb, cap[k], valid[k + 1])
-                  for k, rb in enumerate(down_rb)]
-    subm_order = [masks_row_order(masks) for _, masks in matched]
-    pyr = {"tables": tables, "subm_idx": subm_idx, "down_rb": down_rb,
-           "up_rb": up_rb_by_scale[::-1], "bev": bev,
-           "subm_order": subm_order, "down_order": down_order,
-           "up_order": up_order[::-1], "bev_order": bev_order}
-    if not backward:
-        return pyr
-    # the transposes come without a scatter where one is known (tests/
-    # test_torch_backward_books.py holds each against transpose_rulebook):
-    # a submanifold book is its own transpose with the offsets reversed
-    # (offset k is the negation of offset K - 1 - k), so dFeats reads it
-    # as it is, with its order, and W reversed; a downsample's conv and
-    # deconv books, two scatters of one mapping, are each other's, row
-    # orders and entries (columns swapped) too. The BEV books take the
-    # scatter.
-    subm_bwd = [BackwardBook(rb, subm_order[k],
-                             *rulebook_entries(rb, cap[k], valid[k]),
-                             reversed=True)
-                for k, rb in enumerate(subm_idx)]
-    down_bwd, up_bwd = [], []
-    for k, rb in enumerate(down_rb):
-        entries, starts = rulebook_entries(rb, cap[k], valid[k + 1])
-        down_bwd.append(BackwardBook(up_rb_by_scale[k], up_order[k],
-                                     entries, starts))
-        up_bwd.append(BackwardBook(rb, down_order[k], entries.flip(1),
-                                   starts))
-    pyr.update(subm_bwd=subm_bwd, down_bwd=down_bwd, up_bwd=up_bwd[::-1],
-               bev_bwd={slot: backward_book(rb, bev_v_in[slot], t.row_valid)
-                        for slot, (t, rb) in bev.items()})
+    pyr.update(bev=bev, bev_order=bev_order, up_rb=pyr["up_rb"][::-1],
+               up_order=pyr["up_order"][::-1])
+    if backward:
+        pyr.update(up_bwd=pyr["up_bwd"][::-1],
+                   bev_bwd={slot: backward_book(rb, bev_v_in[slot],
+                                                t.row_valid)
+                            for slot, (t, rb) in bev.items()})
     return pyr
 
 
@@ -176,12 +196,13 @@ class NiN(nn.Module):
 
 
 class BNLeakyReLU(nn.Module):
-    """Masked batch-statistics BN + ReLU (the configs' leakiness 0);
-    statistics summed over ``group``'s ranks when one is given (JAX's
-    ``sp_axis``)."""
+    """Masked batch-statistics BN + leaky ReLU of slope ``leakiness`` (0,
+    a plain ReLU, in every detector config); statistics summed over
+    ``group``'s ranks when one is given (JAX's ``sp_axis``)."""
 
-    def __init__(self, c: int):
+    def __init__(self, c: int, leakiness: float = 0.0):
         super().__init__()
+        self.leakiness = leakiness
         self.scale = nn.Parameter(torch.ones(c))
         self.bias = nn.Parameter(torch.zeros(c))
 
@@ -192,7 +213,7 @@ class BNLeakyReLU(nn.Module):
 
     def forward(self, feats, valid, group=None):
         return batch_norm_leaky_relu(feats, valid, self.scale, self.bias,
-                                     process_group=group)
+                                     self.leakiness, process_group=group)
 
 
 class ResidualBlock(nn.Module):

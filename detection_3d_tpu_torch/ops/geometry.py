@@ -4,7 +4,8 @@ Counterpart of detection_3d_tpu/ops/geometry.py (reference:
 utils3d/geometric_torch.py, utils3d/bbox3d_ops.py):
     standard: [xc, yc, zc,    x_size, y_size, z_size, yaw]
     yx_zb   : [xc, yc, z_bot, y_size, x_size, z_size, yaw - pi/2]
-Functions work on (..., 7) float tensors.
+Functions work on (..., 7) float tensors; :func:`box3d_corners` gives a
+standard box's 8 corners.
 """
 
 from __future__ import annotations
@@ -59,3 +60,24 @@ def rbbox_corners_2d(rbbox):
     wx = c[..., None] * lx + s[..., None] * ly + cx[..., None]
     wy = -s[..., None] * lx + c[..., None] * ly + cy[..., None]
     return torch.stack([wx, wy], dim=-1)
+
+
+def box3d_corners(boxes_standard):
+    """8 corners of standard-format 3D boxes: (..., 7) -> (..., 8, 3),
+    the z-low face first (xy order 00, 10, 01, 11), then the z-high face
+    (utils3d/bbox3d_ops.py:101-102, Bbox3D._corners_tmp)."""
+    xc, yc, zc, xs, ys, zs, yaw = boxes_standard.unbind(-1)
+    c, s = torch.cos(yaw), torch.sin(yaw)
+    sx = torch.tensor([-0.5, 0.5, -0.5, 0.5], dtype=boxes_standard.dtype,
+                      device=boxes_standard.device)
+    sy = torch.tensor([-0.5, -0.5, 0.5, 0.5], dtype=boxes_standard.dtype,
+                      device=boxes_standard.device)
+    lx = sx * xs[..., None]
+    ly = sy * ys[..., None]
+    wx = c[..., None] * lx + s[..., None] * ly + xc[..., None]
+    wy = -s[..., None] * lx + c[..., None] * ly + yc[..., None]
+    zlo = (zc - 0.5 * zs)[..., None] * torch.ones_like(sx)
+    zhi = (zc + 0.5 * zs)[..., None] * torch.ones_like(sx)
+    low = torch.stack([wx, wy, zlo], dim=-1)
+    high = torch.stack([wx, wy, zhi], dim=-1)
+    return torch.cat([low, high], dim=-2)

@@ -5,10 +5,11 @@ detection_3d_tpu/ops/pallas/match_kernel.py: :func:`sorted_multi_match`
 answers (G, V_q) query keys with the table rows that hold them (the
 table capacity V where none does), and :func:`conv_rulebook_match` /
 :func:`deconv_rulebook_match` build the strided-conv and deconv
-rulebooks with it. The JAX package's pyramid takes those books from the
-downsample scatter instead (ops/sparse.downsample_with_rulebooks), so no
-training or serving path calls these functions; they are the kernel's
-own entry points.
+rulebooks with it. The single-card pyramid takes those books from the
+downsample scatter instead (ops/sparse.downsample_with_rulebooks); the
+spatial shard pyramids (parallel/spatial.py) and the searched-book
+entry points ops/sparse.conv_rulebook and ops/sparse_conv.deconv_rulebook
+(the JAX package's names) call these functions.
 
 :func:`multi_match` launches the hand-written CUDA kernel
 (csrc/multi_match.cu) for tensors on the card and takes the plain

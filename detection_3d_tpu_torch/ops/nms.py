@@ -9,6 +9,8 @@ later box whose IoU with a kept box exceeds the threshold.
 The greedy pass is sequential over rows. It runs on the host over the
 boolean "IoU > threshold" matrix: one device-to-host copy of N^2 bytes,
 then one vector OR per kept row, instead of N small device launches.
+:func:`nms_from_iou` runs the same pass on a given IoU matrix, and
+:func:`rotate_nms_3d` is the JAX package's name for :func:`nms_boxes`.
 """
 
 from __future__ import annotations
@@ -41,6 +43,23 @@ def greedy_suppress(over, valid_o, post_max_size: int):
             torch.tensor(kept.size, dtype=torch.int32, device=dev))
 
 
+def _score_order(scores, valid):
+    """Indices by descending score, stable, invalid rows last."""
+    neg = torch.finfo(scores.dtype).min
+    return torch.sort(torch.where(valid, scores, neg), descending=True,
+                      stable=True).indices
+
+
+def _keep(over_o, valid, order, post_max_size: int):
+    """:func:`greedy_suppress` over ``over_o`` (in ``order``), its kept
+    positions mapped back to the input order."""
+    keep_pos, keep_count = greedy_suppress(over_o, valid[order],
+                                           post_max_size)
+    keep_idx = torch.where(keep_pos >= 0,
+                           order[keep_pos.clamp(min=0).to(torch.int64)], -1)
+    return keep_idx.to(torch.int32), keep_count
+
+
 def nms_boxes(boxes, scores, valid, iou_threshold: float,
               post_max_size: int):
     """Sort-then-IoU greedy NMS on yx_zb boxes (N, 7).
@@ -48,13 +67,28 @@ def nms_boxes(boxes, scores, valid, iou_threshold: float,
     Returns (keep_idx (post_max_size,) int32 into the ORIGINAL order,
     score-descending, padded -1; keep_count 0-d int32).
     """
-    neg = torch.finfo(scores.dtype).min
-    order = torch.sort(torch.where(valid, scores, neg), descending=True,
-                       stable=True).indices
+    order = _score_order(scores, valid)
     boxes_o = boxes[order]
     iou_o = boxes_iou_3d(boxes_o, boxes_o, criterion=-1)
-    keep_pos, keep_count = greedy_suppress(iou_o > iou_threshold,
-                                           valid[order], post_max_size)
-    keep_idx = torch.where(keep_pos >= 0,
-                           order[keep_pos.clamp(min=0).to(torch.int64)], -1)
-    return keep_idx.to(torch.int32), keep_count
+    return _keep(iou_o > iou_threshold, valid, order, post_max_size)
+
+
+def nms_from_iou(iou, scores, valid, iou_threshold: float,
+                 post_max_size: int):
+    """Greedy NMS given a full (N, N) IoU matrix in the input order:
+    boxes taken by descending score (stable), each suppressing the later
+    ones it overlaps by more than ``iou_threshold``; invalid rows never
+    kept. Returns (keep_idx (post_max_size,) int32 into the input order,
+    padded -1; keep_count 0-d int32)."""
+    order = _score_order(scores, valid)
+    return _keep(iou[order][:, order] > iou_threshold, valid, order,
+                 post_max_size)
+
+
+def rotate_nms_3d(boxes, scores, valid, iou_threshold: float,
+                  post_max_size: int):
+    """Rotated 3D NMS on yx_zb boxes (N, 7), any pre-top-k already
+    applied (the reference's pre_max_size): :func:`nms_boxes`, so its
+    IoU matrix comes from kernel C on the card. Returns (keep_idx
+    (post_max_size,), keep_count)."""
+    return nms_boxes(boxes, scores, valid, iou_threshold, post_max_size)

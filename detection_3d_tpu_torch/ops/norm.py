@@ -41,3 +41,15 @@ def batch_norm_leaky_relu(feats, valid, scale, bias, leakiness: float = 0.0,
     out = torch.where(out > 0, out, out * leakiness)
     out = torch.where(valid[:, None], out, 0.0)
     return out.to(feats.dtype)
+
+
+def batch_stats(feats, valid):
+    """Masked (mean, var) over the valid rows, f32, for keeping running
+    statistics (JAX ops/norm.py:51); the variance is taken about the
+    mean, as JAX takes it."""
+    f32 = feats.to(torch.float32)
+    w = valid.to(torch.float32)[:, None]
+    n = torch.clamp(w.sum(), min=1.0)
+    mean = (f32 * w).sum(0) / n
+    var = ((f32 - mean).square() * w).sum(0) / n
+    return mean, var

@@ -20,6 +20,8 @@ IoU criteria (rbox1 = query, rbox2 = target box):
 works on explicit (N, K) pair matrices in the kernel's operation order
 and computes every pair; the kernel, and rotated_iou_pairs, skip the
 pairs that :func:`iou_may_meet` rules out, and give them the same bits.
+:func:`rotated_iou_pair` is one pair's IoU in plain torch, for host
+loops.
 """
 
 from __future__ import annotations
@@ -233,6 +235,78 @@ def _criterion(inter, boxes, query_boxes, criterion):
         thin_denom = area_b + torch.clamp(area_q * 0.5 - inter, min=0.0)
         return torch.where(thin, inter / thin_denom, inter / union)
     return inter
+
+
+def _segment_intersections(c1, c2):
+    """The 4 x 4 edge-pair intersections of two quads' corners (4, 2):
+    (16, 2) points (query edge e x target edge f at 4e + f) and (16,)
+    validity, by the orientation tests and the determinant formula of
+    :func:`_intersection`."""
+    a, b = c1, torch.roll(c1, -1, 0)
+    c, d = c2, torch.roll(c2, -1, 0)
+    A, B = a[:, None, :], b[:, None, :]
+    C, D = c[None, :, :], d[None, :, :]
+    BA, DA, CA = B - A, D - A, C - A
+    acd = DA[..., 1] * CA[..., 0] > CA[..., 1] * DA[..., 0]
+    bcd = ((D[..., 1] - B[..., 1]) * (C[..., 0] - B[..., 0])
+           > (C[..., 1] - B[..., 1]) * (D[..., 0] - B[..., 0]))
+    abc = CA[..., 1] * BA[..., 0] > BA[..., 1] * CA[..., 0]
+    abd = DA[..., 1] * BA[..., 0] > BA[..., 1] * DA[..., 0]
+    DC = D - C
+    abba = A[..., 0] * B[..., 1] - B[..., 0] * A[..., 1]
+    cddc = C[..., 0] * D[..., 1] - D[..., 0] * C[..., 1]
+    dh = BA[..., 1] * DC[..., 0] - BA[..., 0] * DC[..., 1]
+    safe = torch.where(dh == 0.0, 1.0, dh)
+    pts = torch.stack([(abba * DC[..., 0] - BA[..., 0] * cddc) / safe,
+                       (abba * DC[..., 1] - BA[..., 1] * cddc) / safe], -1)
+    valid = (acd != bcd) & (abc != abd) & (dh != 0.0)
+    return pts.reshape(16, 2), valid.reshape(16)
+
+
+def _intersection_area(c1, c2):
+    """Intersection area of one query quad ``c1`` and one target quad
+    ``c2``, corners (4, 2) each (JAX ops/rotated_iou._intersection_area):
+    the 24 candidates of :func:`_intersection` as (24,) vectors, ranked
+    by a (24, 24) comparison and summed by the shoelace formula. A pair
+    at a time this takes a few dozen small operations where
+    :func:`_intersection`, written for (N, K) planes, takes thousands."""
+    in2 = _point_in_quad(c1[:, 0], c1[:, 1], c2[:, 0], c2[:, 1])
+    in1 = _point_in_quad(c2[:, 0], c2[:, 1], c1[:, 0], c1[:, 1])
+    seg_pts, seg_valid = _segment_intersections(c1, c2)
+    pts = torch.cat([c1, c2, seg_pts], 0)                 # (24, 2)
+    valid = torch.cat([in2, in1, seg_valid], 0)           # (24,)
+    n = valid.sum(dtype=torch.int32)
+    vf = valid.to(pts.dtype)
+    center = (pts * vf[:, None]).sum(0) / torch.clamp(n, min=1).to(pts.dtype)
+    v = pts - center
+    d = torch.sqrt(v[:, 0] ** 2 + v[:, 1] ** 2)
+    ds = torch.where(d > 0.0, d, 1.0)
+    vx, vy = v[:, 0] / ds, v[:, 1] / ds
+    key = torch.where(vy < 0.0, -2.0 - vx, vx)
+    key = torch.where(valid & (d > 0.0), key, _BIG)
+    ar = torch.arange(_NC, device=pts.device)
+    less = key[None, :] < key[:, None]
+    tie = (key[None, :] == key[:, None]) & (ar[None, :] < ar[:, None])
+    rank = (less | tie).sum(1, dtype=torch.int32)
+    nxt = torch.where(rank + 1 >= n, 0, rank + 1)
+    sel = (rank[None, :] == nxt[:, None]) & valid[None, :]
+    vnx = torch.where(sel, v[None, :, 0], 0.0).sum(1)
+    vny = torch.where(sel, v[None, :, 1], 0.0).sum(1)
+    cross = v[:, 0] * vny - v[:, 1] * vnx
+    return 0.5 * torch.abs(torch.where(valid, cross, 0.0).sum())
+
+
+def rotated_iou_pair(qbox, box, criterion: int = -1):
+    """IoU of one query rbbox and one target rbbox, both (5,) ``[cx, cy,
+    x_d, y_d, angle]``, as a 0-d tensor (JAX ops/rotated_iou.py:158; the
+    reference's devRotateIoUEval(rbox1=qbox, rbox2=box)). Plain torch on
+    the tensors' own device: it serves host loops over single pairs
+    (data/gt_preprocess._xy_iou), where a kernel launch a pair would
+    cost more than the pair."""
+    inter = _intersection_area(rbbox_corners_2d(qbox),
+                               rbbox_corners_2d(box))
+    return _criterion(inter.reshape(1, 1), box[None], qbox[None],
+                      criterion)[0, 0]
 
 
 def rotated_iou_cuda(boxes, query_boxes, criterion: int = -1,

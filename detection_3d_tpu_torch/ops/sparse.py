@@ -92,7 +92,7 @@ def build_sparse_tensor(coords, feats, valid, spatial_size, batch_size,
     """Deduplicating input layer: raw voxel coords -> SparseTensor.
 
     Rows with equal (x, y, z, b) merge; ``reduce`` 'mean' averages their
-    features ('sum' adds them). Out-of-grid and ``~valid`` rows are
+    features ('sum' adds them, 'max' takes their elementwise maximum). Out-of-grid and ``~valid`` rows are
     dropped. When more voxels than ``capacity`` exist, every k-th voxel
     (k = ceil(num / capacity)) is kept so coverage stays spatially
     uniform, and ``true_num`` keeps the pre-truncation count.
@@ -104,8 +104,9 @@ def build_sparse_tensor(coords, feats, valid, spatial_size, batch_size,
         output row holding its voxel (== capacity when the row was invalid
         or its voxel was dropped by the overflow stride).
     """
-    if reduce not in ("mean", "sum"):
-        raise ValueError(f"reduce={reduce!r}: expected 'mean' or 'sum'")
+    if reduce not in ("mean", "sum", "max"):
+        raise ValueError(
+            f"reduce={reduce!r}: expected 'mean', 'sum' or 'max'")
     n = coords.shape[0]
     dev = coords.device
     if valid is None:
@@ -131,7 +132,17 @@ def build_sparse_tensor(coords, feats, valid, spatial_size, batch_size,
 
     c = feats.shape[-1]
     out_feats = torch.zeros((capacity, c), dtype=feats.dtype, device=dev)
-    if c:
+    if c and reduce == "max":
+        # rows off the table take the dtype's lowest value; a slot no row
+        # reaches stays -inf, and non-finite results become 0
+        lowest = torch.finfo(feats.dtype).min
+        out_feats = torch.full((capacity, c), -torch.inf, dtype=feats.dtype,
+                               device=dev)
+        out_feats.scatter_reduce_(
+            0, seg_c[:, None].expand(n, c),
+            torch.where(row_on[:, None], feats_s, lowest), reduce="amax")
+        out_feats = torch.where(torch.isfinite(out_feats), out_feats, 0.0)
+    elif c:
         ones = row_on.to(feats.dtype)
         out_feats.index_add_(0, seg_c, feats_s * ones[:, None])
         if reduce == "mean":
@@ -396,3 +407,14 @@ def downsample_with_rulebooks(table: SparseTensor, kernel, stride,
     deconv_rb[flat_d] = row_map
     deconv_rb = deconv_rb[:kvol * v_in].reshape(kvol, v_in)
     return out_table, conv_rb, deconv_rb
+
+
+def conv_rulebook(out_table: SparseTensor, in_table: SparseTensor, kernel,
+                  stride):
+    """(K, V_out) strided-conv rulebook by search: entry [k, o] is the
+    input row at out_coord(o) * stride + offset_k, V_in where absent (JAX
+    ops/sparse.py:522). Kernel D on the card
+    (ops/multi_match.conv_rulebook_match); equal to the scatter-derived
+    book of :func:`downsample_with_rulebooks`."""
+    from detection_3d_tpu_torch.ops.multi_match import conv_rulebook_match
+    return conv_rulebook_match(out_table, in_table, kernel, stride)

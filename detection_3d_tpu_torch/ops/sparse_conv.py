@@ -35,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from detection_3d_tpu_torch.ops import cuda_lib
+from detection_3d_tpu_torch.ops.multi_match import deconv_rulebook_match
 
 MAX_OFFSETS = 64     # one bit per offset in an int64 row mask
 
@@ -492,3 +493,11 @@ def nin_conv(feats, weight, out_valid):
     """1x1x1 (NetworkInNetwork) conv: one plain matmul over the rows."""
     out = feats @ weight
     return torch.where(out_valid[:, None], out, 0.0).to(feats.dtype)
+
+
+def deconv_rulebook(fine_table, coarse_table, kernel, stride):
+    """(K, V_fine) deconv rulebook by search: entry [k, x] is the coarse
+    row o with fine_coord(x) == o * stride + offset_k, V_coarse where
+    absent (JAX ops/sparse_conv.py:107). Kernel D on the card
+    (ops/multi_match.deconv_rulebook_match)."""
+    return deconv_rulebook_match(fine_table, coarse_table, kernel, stride)

@@ -153,11 +153,21 @@ def class_gate(result, cfg, class_min: float = 0.3, report=print):
     return ok, per_class
 
 
+def _nan_to_none(v):
+    if isinstance(v, dict):
+        return {k: _nan_to_none(x) for k, x in v.items()}
+    return None if isinstance(v, float) and math.isnan(v) else v
+
+
 def write_summary(out_dir: str, summary: dict) -> str:
+    """``summary`` as ``out_dir``/summary.json; a NaN value (such as the
+    s/building of a run that timed no building) is written as null, so
+    the file stays valid JSON."""
     os.makedirs(out_dir, exist_ok=True)
     path = os.path.join(out_dir, "summary.json")
     with open(path, "w") as f:
-        json.dump(summary, f, indent=1, sort_keys=True)
+        json.dump(_nan_to_none(summary), f, indent=1, sort_keys=True,
+                  allow_nan=False)
     return path
 
 

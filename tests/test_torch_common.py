@@ -108,6 +108,26 @@ def scene_tables(jcfg, tcfg, scene=None):
     return jt, tt
 
 
+def assert_same(got, want, path="out"):
+    """Equal values, dtypes and shapes through nested dicts, lists and
+    tuples of numpy arrays and scalars (the numpy copies' outputs)."""
+    if isinstance(want, dict):
+        assert isinstance(got, dict) and set(got) == set(want), path
+        for k in want:
+            assert_same(got[k], want[k], f"{path}[{k!r}]")
+    elif isinstance(want, (list, tuple)):
+        assert type(got) is type(want) and len(got) == len(want), path
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert_same(g, w, f"{path}[{i}]")
+    elif isinstance(want, np.ndarray):
+        assert isinstance(got, np.ndarray), path
+        assert got.dtype == want.dtype, (path, got.dtype, want.dtype)
+        np.testing.assert_array_equal(got, want, err_msg=path)
+    else:
+        assert type(got) is type(want) and (got == want or (
+            got != got and want != want)), (path, got, want)
+
+
 def to_numpy_tree(tree):
     """A JAX parameter tree as nested dicts of writable numpy arrays."""
     return jax.tree_util.tree_map(lambda a: np.array(a), tree)

@@ -721,3 +721,51 @@ def test_kernel_d_and_backward_on_shard_pyramids(dev, tmp_path, shards):
         assert r["launches"]["subm_match"] == n
         assert not bool(r["overflow"])
     assert sum(sum(r["halo_rows"]) for r in res) > 0
+
+
+def test_small_zoo_card_matches_cpu(dev):
+    """plan_levels, a residual SparseUNet and a SparseVGG (C, MP, C3/2)
+    on the card against the CPU with the same weights (chip_smoke.
+    small_zoo_card_vs_cpu: books bit equal, f32 outputs within 1e-4 of
+    the largest, gradients within 1e-3 of each one's largest + 1e-5),
+    kernels A, dFeats, dW and B launched."""
+    from chip_smoke import small_zoo_card_vs_cpu
+    cuda_lib.reset_launches()
+    report = small_zoo_card_vs_cpu(card=dev)
+    assert set(report) == {"unet", "vgg"}
+    for name in ("gather_conv", "gather_conv_dfeats", "gather_conv_dw",
+                 "subm_match"):
+        assert cuda_lib.launches[name] > 0, name
+
+
+def test_searched_books_through_kernel_d(dev):
+    """ops/sparse.conv_rulebook and ops/sparse_conv.deconv_rulebook on
+    the card: kernel D, once each, bit equal to the scatter books."""
+    from detection_3d_tpu_torch.ops.sparse import conv_rulebook
+    from detection_3d_tpu_torch.ops.sparse_conv import deconv_rulebook
+    t0 = _table(dev, 3000, 4096, 9)
+    t1, crb, drb = downsample_with_rulebooks(t0, (2, 2, 2), (2, 2, 2), 2048)
+    cuda_lib.reset_launches()
+    conv = conv_rulebook(t1, t0, (2, 2, 2), (2, 2, 2))
+    dec = deconv_rulebook(t0, t1, (2, 2, 2), (2, 2, 2))
+    torch.cuda.synchronize()
+    assert cuda_lib.launches["multi_match"] == 2
+    assert torch.equal(conv, crb) and torch.equal(dec, drb)
+
+
+def test_rotate_nms_3d_card_matches_cpu(dev):
+    """rotate_nms_3d on the card (kernel C, once) keeps the boxes its
+    plain version keeps on the CPU."""
+    from chip_smoke import _nms_boxes_np
+    from detection_3d_tpu_torch.ops.nms import rotate_nms_3d
+    rng = np.random.RandomState(2)
+    host = (torch.from_numpy(_nms_boxes_np(400, 2)),
+            torch.from_numpy(rng.rand(400).astype(np.float32)),
+            torch.from_numpy(rng.rand(400) > 0.1))
+    cuda_lib.reset_launches()
+    keep, count = rotate_nms_3d(*(x.to(dev) for x in host), 0.3, 400)
+    torch.cuda.synchronize()
+    assert cuda_lib.launches["rotated_iou"] == 1
+    want, want_count = rotate_nms_3d(*host, 0.3, 400)
+    assert int(count) == int(want_count) > 0
+    assert torch.equal(keep.cpu(), want)

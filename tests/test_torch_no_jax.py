@@ -45,6 +45,7 @@ def test_every_module_imports_with_jax_blocked():
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "import chip_smoke\n"
+        "assert 'matplotlib' not in sys.modules, 'matplotlib imported'\n"
         "print(' '.join(names))\n"
         "print(len(names))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -60,7 +61,10 @@ def test_every_module_imports_with_jax_blocked():
                 "engine.trainer", "models.separate_classifier",
                 "data.augment", "data.scene_packing", "tools.overfit_check",
                 "tools.generalization_check", "parallel.collectives",
-                "parallel.mesh", "parallel.spatial", "parallel.checks"):
+                "parallel.mesh", "parallel.spatial", "parallel.checks",
+                "models.factories", "ops.sparse_pool", "data.house_parser",
+                "data.gt_preprocess", "data.depth_render", "data.export",
+                "utils.flops", "utils.profiling", "utils.viz"):
         assert f"detection_3d_tpu_torch.{mod}" in res.stdout.split(), mod
 
 
@@ -123,6 +127,11 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch, tmp_path):
     assert rank_device("gloo", "cpu") == torch.device("cpu")
     with pytest.raises(ValueError, match="gloo"):
         rank_device("nccl", "cpu")
+    # the memory statistics read the card's, or nothing for the host
+    from detection_3d_tpu_torch.utils.profiling import device_memory_stats
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        device_memory_stats()
+    assert device_memory_stats("cpu") == {}
     # NCCL with fewer cards than ranks raises, never falls back to gloo
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
@@ -130,3 +139,44 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch, tmp_path):
     monkeypatch.setenv("LOCAL_WORLD_SIZE", "2")
     with pytest.raises(RuntimeError, match="nccl needs one card per rank"):
         rank_device("nccl")
+
+
+def test_tensor_entry_points_run_where_their_tensors_are(monkeypatch):
+    """plan_levels, the factories, rotate_nms_3d, conv_rulebook and
+    deconv_rulebook take the device of the tensors they are given: CPU
+    tensors take the plain versions (no kernel launch is counted), and
+    nothing reaches for a card that is not there."""
+    import numpy as np
+    from detection_3d_tpu_torch.models.factories import (
+        FullyConvolutionalNet, SparseUNet, SparseVGG, plan_levels)
+    from detection_3d_tpu_torch.ops import cuda_lib
+    from detection_3d_tpu_torch.ops.nms import rotate_nms_3d
+    from detection_3d_tpu_torch.ops.sparse import (
+        build_sparse_tensor, conv_rulebook)
+    from detection_3d_tpu_torch.ops.sparse_conv import deconv_rulebook
+    from torch_match_cases import random_coords
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    coords = torch.from_numpy(random_coords(300, (24, 24, 8), 3))
+    t0 = build_sparse_tensor(coords, torch.randn(coords.shape[0], 4), None,
+                             (24, 24, 8), 1, 512)
+    cuda_lib.reset_launches()
+    plan = plan_levels(t0, (512, 256, 128), backward=True)
+    for net in (SparseUNet(4, (8, 16, 24)), SparseVGG(4, (("C", 8), ("MP",),
+                                                          ("C3/2", 16))),
+                FullyConvolutionalNet(4, (8, 16))):
+        out = net(plan)
+        out = out[0] if isinstance(out, tuple) else out
+        out.square().sum().backward()
+        assert out.device.type == "cpu"
+    t1 = plan["tables"][1]
+    assert torch.equal(conv_rulebook(t1, t0, (2, 2, 2), (2, 2, 2)),
+                       plan["down_rb"][0])
+    assert torch.equal(deconv_rulebook(t0, t1, (2, 2, 2), (2, 2, 2)),
+                       plan["up_rb"][0])
+    boxes = torch.from_numpy(np.random.RandomState(0).rand(20, 7)
+                             .astype(np.float32))
+    keep, _ = rotate_nms_3d(boxes, torch.rand(20), torch.ones(20,
+                                                             dtype=bool),
+                            0.3, 8)
+    assert keep.device.type == "cpu"
+    assert not any(cuda_lib.launches.values())

@@ -7,7 +7,13 @@
    against the sequential packed predict on the same C++ packs, within
    1e-6, with its ``timings``; one pack worker, and the evaluation of
    the pipelined detections.
+3. The port's repairs of two faults it shares with the JAX package:
+   batch_size > 1 without ``pipelined`` raises, and a run that timed no
+   building returns NaN s/building with a warning, on both paths.
 """
+
+import logging
+import math
 
 import numpy as np
 import pytest
@@ -101,3 +107,24 @@ def test_pipelined_one_worker_and_evaluation(weights, sequential):
     np.testing.assert_array_equal(result.n_gt, want_gt)
 
 
+
+
+def test_sequential_loop_refuses_a_batch_size(weights):
+    tcfg, model = weights
+    with pytest.raises(ValueError, match="pipelined=True"):
+        run_inference(tcfg, model, [tiny_scene(3)], device="cpu",
+                      batch_size=2)
+
+
+@pytest.mark.parametrize("pipelined", [False, True])
+def test_one_building_times_nothing(weights, sequential, pipelined, caplog):
+    """One building: the first building (or unit) only warms up, so
+    nothing is timed and s/building is NaN, not 0.0."""
+    tcfg, model = weights
+    scenes, _ = sequential
+    with caplog.at_level(logging.WARNING):
+        preds, _, sec = run_inference(
+            tcfg, model, scenes[:1], device="cpu", pipelined=pipelined,
+            pack_workers=1, pack_mode="table")
+    assert len(preds) == 1 and math.isnan(sec)
+    assert "no building was timed" in caplog.text

@@ -103,7 +103,19 @@ def test_generalization_check_runs_on_cpu(tmp_path, capsys):
                       "--epochs", "1", "--eval-train", "0",
                       "--scan-steps", "1", "--device", "cpu",
                       "--output-dir", str(out)])
+    # one test building: nothing timed, its NaN s/building written null
     _check_summary(out, code, steps=1, groups=1, train_scenes=1,
-                   test_scenes=1)
+                   test_scenes=1, sec_per_building=None)
     assert (out / "model_final.pt").exists()
     assert "GENERALIZATION CHECK" in capsys.readouterr().out
+
+
+def test_summary_writes_nan_as_null(tmp_path):
+    """summary.json stays valid JSON: NaN (a run that timed no building)
+    is written as null, at any depth."""
+    path = tovf.write_summary(str(tmp_path), {
+        "sec_per_building": float("nan"), "ok": True,
+        "per_class_ap": {"wall": float("nan"), "door": 0.5}})
+    assert json.loads(Path(path).read_text()) == {
+        "sec_per_building": None, "ok": True,
+        "per_class_ap": {"wall": None, "door": 0.5}}
