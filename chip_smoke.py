@@ -137,6 +137,22 @@
    on the card and on the CPU), and conv_rulebook / deconv_rulebook
    (kernel D) on the building's scale-0 -> 1 tables, bit equal to the
    scatter books.
+6f. The repo-level tools' twins (detection_3d_tpu_torch/tools/) on the
+   card: the bench twin's run (tools/bench.run: host pack, device time of
+   5 pyramid predicts, the stream of 4 buildings in table and pyramid
+   mode and at batch 2) with its JSON line parsed and held (every key of
+   bench.py's line and the twin's own, finite positive times, the card's
+   name, an idle share in [0, 1], detections for every building); its
+   parity checks at full scale (B, A, the searched books through D);
+   train_bench at gen_config() (3 steps, A, dFeats, dW, B and C
+   launched); profile_inference at full width (positive stage times, the
+   full prefix within 1e-6 of make_predict_fn); diag_anchor_coverage on
+   seed 0 at gen_config() on the card and on the CPU (equal per-class
+   counts, gts within 1e-5 of the threshold named and excepted); and
+   clean_models over a directory of model_*.pt files. The pipelined runs
+   of 4b print the device's busy time as the union over every stream
+   (utils/profiling.device_activity) beside the old sum, and the idle
+   share by each.
 7. D's own path: conv_rulebook_match / deconv_rulebook_match over every
    downsample of a full-size building's pyramid, bit exact against the
    scatter-derived books.
@@ -174,7 +190,9 @@ Launch counts are set to 0 just before each path (serve, serve_points,
 serve_table, serve_pyramid, pipelined_table, pipelined_pyramid, train,
 train_loader, train_list, train_packed, train_resident, train_scan,
 eval, serve_3g6c, train_3g6c, rpn_only, zoo, zoo_vgg, zoo_fcn,
-dataprep, api_nms, api_books, match, and in each rank dp_train,
+dataprep, api_nms, api_books, bench_table, bench_pyramid, bench_batch,
+bench_parity, train_bench, profile_inference, diag, match, and in each
+rank dp_train,
 sp_serve, sp_train, dpsp_train) and read just after;
 launches made to compare a kernel with its plain version do not count.
 Any failed phase raises and exits non-zero; without CUDA, or without the
@@ -182,7 +200,6 @@ package beside it, the script exits non-zero before printing a result.
 """
 
 import json
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -209,10 +226,8 @@ def check(ok, msg):
 
 
 def card_line():
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
+    from detection_3d_tpu_torch.utils.device import card_info
+    return card_info()["line"]
 
 
 def time_ms(fn, iters=10):
@@ -1086,44 +1101,20 @@ def check_rotated_iou_training(calls, cols=4096):
     return line
 
 
-# each launch counter's kernel symbols in a device trace (kernel A's
-# body runs under the ConvForward and ConvDFeats tags; dW is a partial
-# kernel and its reduction)
-SYMBOLS = {"gather_conv": "ConvForward", "gather_conv_dfeats": "ConvDFeats",
-           "gather_conv_dw": "gather_dw_",
-           "subm_match": "subm_match_",
-           "rotated_iou": "rotated_iou_kernel",
-           "multi_match": "multi_match_kernel"}
-
-
 def _profile(fn):
-    """torch.profiler over one call of ``fn``: device busy time, the span
-    from the first to the last device activity, per-kernel and top device
-    times (ms). None when the profiler records no device activity."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-    evs = [e for e in prof.events()
-           if getattr(e, "device_type", None) == DeviceType.CUDA]
-    if not evs:
-        return None
-    by_name = {}
-    for e in evs:
-        by_name[e.name] = by_name.get(e.name, 0.0) + \
-            e.time_range.elapsed_us() / 1e3
-    busy = sum(by_name.values())
-    memcpy = sum(v for n, v in by_name.items() if "memcpy" in n.lower())
-    span = (max(e.time_range.end for e in evs)
-            - min(e.time_range.start for e in evs)) / 1e3
-    ours = {k: sum(v for n, v in by_name.items() if sym in n)
-            for k, sym in SYMBOLS.items()}
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
-    return {"busy_ms": busy, "memcpy_ms": memcpy, "span_ms": span,
-            "idle_share_of_span": 1.0 - busy / span if span > 0 else None,
-            "device_activities": len(evs), "port_kernels_ms": ours,
-            "top_ms": [[n[:90], v] for n, v in top]}
+    """utils/profiling.device_activity over one call of ``fn`` on the card:
+    the device's busy time (the union of the activities over every
+    stream) beside their sum, the span from the first to the last device
+    activity, the idle share, per-kernel and top device times (ms). Raises
+    when the profiler records no device activity."""
+    from detection_3d_tpu_torch.utils.profiling import device_activity
+    return device_activity(fn)
+
+
+def _brief(prof, keys=None):
+    """A profile without its by-name table, or only ``keys`` of it."""
+    return {k: v for k, v in prof.items()
+            if (k in keys if keys else k != "by_name_ms")}
 
 
 def device_profile(predict, batch):
@@ -1201,8 +1192,7 @@ def train_path(cfg, scenes, dev):
     batch = pad_scene(cfg, scenes[-1])
     prof = _profile(lambda: trainer.step(state, batch, gen))
     print("device profile of one more training step: "
-          + ("not measured (the profiler recorded no device activity)"
-             if prof is None else json.dumps(prof)))
+          + json.dumps(_brief(prof)))
     _, bwd = gather_conv_bwd_training_shapes(
         lambda: trainer.step(state, batch, gen))
     check(bwd["same_bits_twice"], "kernel A': two calls at a training "
@@ -1418,6 +1408,7 @@ def check_rotated_iou_eval(calls):
     -1, the same-box fix), on the inputs the evaluation gave it
     (:func:`capture_iou_calls`): held bit for bit against the plain
     version and timed, with its bound from the pairs that meet."""
+    from detection_3d_tpu_torch.ops import cuda_lib
     from detection_3d_tpu_torch.ops.rotated_iou import (
         rotated_iou_cuda, rotated_iou_plain)
     rows, err = [], 0.0
@@ -1440,7 +1431,7 @@ def check_rotated_iou_eval(calls):
         line[f"sum_{key}"] = sum(r[key] for r in rows)
     line["sum_device_ms"] = device_ms(
         lambda: [rotated_iou_cuda(*c) for c in calls],
-        [SYMBOLS["rotated_iou"]])
+        [cuda_lib.SYMBOLS["rotated_iou"]])
     print("kernel C (evaluator shapes)", json.dumps(line))
     return line
 
@@ -2147,10 +2138,12 @@ def packed_serving_path(cfg, scenes, dev):
                 "s_per_building": sec, "wall_s": wall, "timings": tm,
                 "max_abs_err_vs_sequential": err,
                 "peak_device_memory_gib": peak, "launches": ln,
-                "profile": None if prof is None else {
-                    k: prof[k] for k in ("busy_ms", "memcpy_ms", "span_ms",
-                                         "idle_share_of_span",
-                                         "port_kernels_ms")}}
+                "profile": {**_brief(prof, (
+                    "busy_ms", "sum_ms", "memcpy_ms", "span_ms",
+                    "idle_share", "streams", "port_kernels_ms")),
+                    # the reading before the union: overlaps counted twice
+                    "idle_share_of_sum": 1.0 - prof["sum_ms"]
+                    / prof["span_ms"]}}
         print("pipelined serving:", json.dumps(line))
         runs.append(line)
         raw_secs.append(raw_run())
@@ -2546,10 +2539,9 @@ def train_input_path(cfg, scenes, dev):
                 "non_finite": tr.resident_skipped,
                 "totals": [h[0] for h in tr.history],
                 "launches": launches["train_resident"],
-                "profile_of_one_more_chunk": None if prof is None else {
-                    k: prof[k] for k in ("busy_ms", "memcpy_ms", "span_ms",
-                                         "idle_share_of_span",
-                                         "port_kernels_ms", "top_ms")}}
+                "profile_of_one_more_chunk": _brief(prof, (
+                    "busy_ms", "sum_ms", "memcpy_ms", "span_ms",
+                    "idle_share", "streams", "port_kernels_ms", "top_ms"))}
     print("train_resident:", json.dumps(resident))
     del tr, state
 
@@ -3685,6 +3677,215 @@ def api_path(cfg, scene, dev):
     return launches
 
 
+TOOLS_BUILDINGS = 4      # the bench twin's stream (a held-out one warms up)
+TOOLS_NEAR_THRESHOLD = 1e-5   # a gt this near fg_iou_threshold may flip
+TOOLS_PROFILE_ROUNDS = 15     # profile_inference's rounds (medians)
+
+
+def _finite_positive(x):
+    return isinstance(x, (int, float)) and bool(np.isfinite(x)) and x > 0
+
+
+def _share(x):
+    return isinstance(x, float) and 0.0 <= x <= 1.0
+
+
+def _diag_card_vs_cpu(gcfg, scene, dev, pc_card, pc_cpu):
+    """The per-class counts of diag_anchor_coverage on the card and on
+    the CPU must be equal; where they are not, every gt whose status
+    differs must have a best quality within TOOLS_NEAR_THRESHOLD of
+    fg_iou_threshold, and is named and excepted. Returns the excepted
+    gts."""
+    from detection_3d_tpu_torch.tools.diag_anchor_coverage import (
+        scene_coverage)
+    keys = ("n_gt", "covered", "rescued")
+    if all(pc_card[c][k] == pc_cpu[c][k] for c in pc_card for k in keys):
+        return []
+    thr = gcfg.rpn.fg_iou_threshold
+    card_rows, _ = scene_coverage(gcfg, scene, dev)
+    cpu_rows, _ = scene_coverage(gcfg, scene, "cpu")
+    excepted = []
+    for g, (a, b) in enumerate(zip(card_rows, cpu_rows)):
+        if ((a["above"] > 0, a["assigned"] > 0)
+                == (b["above"] > 0, b["assigned"] > 0)):
+            continue
+        near = min(abs(a["best"] - thr), abs(b["best"] - thr))
+        check(near <= TOOLS_NEAR_THRESHOLD, f"diag_anchor_coverage: gt {g} "
+              f"({a['class']}) covered differently on the card ({a}) and "
+              f"on the CPU ({b}), {near} from the threshold")
+        excepted.append({"gt": g, "class": a["class"], "card": a, "cpu": b})
+    print("diag_anchor_coverage: excepted near the threshold: "
+          + json.dumps(excepted))
+    return excepted
+
+
+def tools_path(cfg, scenes, dev):
+    """Phase 6f: the repo-level tools' twins (detection_3d_tpu_torch/
+    tools/) on the card, on buildings generated before.
+
+    The bench twin (tools/bench.run) at full width: the host pack and the
+    device time of scenes[0], its stream over the next TOOLS_BUILDINGS
+    in table and pyramid mode and at batch 2; the JSON line it builds,
+    parsed back, must hold every key of bench.py's line and the twin's
+    own, finite positive times, the card's name, an idle share in [0, 1]
+    and detections for every building. The twin sets the launch counts
+    to 0 before each timed run and reads them after (bench_table,
+    bench_pyramid, bench_batch). Its parity checks (bench.parity) on
+    scenes[0] (bench_parity). train_bench at gen_config() on a 35k-point
+    varied building, 3 steps (train_bench); profile_inference at full
+    width, TOOLS_PROFILE_ROUNDS rounds (profile_inference): positive
+    prefix and stage times, the full prefix's detections within 1e-6 of
+    make_predict_fn's;
+    diag_anchor_coverage.coverage on seed 0 at gen_config() on the card
+    (diag) and on the CPU, the per-class counts equal but for gts within
+    TOOLS_NEAR_THRESHOLD of fg_iou_threshold, which are named; and
+    clean_models over a directory of model_*.pt files. Counts set to 0
+    before each path and read after. Returns {path: launches}."""
+    import shutil
+    from detection_3d_tpu_torch.data.synthetic import (
+        synthetic_varied_building)
+    from detection_3d_tpu_torch.engine.inference import (
+        make_predict_fn, pad_scene)
+    from detection_3d_tpu_torch.models.detector import SparseRCNN
+    from detection_3d_tpu_torch.ops import cuda_lib
+    from detection_3d_tpu_torch.tools import (
+        bench, clean_models, diag_anchor_coverage, profile_inference,
+        train_bench)
+    from detection_3d_tpu_torch.tools.generalization_check import gen_config
+    launches = {}
+    name = torch.cuda.get_device_name(0)
+    model = SparseRCNN(cfg, seed=0)
+
+    # ---- the bench twin: stream and batch, then parity -----------------
+    t0 = time.perf_counter()
+    line, streamed = bench.run(cfg, model, scenes[0],
+                               scenes[1:1 + TOOLS_BUILDINGS], dev,
+                               batch_sizes=(2,))
+    line = json.loads(json.dumps(line))
+    print(f"bench twin ({time.perf_counter() - t0:.1f} s):", json.dumps(line))
+    for key in bench.LINE_KEYS + bench.EXTRA_KEYS:
+        check(key in line, f"bench twin: key {key} missing")
+    for key in ("value", "vs_baseline", "device_s", "stream_table_s",
+                "stream_pyramid_s", "stream_wait_pack_s",
+                "stream_dispatch_s", "stream_drain_fetch_s",
+                "host_pack_pyramid_s", "batch_throughput_bps", "peak_gib",
+                "power_limit_w"):
+        check(_finite_positive(line[key]), f"bench twin: {key} = "
+              f"{line[key]}")
+    check(line["device"] == name, f"bench twin: device {line['device']}")
+    check(_share(line["idle_share"]),
+          f"bench twin: idle share {line['idle_share']}")
+    check(line["n_buildings"] == TOOLS_BUILDINGS, "bench twin: buildings")
+    for run, preds in streamed["preds"].items():
+        check(len(preds) == TOOLS_BUILDINGS and all(
+            p["boxes"].shape[0] > 0 and np.isfinite(p["boxes"]).all()
+            for p in preds), f"bench twin {run}: missing or non-finite "
+              "detections")
+    for path, run in (("bench_table", "table"), ("bench_pyramid", "pyramid"),
+                      ("bench_batch", "batch_2")):
+        ln = launches[path] = streamed["launches"][run]
+        check(ln["gather_conv"] > 0 and ln["rotated_iou"] > 0,
+              f"{path}: kernel A or C was not launched")
+        check((ln["subm_match"] > 0) == (run != "pyramid"),
+              f"{path}: kernel B launches {ln['subm_match']}")
+    t0 = time.perf_counter()
+    cuda_lib.reset_launches()
+    failures = bench.parity(cfg, scenes[0], dev)
+    torch.cuda.synchronize()
+    launches["bench_parity"] = dict(cuda_lib.launches)
+    check(not failures, f"bench twin --parity: {failures}")
+    for k in ("gather_conv", "subm_match", "multi_match"):
+        check(launches["bench_parity"][k] > 0, f"bench_parity: kernel {k} "
+              "was not launched")
+    print(f"bench twin --parity ({time.perf_counter() - t0:.1f} s): "
+          f"{json.dumps({'parity': 'OK'})}, launches "
+          f"{json.dumps(launches['bench_parity'])}")
+
+    # ---- train_bench at gen_config() -----------------------------------
+    gcfg = gen_config()
+    gscene = synthetic_varied_building(
+        seed=0, num_points=35_000, classes=gcfg.classes,
+        voxel_scale=gcfg.sparse3d.voxel_scale)
+    t0 = time.perf_counter()
+    cuda_lib.reset_launches()
+    r = train_bench.run(gcfg, gscene, dev, iters=1)
+    launches["train_bench"] = dict(cuda_lib.launches)
+    for k in ("gather_conv", "gather_conv_dfeats", "gather_conv_dw",
+              "subm_match", "rotated_iou"):
+        check(launches["train_bench"][k] > 0, f"train_bench: kernel {k} "
+              "was not launched")
+    check(all(np.isfinite(r["losses"])) and r["first_ok"],
+          f"train_bench: losses {r['losses']}")
+    check(_finite_positive(r["device_s_per_step"])
+          and _share(r["idle_share"]), "train_bench: device fields")
+    print(f"train_bench gen ({time.perf_counter() - t0:.1f} s): "
+          + json.dumps({**r, "launches": launches["train_bench"]}))
+
+    # ---- profile_inference at full width -------------------------------
+    t0 = time.perf_counter()
+    cuda_lib.reset_launches()
+    rows, outs = profile_inference.profile(cfg, model, scenes[0], dev,
+                                           iters=TOOLS_PROFILE_ROUNDS)
+    launches["profile_inference"] = dict(cuda_lib.launches)
+    for row in rows:
+        check(row["s"] > 0 and row["stage_s"] > 0,
+              f"profile_inference: stage {row}")
+        check(_finite_positive(row["busy_ms"]) and _share(row["idle_share"]),
+              f"profile_inference: device fields {row}")
+    with torch.inference_mode():
+        want, _ = make_predict_fn(cfg, model, dev)(pad_scene(cfg, scenes[0]))
+    d, off = _rows_close(valid_rows(outs["full"][0]), valid_rows(want), 1e-6)
+    check(off == 0, f"profile_inference: the full prefix differs from "
+          f"make_predict_fn by {d} in {off} detections")
+    for k in ("gather_conv", "subm_match", "rotated_iou"):
+        check(launches["profile_inference"][k] > 0, f"profile_inference: "
+              f"kernel {k} was not launched")
+    print(f"profile_inference ({time.perf_counter() - t0:.1f} s): "
+          + json.dumps({"stages": rows, "full_vs_predict_max_abs": d,
+                        "launches": launches["profile_inference"]}))
+
+    # ---- diag_anchor_coverage on the card and on the CPU ---------------
+    t0 = time.perf_counter()
+    cuda_lib.reset_launches()
+    pc_card = diag_anchor_coverage.coverage(gcfg, [gscene], dev)
+    launches["diag"] = dict(cuda_lib.launches)
+    t_card = time.perf_counter() - t0
+    check(launches["diag"]["rotated_iou"] > 0, "diag: kernel C was not "
+          "launched")
+    t0 = time.perf_counter()
+    pc_cpu = diag_anchor_coverage.coverage(gcfg, [gscene], "cpu")
+    t_cpu = time.perf_counter() - t0
+    excepted = _diag_card_vs_cpu(gcfg, gscene, dev, pc_card, pc_cpu)
+    best_diff = max(float(np.abs(np.subtract(pc_card[c]["best"],
+                                             pc_cpu[c]["best"])).max(
+                                                 initial=0.0))
+                    for c in pc_card)
+    print("diag_anchor_coverage seed 0: " + json.dumps(
+        {"card": {c: {k: v for k, v in st.items() if k != "best"}
+                  for c, st in pc_card.items()},
+         "excepted": len(excepted), "best_max_abs_card_vs_cpu": best_diff,
+         "card_s": t_card, "cpu_s": t_cpu, "launches": launches["diag"]}))
+
+    # ---- clean_models over model_*.pt files ----------------------------
+    root = cuda_lib.BUILD_DIR / "clean_models_smoke"     # gitignored, removed
+    run_dir = root / "run_a"
+    run_dir.mkdir(parents=True, exist_ok=True)
+    for stem in ("model_0000100", "model_0000200", "model_0000300",
+                 "model_final", "model_min_loss"):
+        torch.save({"step": stem}, run_dir / f"{stem}.pt")
+    (run_dir / "last_checkpoint").write_text("model_0000200.pt")
+    (run_dir / "log.txt").write_text("log\n")
+    check(clean_models.main([str(root / "run_*")]) == 0, "clean_models")
+    left = sorted(p.name for p in run_dir.iterdir())
+    shutil.rmtree(root, ignore_errors=True)
+    check(left == ["_log.txt", "last_checkpoint", "log.txt",
+                   "model_0000200.pt", "model_final.pt",
+                   "model_min_loss.pt"], f"clean_models left {left}")
+    print(f"clean_models: kept {json.dumps(left)}")
+    del model
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3797,9 +3998,7 @@ def main():
           f"{time.perf_counter() - t0:.3f} s total): "
           + json.dumps({k: round(v, 4) for k, v in phases.seconds.items()}))
     prof = device_profile(predict, pad_scene(cfg, scenes[-1]))
-    print("device profile of one more building: "
-          + ("not measured (the profiler recorded no device activity)"
-             if prof is None else json.dumps(prof)))
+    print("device profile of one more building: " + json.dumps(_brief(prof)))
     gather_conv_serving_shapes(predict, pad_scene(cfg, scenes[-1]))
     del model, predict
     torch.cuda.empty_cache()
@@ -3857,6 +4056,12 @@ def main():
     api = api_path(cfg, scenes[0], dev)
     print(f"api phase: {time.perf_counter() - t0:.1f} s")
 
+    # ---- the repo-level tools' twins ------------------------------------
+    t0 = time.perf_counter()
+    tools = tools_path(cfg, scenes, dev)
+    torch.cuda.empty_cache()
+    print(f"tools phase: {time.perf_counter() - t0:.1f} s")
+
     # ---- kernel D's own entry points ------------------------------------
     match = match_path(cfg, scenes[0], dev)
 
@@ -3909,7 +4114,9 @@ def main():
                                     in zoo.items()},
                                  "dataprep": dataprep[name],
                                  **{path: counts[name] for path, counts
-                                    in api.items()}},
+                                    in api.items()},
+                                 **{path: counts[name] for path, counts
+                                    in tools.items()}},
             "max_abs_err": rep["max_abs_err"], "ms": rep["ms"],
             "plain_ms": rep["plain_ms"], "bound_ms": rep["bound_ms"],
             "bound_by": rep["bound_by"],

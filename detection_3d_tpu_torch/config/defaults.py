@@ -365,3 +365,31 @@ def full_scale_config() -> Config:
             max_gt=512,
             dense_grid_max_entries=1 << 28),
     )
+
+
+def small_config() -> Config:
+    """The reduced 6-class config of the JAX package's ``bench.py --small``
+    (a 1024 x 1024 x 256 grid, 7 scales, 120k input points); the same
+    values as ``small_config`` there."""
+    return Config(
+        classes=("background", "wall", "door", "window", "ceiling", "floor"),
+        sparse3d=Sparse3DConfig(
+            voxel_scale=50,
+            voxel_full_scale=(1024, 1024, 256),
+            nplanes_front=(32, 64, 64, 128, 128, 128, 256),
+            kernels=((2, 2, 2),) * 6,
+            strides=((2, 2, 2),) * 6,
+        ),
+        rpn=RPNConfig(
+            rpn_scales_from_top=(4, 3, 2),
+            rpn_3d_2d_selector=(1, 3, 4, 5),
+            anchor_sizes_3d=((0.4, 1.5, 1.5), (0.2, 0.5, 3), (0.4, 1.5, 3),
+                             (0.6, 2.5, 3)),
+            use_yaws=(1, 1, 1, 1),
+        ),
+        caps=CapacityConfig(
+            max_points=120_000,
+            voxel_caps=(65536, 32768, 16384, 8192, 4096, 2048, 1024),
+            max_gt=64,
+            dense_grid_max_entries=1 << 28),
+    )

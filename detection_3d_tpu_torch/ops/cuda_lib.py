@@ -41,6 +41,16 @@ KERNELS = ("gather_conv", "gather_conv_bwd", "subm_match", "rotated_iou",
 # the backward's dFeats, the backward source dW
 COUNTERS = ("gather_conv", "gather_conv_dfeats", "gather_conv_dw",
             "subm_match", "rotated_iou", "multi_match")
+# each counter's kernel symbols in a device trace (kernel A's body runs
+# under the ConvForward and ConvDFeats tags; dW is a partial kernel and
+# its reduction), and the kernel's short name in the tools' reports
+SYMBOLS = {"gather_conv": "ConvForward", "gather_conv_dfeats": "ConvDFeats",
+           "gather_conv_dw": "gather_dw_", "subm_match": "subm_match_",
+           "rotated_iou": "rotated_iou_kernel",
+           "multi_match": "multi_match_kernel"}
+LABELS = {"gather_conv": "A", "gather_conv_dfeats": "dFeats",
+          "gather_conv_dw": "dW", "subm_match": "B", "rotated_iou": "C",
+          "multi_match": "D"}
 # the dynamic shared memory one block may take on an H100 (227 KB):
 # kernel B's wrapper keeps its windows under it
 SHARED_BYTES = 232448

@@ -769,3 +769,62 @@ def test_rotate_nms_3d_card_matches_cpu(dev):
     want, want_count = rotate_nms_3d(*host, 0.3, 400)
     assert int(count) == int(want_count) > 0
     assert torch.equal(keep.cpu(), want)
+
+
+def test_bench_parity_on_a_small_building(dev, capsys):
+    """The bench twin's --parity checks (tools/bench.parity) on a small
+    building: B bit exact against neighbor_indices, A against the plain
+    gather_conv in bf16, the searched books through D bit equal to the
+    scatter books, at three scales; each kernel launched once a scale (D
+    twice)."""
+    from detection_3d_tpu_torch.tools import bench
+    cfg, scene = _tiny_served(0)
+    cuda_lib.reset_launches()
+    assert bench.parity(cfg, scene, dev) == []
+    torch.cuda.synchronize()
+    assert cuda_lib.launches["subm_match"] == 3
+    assert cuda_lib.launches["gather_conv"] == 3
+    assert cuda_lib.launches["multi_match"] == 6
+    assert capsys.readouterr().out.count(": OK") == 12
+
+
+def test_device_activity_counts_overlapping_streams_once(dev):
+    """A pinned host-to-device copy on a side stream beside matmuls on the
+    serving stream: utils/profiling.device_activity's busy time (the
+    union over the streams) lies below the sum of the activities, at or
+    above the longest one, within the span, on two streams."""
+    from detection_3d_tpu_torch.utils.profiling import device_activity
+    host = torch.empty((64 << 20,), dtype=torch.float32).pin_memory()
+    a = torch.randn((4096, 4096), device=dev)
+    side = torch.cuda.Stream(dev)
+
+    def run():
+        with torch.cuda.stream(side):
+            on_card = host.to(dev, non_blocking=True)
+        for _ in range(8):
+            a @ a
+        side.synchronize()
+        return on_card
+
+    run()
+    act = device_activity(run, dev)
+    longest = max(act["by_name_ms"].values())
+    assert act["streams"] >= 2 and act["memcpy_ms"] > 0
+    assert act["busy_ms"] < act["sum_ms"]
+    assert longest <= act["busy_ms"] <= act["span_ms"]
+    assert 0.0 <= act["idle_share"] < 1.0
+    assert act["device"] == torch.cuda.get_device_name(dev)
+
+
+def test_device_activity_names_the_port_kernels(dev):
+    """Kernel A's launches under the profiler show under its counter's
+    symbol and its short name."""
+    from detection_3d_tpu_torch.utils.profiling import device_activity
+    t = _table(dev, 3000, 4096, 9)
+    idx, _ = neighbor_match_3x3x3(t)
+    feats = torch.randn((t.capacity, 32), device=dev)
+    w = torch.randn((27, 32, 32), device=dev)
+    act = device_activity(
+        lambda: gather_conv_cuda(feats, idx, w, t.row_valid), dev)
+    assert act["port_kernels_ms"]["gather_conv"] > 0
+    assert "A" in [label for label, _ in act["top_ms"]]

@@ -64,7 +64,10 @@ def test_every_module_imports_with_jax_blocked():
                 "parallel.mesh", "parallel.spatial", "parallel.checks",
                 "models.factories", "ops.sparse_pool", "data.house_parser",
                 "data.gt_preprocess", "data.depth_render", "data.export",
-                "utils.flops", "utils.profiling", "utils.viz"):
+                "utils.flops", "utils.profiling", "utils.viz",
+                "tools.bench", "tools.profile_inference",
+                "tools.train_bench", "tools.diag_anchor_coverage",
+                "tools.clean_models", "tools.visualize_scene"):
         assert f"detection_3d_tpu_torch.{mod}" in res.stdout.split(), mod
 
 
@@ -139,6 +142,31 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch, tmp_path):
     monkeypatch.setenv("LOCAL_WORLD_SIZE", "2")
     with pytest.raises(RuntimeError, match="nccl needs one card per rank"):
         rank_device("nccl")
+
+
+def test_tools_need_cuda_unless_cpu_is_asked(monkeypatch, tmp_path):
+    """The repo-level tools' twins and the measurements under them run on
+    the card by default and raise without one; none falls back to the
+    CPU or to a host clock."""
+    from detection_3d_tpu_torch.tools import (
+        bench, diag_anchor_coverage, profile_inference, train_bench)
+    from detection_3d_tpu_torch.utils.device import card_info
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for main in (bench.main, profile_inference.main, train_bench.main):
+        for argv in ([], ["--device", "cuda"]):
+            with pytest.raises(RuntimeError, match="CUDA is not available"):
+                main(argv)
+    for argv in (["--small"], ["--parity"]):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            bench.main(argv)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        diag_anchor_coverage.main(seeds=(0,), verbose=False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        diag_anchor_coverage.cli(["--seeds", "0"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        card_info()
+    assert card_info("cpu") == {"name": "cpu", "power_limit_w": None,
+                                "line": "cpu"}
 
 
 def test_tensor_entry_points_run_where_their_tensors_are(monkeypatch):
