@@ -10,9 +10,10 @@
     python3 chip_smoke.py --overfit      # only the overfit gate with the
                                          # 3G6c groups (4000 steps)
     python3 chip_smoke.py --parallel     # only the multi-device phase (7b)
+    python3 chip_smoke.py --batched      # only the batched-serving phase
 
 1. Prints the card's name and power limit (nvidia-smi).
-2. Builds the port's five CUDA sources from detection_3d_tpu_torch/csrc
+2. Builds the port's six CUDA sources from detection_3d_tpu_torch/csrc
    (one nvcc per source, all started together) and, beside them, the C++
    pyramid packer and scene loader (g++), and prints the build time.
 3. Holds each kernel against its plain PyTorch version on the card, at
@@ -57,6 +58,21 @@
    loop, each within 1e-6 of the sequential packed predict, with
    s/building, timings, idle share, peak memory and launches (A and C
    in every run, B in table mode only).
+4c. Batched serving at full width (this slice's path): 8 buildings of
+   500k points through make_batch_predict_fn (table mode) at B = 1, 2
+   and 4, one forward a unit: each unit's detections within 1e-4 (as
+   sets) of the per-building predict on the card, its launches exactly
+   A 38, B 9, C 2 and E 2 whatever B (counts set to 0 before the unit
+   and read after), its host syncs (torch's sync debug mode; none may
+   remain), busy ms and idle share (utils/profiling.device_activity) and
+   the peak memory; then run_inference(pipelined=True) at each B for
+   s/building and buildings/s. At the B = 4 unit's shapes: A on the flat
+   scale-0 book (f32 bit equal to each building's own call), B over the
+   4 stacked tables (bit exact, and against each table's own launch), C
+   at the unit's two NMS calls (bit exact matrix by matrix) and E, the
+   greedy NMS pass (identical keep sets against the numpy pass, also on
+   2000^2 and 1000^2 cases with ties and an all-invalid matrix), each
+   timed beside its plain version and bound.
 5. Training path at full width: a Trainer on the card takes 6 steps over
    6 such buildings (bf16 compute, SparseRCNN(cfg, seed=0)); checks
    finite losses, applied steps, moved parameters and that A, both A'
@@ -965,7 +981,7 @@ def check_rotated_iou(dev):
     without the same-box fix) and at 2000 x 2000 NMS-like boxes for
     criteria -1/0/1/2; greedy NMS keep sets of both matrices equal. The
     NMS call (criterion -1, same-box fix) is timed."""
-    from detection_3d_tpu_torch.ops.nms import greedy_suppress
+    from detection_3d_tpu_torch.ops.nms import greedy_plain
     from detection_3d_tpu_torch.ops.rotated_iou import (
         iou_may_meet, rotated_iou_cuda, rotated_iou_plain, z_interval_iou)
     sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
@@ -995,12 +1011,14 @@ def check_rotated_iou(dev):
         if crit == -1:
             iouz = z_interval_iou(boxes[:, [2, 5]], boxes[:, [2, 5]])
             valid = torch.ones(n, dtype=torch.bool, device=dev)
-            k_keep = greedy_suppress(got * iouz > 0.5, valid, 1000)
-            p_keep = greedy_suppress(want * iouz > 0.5, valid, 1000)
+            k_keep = greedy_plain((got * iouz > 0.5)[None], valid[None],
+                                  1000)
+            p_keep = greedy_plain((want * iouz > 0.5)[None], valid[None],
+                                  1000)
             check(torch.equal(k_keep[0], p_keep[0]),
                   "kernel C: NMS keep sets differ from the plain version")
             t0 = time.perf_counter()
-            greedy_suppress(got * iouz > 0.5, valid, 1000)
+            greedy_plain((got * iouz > 0.5)[None], valid[None], 1000)
             greedy_ms = (time.perf_counter() - t0) * 1e3
             ms = time_ms(lambda: rotated_iou_cuda(bev, bev, crit, True))
             plain = time_ms(lambda: rotated_iou_plain(bev, bev, crit, True),
@@ -1011,7 +1029,7 @@ def check_rotated_iou(dev):
                                SCALAR_OPS)
             all_ms, _ = bound(nbytes, float(IOU_OPS_PER_PAIR) * n * n,
                               SCALAR_OPS)
-            report = {"N": n, "K": n, "kept": int(k_keep[1]), "ms": ms,
+            report = {"N": n, "K": n, "kept": int(k_keep[1][0]), "ms": ms,
                       "plain_ms": plain, "pairs_meeting": meeting,
                       "pairs_may_meet": int(iou_may_meet(bev, bev).sum()),
                       "bound_ms": b_ms, "bound_by": b_by,
@@ -1063,6 +1081,10 @@ def check_rotated_iou_training(calls, cols=4096):
 
     line = {}
     for boxes, query, crit, fix in calls:
+        if boxes.dim() == 3:     # the NMS, a batch of one building's
+            check(boxes.shape[0] == 1, f"kernel C: a training step's NMS "
+                  f"holds {boxes.shape[0]} matrices")
+            boxes, query = boxes[0], query[0]
         n, k = boxes.shape[0], query.shape[0]
         name = ("rpn_targets" if crit == 2 else "nms" if n == k
                 else "roi_targets")
@@ -3886,6 +3908,354 @@ def tools_path(cfg, scenes, dev):
     return launches
 
 
+BATCH_BUILDINGS = 8      # the batched-serving phase's buildings
+BATCH_SIZES = (1, 2, 4)
+# every unit's launches in table mode at full_scale_config, whatever B:
+# A for the 38 convs of the forward, B for its 9 scales, C and E for the
+# RPN's NMS and the ROI postprocess's (one batch each)
+UNIT_LAUNCHES = {"gather_conv": 38, "subm_match": 9, "rotated_iou": 2,
+                 "greedy_nms": 2}
+UNIT_SET_TOL = 1e-4      # a unit's detections against per-building ones
+
+
+def _capture(module, name, fn):
+    """Runs ``fn`` with ``module.name`` wrapped to keep the positional
+    arguments of each call; returns them."""
+    calls, orig = [], getattr(module, name)
+
+    def recorder(*args, **kw):
+        calls.append(args)
+        return orig(*args, **kw)
+
+    setattr(module, name, recorder)
+    try:
+        fn()
+    finally:
+        setattr(module, name, orig)
+    return calls
+
+
+def _set_err(got, want):
+    """Max abs err of two (K, 10) detection sets (valid rows sorted by
+    label, score), or inf when their sizes or labels differ."""
+    a, b = (valid_rows(torch.as_tensor(x)) for x in (got, want))
+    if a.shape != b.shape or not np.array_equal(a[:, 8], b[:, 8]):
+        return float("inf")
+    return float(np.abs(a[:, :8] - b[:, :8]).max(initial=0.0))
+
+
+def _unit_syncs(fn):
+    """The host syncs ``fn`` makes: torch's sync debug mode in "warn",
+    each as the innermost "file:line" of this repository on the stack."""
+    import traceback
+    import warnings
+    root = str(Path(__file__).resolve().parent) + "/"
+    seen = []
+
+    def show(message, *args, **kw):
+        if "synchroniz" in str(message):
+            stack = traceback.extract_stack()[:-1]
+            here = [f"{f.filename[len(root):]}:{f.lineno}" for f in stack
+                    if f.filename.startswith(root)
+                    and not f.filename.endswith("chip_smoke.py")]
+            seen.append(here[-1] if here else "outside the package, at "
+                        + " <- ".join(f"{Path(f.filename).name}:{f.lineno}"
+                                      for f in reversed(stack[-4:])))
+
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = show
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return seen
+
+
+def check_kernel_a_unit(dev, table, pyr, gen):
+    """Kernel A on a unit's flat scale-0 submanifold book (B * V rows):
+    against gather_conv in f32 and bf16 (1e-4 / 1e-2 of the largest
+    output), f32 bit equal to each building's own call on its own book
+    and row order, bf16's difference to them reported; timed, with
+    :func:`conv_bound`. Returns the bf16 line."""
+    from detection_3d_tpu_torch.ops.sparse import neighbor_match_3x3x3
+    from detection_3d_tpu_torch.ops.sparse_conv import (
+        gather_conv, gather_conv_cuda, masks_row_order)
+    nb, v = table.units, table.capacity
+    idx, order = pyr["subm_idx"][0], pyr["subm_order"][0]
+    valid = table.row_valid.reshape(-1)
+    singles = [neighbor_match_3x3x3(table.building(b)) for b in range(nb)]
+    line = None
+    for dtype in (torch.float32, torch.bfloat16):
+        feats = (torch.randn((nb * v, 32), generator=gen, device=dev)
+                 * valid[:, None]).to(dtype)
+        w = (torch.randn((27, 32, 32), generator=gen, device=dev)
+             * (2.0 / (27 * 32)) ** 0.5).to(dtype)
+        got = gather_conv_cuda(feats, idx, w, valid, order)
+        want = gather_conv(feats, idx, w, valid).float()
+        scale = float(want.abs().max())
+        tol = (1e-4 if dtype == torch.float32 else 1e-2) * max(scale, 1.0)
+        err = float((got.float() - want).abs().max())
+        check(err <= tol, f"kernel A unit {dtype}: max abs err {err} > {tol}")
+        alone = 0.0
+        for b, (bidx, masks) in enumerate(singles):
+            rows = slice(b * v, (b + 1) * v)
+            one = gather_conv_cuda(feats[rows], bidx, w, valid[rows],
+                                   masks_row_order(masks))
+            alone = max(alone, float((one.float() - got[rows].float())
+                                     .abs().max()))
+        if dtype == torch.float32:
+            check(alone == 0.0, f"kernel A unit f32: differs from the "
+                  f"buildings' own calls by {alone}")
+        ms = time_ms(lambda: gather_conv_cuda(feats, idx, w, valid, order))
+        plain = time_ms(lambda: gather_conv(feats, idx, w, valid), 3)
+        b_ms, b_by, _ = conv_bound(feats, idx, w, valid)
+        line = {"case": "unit s0 subm 32->32", "dtype": str(dtype)[6:],
+                "B": nb, "K": 27, "V_in": nb * v, "V_out": nb * v,
+                "max_abs_err": err, "tolerance": tol,
+                "max_abs_diff_to_own_calls": alone, "ms": ms,
+                "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": None}
+        print("kernel A unit shape", json.dumps(line))
+    return line
+
+
+def check_kernel_b_unit(table):
+    """Kernel B over a unit's B stacked scale-0 tables in one launch: book
+    and masks bit exact against the plain neighbor_match_columns and
+    against each table's own launch (globalized); timed beside the plain
+    version and ``torch.searchsorted`` over the (B, 27 V) queries
+    (the lower bound only); the bound as :func:`subm_match_shapes`'s."""
+    from detection_3d_tpu_torch.ops import sparse
+    from detection_3d_tpu_torch.ops.coords import composite_key, pack_key
+    nb, v = table.units, table.capacity
+    got, masks = sparse.subm_match_cuda(table)
+    want, want_m = sparse.neighbor_match_columns(table)
+    check(torch.equal(got, want) and torch.equal(masks, want_m),
+          "kernel B unit: book or masks differ from neighbor_match_columns")
+    for b in range(nb):
+        one, m = sparse.subm_match_cuda(table.building(b))
+        glob = torch.where(one < v, one + b * v, nb * v)
+        check(torch.equal(got[:, b * v:(b + 1) * v], glob)
+              and torch.equal(masks[b * v:(b + 1) * v], m),
+              f"kernel B unit: building {b} differs from its own launch")
+    offs = sparse.submanifold_offsets((3, 3, 3))
+    deltas = torch.tensor([[a, b, c, 0] for a, b, c in offs],
+                          dtype=torch.int32, device=table.device)
+    q = composite_key(*pack_key(
+        table.coords[:, None] + deltas[None, :, None],
+        table.spatial_size, table.row_valid[:, None, :])).reshape(nb, -1)
+    searches = 0
+    size = torch.tensor(table.spatial_size, device=table.device)
+    for b in range(nb):
+        c = table.coords[b, :int(table.num[b]), :3]
+        searches += sum(int(((c + d[:3] >= 0) & (c + d[:3] < size))
+                            .all(1).sum()) for d in deltas)
+    probes = max(1, (v - 1).bit_length()) + 1
+    nbytes = nb * (v * 8 + v * 16 + 4 + 27 * v * 4 + v * 8)
+    b_ms, b_by = bound(nbytes, 4.0 * probes * searches, SCALAR_OPS)
+    line = {"B": nb, "V": v, "num": [int(n) for n in table.num],
+            "ms": time_ms(lambda: sparse.subm_match_cuda(table)),
+            "device_ms": device_ms(lambda: sparse.subm_match_cuda(table),
+                                   ("subm_match_",)),
+            "plain_ms": time_ms(lambda: sparse.neighbor_match_columns(table),
+                                2),
+            "library_ms": time_ms(lambda: torch.searchsorted(table.keys, q)),
+            "bound_ms": b_ms, "bound_by": b_by, "searches": searches,
+            "max_abs_err": 0.0, "tolerance": "bit exact"}
+    print("kernel B unit shape", json.dumps(line))
+    return line
+
+
+def check_kernel_c_unit(calls):
+    """Kernel C at a unit's calls (its RPN NMS, G = B, and its ROI
+    postprocess's, G = B * (classes - 1)), on the inputs the unit gave
+    it: bit exact against rotated_iou_plain matrix by matrix; timed, the
+    plain version matrix by matrix; the bound counts the pairs whose
+    plain intersection is > 0 (the kernel culls the others)."""
+    from detection_3d_tpu_torch.ops.rotated_iou import (
+        rotated_iou_cuda, rotated_iou_plain)
+    lines = []
+    for boxes, query, crit, fix in calls:
+        g, n, k = boxes.shape[0], boxes.shape[1], query.shape[1]
+        full = rotated_iou_cuda(boxes, query, crit, fix)
+        err, meeting = 0.0, 0
+        for m in range(g):
+            err = max(err, _hold_c(f"unit matrix {m} of {g}", full[m],
+                                   rotated_iou_plain(boxes[m], query[m],
+                                                     crit, fix)))
+            meeting += int((rotated_iou_plain(boxes[m], query[m], 3) > 0)
+                           .sum())
+        nbytes = g * (5 * 4 * (n + k) + n * k * 4)
+        b_ms, b_by = bound(nbytes, float(IOU_OPS_PER_PAIR) * meeting,
+                           SCALAR_OPS)
+        line = {"G": g, "N": n, "K": k, "criterion": crit,
+                "ms": time_ms(lambda: rotated_iou_cuda(boxes, query, crit,
+                                                       fix)),
+                "plain_ms": time_ms(lambda: [
+                    rotated_iou_plain(boxes[m], query[m], crit, fix)
+                    for m in range(g)], 1),
+                "pairs_meeting": meeting, "bound_ms": b_ms,
+                "bound_by": b_by, "library_ms": None, "max_abs_err": err,
+                "tolerance": "bit exact"}
+        print("kernel C unit shape", json.dumps(line))
+        lines.append(line)
+    return lines
+
+
+def _greedy_cases(dev):
+    """(G, N, N) overlap matrices with ties (equal rows, a block of
+    overlaps) and an all-invalid matrix, at N = 2000 and 1000."""
+    out = []
+    for n, g in ((2000, 2), (1000, 5)):
+        rng = np.random.RandomState(n)
+        over = rng.rand(g, n, n) > 0.97
+        over[:, :, :16] = True
+        over[:, 7] = over[:, 9]
+        valid = rng.rand(g, n) > 0.1
+        valid[-1] = False
+        out.append((torch.from_numpy(over).to(dev),
+                    torch.from_numpy(valid).to(dev), n // 2))
+    return out
+
+
+def check_kernel_e(calls, dev):
+    """Kernel E against the plain greedy pass (numpy on the host): keep
+    positions and counts identical at a unit's calls and at the cases of
+    :func:`_greedy_cases`; each call timed. The bound is the bytes: the
+    (G, N, N) bools and validity read once, the keep positions and counts
+    written once."""
+    from detection_3d_tpu_torch.ops.nms import greedy_cuda, greedy_plain
+    lines = []
+    cases = [(a, "unit") for a in calls] + [
+        (a, "ties") for a in _greedy_cases(dev)]
+    for (over, valid, post), what in cases:
+        g, n = valid.shape
+        k, c = greedy_cuda(over, valid, post)
+        pk, pc = greedy_plain(over, valid, post)
+        check(torch.equal(k, pk) and torch.equal(c, pc),
+              f"kernel E ({what}, G={g}, N={n}): keep sets differ from "
+              "the plain greedy pass")
+        nbytes = g * n * n + g * n + g * post * 4 + g * 4
+        b_ms, b_by = bound(nbytes, float(g) * n * (n // 32 + 1), SCALAR_OPS)
+        line = {"case": what, "G": g, "N": n, "post": post,
+                "kept": [int(x) for x in c],
+                "ms": time_ms(lambda: greedy_cuda(over, valid, post)),
+                "plain_ms": time_ms(lambda: greedy_plain(over, valid, post),
+                                    2),
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                "max_abs_err": 0.0, "tolerance": "identical keep sets"}
+        print("kernel E shape", json.dumps(line))
+        lines.append(line)
+    return lines
+
+
+def batched_path(cfg, scenes, dev, gen):
+    """Batched serving at full width: make_batch_predict_fn (table mode)
+    over BATCH_BUILDINGS buildings at each of BATCH_SIZES, one forward a
+    unit. Each unit within UNIT_SET_TOL (as sets) of the per-building
+    predict on the card, its launches exactly UNIT_LAUNCHES (counts set
+    to 0 before the unit and read after), no host sync (torch's sync
+    debug mode), busy ms and idle share (utils/profiling.device_activity)
+    and the peak memory; the pipelined stream's s/building and
+    buildings/s at each B (run_inference(pipelined=True)); kernels A, B,
+    C and E held at the B = 4 unit's shapes. Returns ({path: launches},
+    {kernel: report})."""
+    from detection_3d_tpu_torch.data.native_packer import pack_table_native
+    from detection_3d_tpu_torch.data.packing import to_device, unpack_table
+    from detection_3d_tpu_torch.engine.inference import (
+        make_batch_predict_fn, make_predict_fn, run_inference)
+    from detection_3d_tpu_torch.models.backbone import build_pyramid
+    from detection_3d_tpu_torch.models.detector import SparseRCNN
+    from detection_3d_tpu_torch.ops import cuda_lib, nms
+    from detection_3d_tpu_torch.utils.profiling import device_activity
+    scenes = scenes[:BATCH_BUILDINGS]
+    check(len(scenes) == BATCH_BUILDINGS, "batched phase: too few buildings")
+    model = SparseRCNN(cfg, seed=0).to(dev).eval()
+    packs = [pack_table_native(cfg, s) for s in scenes]
+    one = make_predict_fn(cfg, model, dev, packed="table")
+    with torch.inference_mode():
+        singles = [tuple(t.cpu().numpy() for t in one(p)) for p in packs]
+    launches, lines = {}, []
+    for bs in BATCH_SIZES:
+        predict = make_batch_predict_fn(cfg, model, dev, packed="table")
+        units = [list(range(i, i + bs)) for i in range(0, len(packs), bs)]
+        torch.cuda.reset_peak_memory_stats()
+        err = 0.0
+        for ui, unit in enumerate(units):
+            batch = to_device({k: np.stack([packs[i][k] for i in unit])
+                               for k in packs[0]}, dev)
+            torch.cuda.synchronize()
+            cuda_lib.reset_launches()
+            out, true_num = predict(batch)
+            ln = dict(cuda_lib.launches)
+            out, true_num = out.cpu().numpy(), true_num.cpu().numpy()
+            for name, n in UNIT_LAUNCHES.items():
+                check(ln[name] == n, f"batched B={bs} unit {ui}: kernel "
+                      f"{name} launched {ln[name]} times, not {n}")
+            for b, i in enumerate(unit):
+                check(int(true_num[b]) == int(singles[i][1]),
+                      f"batched B={bs}: building {i} true_num differs")
+                e = _set_err(out[b], singles[i][0])
+                check(e <= UNIT_SET_TOL, f"batched B={bs}: building {i} "
+                      f"differs from its own predict by {e}")
+                err = max(err, e)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        syncs = _unit_syncs(lambda: predict(batch))
+        check(not syncs, f"batched B={bs}: a unit waits for the card at "
+              f"{syncs}")
+        act = device_activity(lambda: predict(batch)[0].cpu(), dev)
+        cuda_lib.reset_launches()
+        preds, _, sec = run_inference(
+            cfg, model, scenes, device=dev, pipelined=True, pack_workers=2,
+            pack_mode="table", batch_size=bs)
+        launches[f"batched_B{bs}"] = dict(cuda_lib.launches)
+        for i, p in enumerate(preds):
+            e = _set_err(np.c_[p["boxes"], p["scores"], p["labels"],
+                               np.ones(len(p["scores"]))],
+                         singles[i][0])
+            check(e <= UNIT_SET_TOL, f"batched stream B={bs}: building {i} "
+                  f"differs from its own predict by {e}")
+        line = {"B": bs, "units": len(units), "s_per_building": sec,
+                "buildings_per_s": 1.0 / sec, "unit_busy_ms": act["busy_ms"],
+                "unit_span_ms": act["span_ms"],
+                "unit_idle_share": act["idle_share"],
+                "launches_per_unit": {k: ln[k] for k in UNIT_LAUNCHES},
+                "syncs_per_unit": len(syncs), "syncs": sorted(set(syncs)),
+                "peak_gib": peak, "max_abs_err_vs_own_predict": err,
+                "tolerance": UNIT_SET_TOL}
+        print("batched serving:", json.dumps(line))
+        lines.append(line)
+    base = lines[0]["buildings_per_s"]
+    print("batched serving summary: " + json.dumps(
+        {f"B{ln['B']}": {"buildings_per_s": ln["buildings_per_s"],
+                         "vs_B1": ln["buildings_per_s"] / base}
+         for ln in lines}))
+    # the kernels at the B = 4 unit's shapes
+    bs = BATCH_SIZES[-1]
+    batch = to_device({k: np.stack([packs[i][k] for i in range(bs)])
+                       for k in packs[0]}, dev)
+    predict = make_batch_predict_fn(cfg, model, dev, packed="table")
+    reports = {}
+    with torch.inference_mode():
+        iou_calls = capture_iou_calls(lambda: predict(batch))
+        greedy_calls = _capture(nms, "greedy_cuda", lambda: predict(batch))
+        table = unpack_table(cfg, batch)
+        pyr = build_pyramid(table, cfg)
+        reports["gather_conv"] = check_kernel_a_unit(dev, table, pyr, gen)
+        reports["subm_match"] = check_kernel_b_unit(table)
+        reports["rotated_iou"] = check_kernel_c_unit(iou_calls)
+        reports["greedy_nms"] = check_kernel_e(greedy_calls, dev)
+        del pyr, table
+    check(len(iou_calls) == 2 and len(greedy_calls) == 2,
+          f"batched B={bs}: {len(iou_calls)} C and {len(greedy_calls)} E "
+          "calls in a unit")
+    del model
+    torch.cuda.empty_cache()
+    return launches, reports, lines
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3934,7 +4304,8 @@ def main():
     scenes = [synthetic_multiroom(seed=100 + i, num_points=POINTS,
                                   rooms_xy=(5, 5), room=8.0,
                                   voxel_scale=cfg.sparse3d.voxel_scale)
-              for i in range(max(BUILDINGS, TRAIN_STEPS) + 1)]
+              for i in range(max(BUILDINGS, TRAIN_STEPS + 1,
+                                 BATCH_BUILDINGS))]
     print(f"generated {len(scenes)} buildings in "
           f"{time.perf_counter() - t0:.1f} s")
 
@@ -4008,6 +4379,11 @@ def main():
     packed_launches, _ = packed_serving_path(cfg, scenes, dev)
     torch.cuda.empty_cache()
     print(f"packed serving phase: {time.perf_counter() - t0:.1f} s")
+
+    # ---- one forward over a unit of B buildings (this slice's path) -----
+    t0 = time.perf_counter()
+    batched, rep_unit, _ = batched_path(cfg, scenes, dev, gen)
+    print(f"batched serving phase: {time.perf_counter() - t0:.1f} s")
 
     # ---- the training path at full width --------------------------------
     train, rep_train, rep_bwd, iou_calls = train_path(cfg, scenes, dev)
@@ -4091,7 +4467,9 @@ def main():
             ("rotated_iou", "rotated_iou.cu",
              pg + "rotated_iou_kernel.py:196", rep_c, train),
             ("multi_match", "multi_match.cu", pg + "match_kernel.py:399",
-             rep_d, par_launches["sp_serve_rank0"])]
+             rep_d, par_launches["sp_serve_rank0"]),
+            ("greedy_nms", "greedy_nms.cu", "detection_3d_tpu/ops/nms.py:39",
+             rep_unit["greedy_nms"][0], batched[f"batched_B{BATCH_SIZES[-1]}"])]
     kernels = []
     for name, src, replaces, rep, path in spec:
         kernels.append({
@@ -4116,7 +4494,9 @@ def main():
                                  **{path: counts[name] for path, counts
                                     in api.items()},
                                  **{path: counts[name] for path, counts
-                                    in tools.items()}},
+                                    in tools.items()},
+                                 **{path: counts[name] for path, counts
+                                    in batched.items()}},
             "max_abs_err": rep["max_abs_err"], "ms": rep["ms"],
             "plain_ms": rep["plain_ms"], "bound_ms": rep["bound_ms"],
             "bound_by": rep["bound_by"],
@@ -4129,6 +4509,8 @@ def main():
                 "lower bound only")
         if name == "subm_match":   # the sums over the 9 tables of a building
             kernels[-1].update(rep_b_sum)
+        if name in rep_unit:       # at the shapes of a unit of buildings
+            kernels[-1]["unit_shapes"] = rep_unit[name]
         if name == "multi_match":  # the sums over the 16 books of a pyramid
             kernels[-1].update(rep_d_sum)
             # and over the 16 books of a spatial shard's pyramid (rank 0)
@@ -4293,8 +4675,45 @@ def parallel_main():
     return 0
 
 
+def batched_main():
+    """``--batched``: only the batched-serving phase (:func:`batched_path`)
+    at full width, after building the kernels; prints the card line and
+    the ok line as the whole run does."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    from detection_3d_tpu_torch.config.defaults import full_scale_config
+    from detection_3d_tpu_torch.data import native_packer
+    from detection_3d_tpu_torch.data.synthetic import synthetic_multiroom
+    from detection_3d_tpu_torch.ops import cuda_lib
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"card: {card_line()}")
+    t0 = time.perf_counter()
+    cuda_lib.build()
+    native_packer.library()
+    print(f"build: {time.perf_counter() - t0:.1f} s")
+    cfg = full_scale_config()
+    dev = torch.device("cuda")
+    scenes = [synthetic_multiroom(seed=100 + i, num_points=POINTS,
+                                  rooms_xy=(5, 5), room=8.0,
+                                  voxel_scale=cfg.sparse3d.voxel_scale)
+              for i in range(BATCH_BUILDINGS)]
+    t0 = time.perf_counter()
+    launches, _, lines = batched_path(
+        cfg, scenes, dev, torch.Generator(device=dev).manual_seed(0))
+    print(f"batched serving phase: {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"launches_by_path": launches, "batched": lines}))
+    print(card_line())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 MODES = {"--bwd-shapes": bwd_shapes_main, "--compare": compare_main,
-         "--overfit": overfit_main, "--parallel": parallel_main}
+         "--overfit": overfit_main, "--parallel": parallel_main,
+         "--batched": batched_main}
 
 if __name__ == "__main__":
     if len(sys.argv) > 2 or sys.argv[1:] and sys.argv[1] not in MODES:

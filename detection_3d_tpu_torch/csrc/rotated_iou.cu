@@ -48,6 +48,10 @@
 //     key, so a valid vertex's rank changes only when its own key is 1e9
 //     (it then counts the invalid candidates before it, added back
 //     here), and an invalid candidate adds 0 to the shoelace sum.
+//   * batch: G matrices of the same (N, K) in one launch (grid axis z),
+//     (G, N, 5) x (G, K, 5) -> (G, N, K). Matrix g reads only its own
+//     boxes, with its own cull, so it is bit equal to its own call; the
+//     NMS of a unit's buildings, and of their classes, is one launch.
 // The kernel allocates nothing and launches on the caller's stream.
 
 #include <cuda_runtime.h>
@@ -272,6 +276,10 @@ rotated_iou_kernel(const float* __restrict__ boxes,
                    float* __restrict__ out) {
   __shared__ float tgt[kMaxChunk * kStride];
 
+  // matrix blockIdx.z of the batch
+  boxes += (size_t)blockIdx.z * n * 5;
+  query += (size_t)blockIdx.z * k * 5;
+  out += (size_t)blockIdx.z * n * k;
   const int j = blockIdx.x * kThreads + threadIdx.x;
   const bool live = j < k;
   float g[kStride];
@@ -314,18 +322,21 @@ rotated_iou_kernel(const float* __restrict__ boxes,
 
 }  // namespace
 
-extern "C" int rotated_iou_matrix(const void* boxes, const void* query, int n,
-                                  int k, int criterion, int same_box_fix,
-                                  void* out, void* stream) {
+extern "C" int rotated_iou_matrix(const void* boxes, const void* query, int g,
+                                  int n, int k, int criterion,
+                                  int same_box_fix, void* out, void* stream) {
   // one query per thread; targets in chunks staged in shared memory,
   // sized so that the grid holds about kTargetBlocks blocks
+  if (g < 1 || g > 65535 || n < 1 || k < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   const long long cols = (k + kThreads - 1) / kThreads;
-  long long chunk = (static_cast<long long>(n) * cols + kTargetBlocks - 1) /
-                    kTargetBlocks;
+  long long chunk = (static_cast<long long>(n) * cols * g + kTargetBlocks -
+                     1) / kTargetBlocks;
   chunk = chunk < 1 ? 1 : (chunk > kMaxChunk ? kMaxChunk : chunk);
   long long rows = (n + chunk - 1) / chunk;
   rows = rows > 65535 ? 65535 : rows;
-  dim3 grid(static_cast<unsigned>(cols), static_cast<unsigned>(rows));
+  dim3 grid(static_cast<unsigned>(cols), static_cast<unsigned>(rows),
+            static_cast<unsigned>(g));
   rotated_iou_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(boxes), static_cast<const float*>(query), n,
       k, criterion, same_box_fix, static_cast<int>(chunk),

@@ -12,6 +12,12 @@
 //   num (1,) int32 active rows; out (27, V) int32, masks (V,) int64 (the
 //   row masks of ops/sparse_conv.row_masks). Offset k walks dx outer,
 //   dy, dz inner (ops/sparse.submanifold_offsets order).
+//   A unit of B buildings (the batched forward) passes B stacked tables:
+//   keys (B, V), coords (B, V, 4), num (B,). Grid axis y is the
+//   building: block (tile, b) searches table b alone, with its own num
+//   and windows, and writes the flat book out (27, B * V) whose entries
+//   are global rows (row + b * V) and whose pad is B * V, and masks
+//   (B * V,). B = 1 is one building's book.
 //
 // What bounds it on an H100: the (27, V) int32 output write (56.6 MB at
 // V = 524288) and the key reads, ~0.02 ms. A search per (site, offset)
@@ -140,6 +146,15 @@ subm_match_windows(const long long* __restrict__ keys,
                    long long* __restrict__ masks) {
   extern __shared__ long long win[];    // windows dx = -1, 0, +1
   __shared__ int w_lo[3], w_end[3];
+  // building b's table, and its block of the flat book
+  const int b = blockIdx.y;
+  const size_t stride = (size_t)gridDim.y * v;
+  const int row0 = b * v, pad = (int)stride;
+  keys += row0;
+  coords += row0;
+  num_ptr += b;
+  out += row0;
+  masks += row0;
   const int first = blockIdx.x * kThreads;
   const int i = first + threadIdx.x;
   const int end = min(first + kThreads, v);
@@ -152,7 +167,7 @@ subm_match_windows(const long long* __restrict__ keys,
   const int num = min(*num_ptr, v);
   if (first >= num) {                   // a block of pad rows only
     if (i < v) {
-      for (int k = 0; k < 27; ++k) out[(size_t)k * v + i] = v;
+      for (int k = 0; k < 27; ++k) out[k * stride + i] = pad;
       masks[i] = 0;
     }
     return;
@@ -219,7 +234,7 @@ subm_match_windows(const long long* __restrict__ keys,
   long long mask = 0;
 #pragma unroll
   for (int k = 0; k < 27; ++k) {
-    out[(size_t)k * v + i] = r[k];
+    out[k * stride + i] = r[k] < v ? r[k] + row0 : pad;
     if (r[k] < v) mask |= 1LL << k;
   }
   masks[i] = mask;
@@ -233,6 +248,14 @@ subm_match_table(const long long* __restrict__ keys,
                  const int* __restrict__ num_ptr, int v, int X, int Y, int Z,
                  int* __restrict__ out, long long* __restrict__ masks) {
   __shared__ int bits[kThreads];
+  const int b = blockIdx.y;
+  const size_t stride = (size_t)gridDim.y * v;
+  const int row0 = b * v, pad = (int)stride;
+  keys += row0;
+  coords += row0;
+  num_ptr += b;
+  out += row0;
+  masks += row0;
   const int s = threadIdx.x & 31, g = threadIdx.x >> 5;
   const int i = blockIdx.x * kTableSites + s;
   const int4 c = i < v ? coords[i] : make_int4(0, 0, 0, -1);
@@ -275,7 +298,8 @@ subm_match_table(const long long* __restrict__ keys,
                     zhi, 0, r);
 #pragma unroll
       for (int dz = 0; dz < 3; ++dz) {
-        out[(size_t)(3 * cidx[m] + dz) * v + i] = r[dz];
+        out[(3 * cidx[m] + dz) * stride + i] = r[dz] < v ? r[dz] + row0
+                                                          : pad;
         if (r[dz] < v) bit |= 1 << (3 * cidx[m] + dz);
       }
     }
@@ -292,12 +316,13 @@ subm_match_table(const long long* __restrict__ keys,
 
 }  // namespace
 
-// budget >= 1: subm_match_windows with windows of budget rows (3 * budget
-// * 8 bytes of dynamic shared memory per block; a longer window is
-// searched in global memory between its ends); budget 0: subm_match_table.
+// nb stacked tables of v rows (grid axis y). budget >= 1:
+// subm_match_windows with windows of budget rows (3 * budget * 8 bytes of
+// dynamic shared memory per block; a longer window is searched in global
+// memory between its ends); budget 0: subm_match_table.
 extern "C" int subm_match_3x3x3(const void* keys, const void* coords,
-                                const void* num, int v, int X, int Y, int Z,
-                                int budget, void* out, void* masks,
+                                const void* num, int nb, int v, int X, int Y,
+                                int Z, int budget, void* out, void* masks,
                                 void* stream) {
   const auto k = static_cast<const long long*>(keys);
   const auto c = static_cast<const int4*>(coords);
@@ -305,10 +330,12 @@ extern "C" int subm_match_3x3x3(const void* keys, const void* coords,
   const auto o = static_cast<int*>(out);
   const auto m = static_cast<long long*>(masks);
   const auto st = static_cast<cudaStream_t>(stream);
-  if (budget < 0 || v < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (budget < 0 || v < 1 || nb < 1 || nb > 65535 ||
+      (long long)nb * v > 0x7FFFFFFFLL)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (budget == 0) {
-    subm_match_table<<<(v + kTableSites - 1) / kTableSites, kThreads, 0, st>>>(
-        k, c, n, v, X, Y, Z, o, m);
+    const dim3 grid((v + kTableSites - 1) / kTableSites, nb);
+    subm_match_table<<<grid, kThreads, 0, st>>>(k, c, n, v, X, Y, Z, o, m);
     return static_cast<int>(cudaGetLastError());
   }
   const size_t smem = (size_t)3 * budget * sizeof(long long);
@@ -318,8 +345,9 @@ extern "C" int subm_match_3x3x3(const void* keys, const void* coords,
         (int)smem);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  subm_match_windows<<<(v + kThreads - 1) / kThreads, kThreads, smem, st>>>(
-      k, c, n, v, X, Y, Z, budget, o, m);
+  const dim3 grid((v + kThreads - 1) / kThreads, nb);
+  subm_match_windows<<<grid, kThreads, smem, st>>>(k, c, n, v, X, Y, Z,
+                                                   budget, o, m);
   return static_cast<int>(cudaGetLastError());
 }
 

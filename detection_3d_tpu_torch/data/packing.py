@@ -162,22 +162,26 @@ def device_table(vox, num, spatial, feats=None, true_num=None
                  ) -> SparseTensor:
     """A SparseTensor from (V, 3) unsigned coords whose first ``num`` rows
     are the sorted active voxels of batch 0: the pad rows are re-marked
-    INVALID and the keys rebuilt, elementwise."""
+    INVALID and the keys rebuilt, elementwise. Stacked (B, V, 3) coords
+    and (B,) counts give a unit's stacked tables."""
     vox = vox.to(torch.int32)
-    v = vox.shape[0]
-    rowv = torch.arange(v, device=vox.device) < num
-    coords4 = torch.cat([vox, torch.zeros_like(vox[:, :1])], -1)
-    coords4 = torch.where(rowv[:, None], coords4, INVALID)
+    v = vox.shape[-2]
+    rowv = torch.arange(v, device=vox.device) < num[..., None]
+    coords4 = torch.cat([vox, torch.zeros_like(vox[..., :1])], -1)
+    coords4 = torch.where(rowv[..., None], coords4, INVALID)
     hi, lo = pack_key(coords4, spatial, rowv)
     if feats is None:
-        feats = torch.zeros((v, 0), dtype=torch.float32, device=vox.device)
+        feats = torch.zeros(vox.shape[:-1] + (0,), dtype=torch.float32,
+                            device=vox.device)
     return SparseTensor(coords4, feats, hi, lo, num, spatial, 1,
                         true_num=true_num)
 
 
 def _feats(cfg, xyz, rgb_q, nrm_q, origin):
-    """(n, 9) f32 features from scaled xyz and the quantized channels."""
-    xyz_m = xyz * (1.0 / float(cfg.sparse3d.voxel_scale)) + origin
+    """(..., n, 9) f32 features from scaled xyz and the quantized
+    channels."""
+    xyz_m = xyz * (1.0 / float(cfg.sparse3d.voxel_scale)) \
+        + origin[..., None, :]
     return torch.cat([xyz_m, rgb_q.to(torch.float32) * (1.0 / 255.0),
                       nrm_q.to(torch.float32) * (1.0 / 127.0)], -1)
 
@@ -185,25 +189,29 @@ def _feats(cfg, xyz, rgb_q, nrm_q, origin):
 def unpack_table(cfg, packed) -> SparseTensor:
     """Device side: a :func:`pack_table` dict (tensors) -> the scale-0
     SparseTensor, with ``true_num``. Elementwise work only: the host
-    already ordered and deduplicated the rows."""
+    already ordered and deduplicated the rows. A dict stacked over B
+    buildings gives the unit's stacked tables."""
     num = packed["num"]
     xyz = (packed["vox"].to(torch.float32)
            + packed["res_q"].to(torch.float32) * (1.0 / 256.0))
     feats = _feats(cfg, xyz, packed["rgb_q"], packed["nrm_q"],
                    packed["origin"])
-    rowv = torch.arange(feats.shape[0], device=feats.device) < num
-    feats = torch.where(rowv[:, None], feats, 0.0)
+    rowv = torch.arange(feats.shape[-2], device=feats.device) \
+        < num[..., None]
+    feats = torch.where(rowv[..., None], feats, 0.0)
     return device_table(packed["vox"], num, cfg.sparse3d.voxel_full_scale,
                         feats, true_num=packed["true_num"])
 
 
 def unpack_batch(cfg, packed) -> Dict[str, torch.Tensor]:
     """Device side: a :func:`pack_scene` dict (tensors) -> the f32 batch
-    dict of :func:`pad_scene`."""
+    dict of :func:`pad_scene` (each array with the leading B of a
+    stacked dict)."""
     pts = packed["xyz_q"].to(torch.float32) * (1.0 / XYZ_FP)
     feats = _feats(cfg, pts, packed["rgb_q"], packed["nrm_q"],
                    packed["origin"])
-    valid = torch.arange(pts.shape[0], device=pts.device) < packed["n_valid"]
+    valid = torch.arange(pts.shape[-2], device=pts.device) \
+        < packed["n_valid"][..., None]
     return {"points": pts, "feats": feats, "points_valid": valid,
             "gt_boxes": packed["gt_boxes"],
             "gt_labels": packed["gt_labels"],

@@ -386,9 +386,31 @@ def pack_pyramid(cfg, scene: Dict,
 
 
 def _row_order(packed, prefix) -> RowOrder:
-    """A book's RowOrder from its shipped perm and narrow masks."""
-    return RowOrder(packed[f"{prefix}_perm"],
-                    packed[f"{prefix}_masks"].to(torch.int64))
+    """A book's RowOrder from its shipped perm and narrow masks; a
+    stacked dict's B orders laid end to end over the flat rows (each
+    building's rows stay grouped by mask, and kernel A's result does not
+    depend on the order)."""
+    perm = packed[f"{prefix}_perm"]
+    masks = packed[f"{prefix}_masks"].to(torch.int64)
+    if perm.dim() == 1:
+        return RowOrder(perm, masks)
+    nb, v = perm.shape
+    base = torch.arange(nb, device=perm.device)[:, None] * v
+    return RowOrder((perm + base).to(torch.int32).reshape(-1),
+                    masks.reshape(-1))
+
+
+def _book(packed, prefix, v_in: int):
+    """A shipped book; a stacked dict's (B, K, V_out) books, each over
+    its own v_in rows, as the unit's flat (K, B * V_out) book over B *
+    v_in rows (entries ``idx + b * v_in``, pad ``B * v_in``)."""
+    idx = packed[f"{prefix}_idx"]
+    if idx.dim() == 2:
+        return idx
+    nb, k, v_out = idx.shape
+    base = torch.arange(nb, device=idx.device)[:, None, None] * v_in
+    flat = torch.where(idx < v_in, idx + base, nb * v_in)
+    return flat.to(torch.int32).transpose(0, 1).reshape(k, nb * v_out)
 
 
 def _backward_books(packed, pyr, n_scales):
@@ -426,12 +448,19 @@ def unpack_pyramid(cfg, packed, backward: bool = False) -> Dict:
     with ``backward``, from a ``backward`` pack, also subm_bwd,
     down_bwd, up_bwd and bev_bwd). ``tables[0]`` is
     :func:`data.packing.unpack_table`'s table, ``true_num`` included.
-    Elementwise work and casts only."""
+    Elementwise work and casts only. A dict stacked over B buildings
+    gives a unit's pyramid: stacked tables and flat books (ops/sparse.py)
+    whose row orders are the buildings' own, laid end to end; its
+    backward books are not unpacked (a unit is served, not trained)."""
     n_scales = cfg.sparse3d.num_scales
     dims = _scale_dims(cfg.sparse3d)
     tables = [unpack_table(cfg, packed)]
     tables += [device_table(packed[f"t{k}_vox"], packed[f"t{k}_num"],
                             dims[k]) for k in range(1, n_scales)]
+    if backward and tables[0].batched:
+        raise ValueError("unpack_pyramid: the backward books of a stacked "
+                         "dict are not unpacked")
+    cap = [t.capacity for t in tables]
     down = [f"down{k}" for k in range(n_scales - 1)]
     up = [f"up{k}" for k in range(n_scales - 2, -1, -1)]   # decoder order
     subm = [f"subm{k}" for k in range(n_scales)]
@@ -440,12 +469,14 @@ def unpack_pyramid(cfg, packed, backward: bool = False) -> Dict:
         X, Y, _ = dims[scale]
         bev[slot] = (device_table(packed[f"bev{slot}_vox"],
                                   packed[f"bev{slot}_num"], (X, Y, 1)),
-                     packed[f"bev{slot}_idx"])
+                     _book(packed, f"bev{slot}", cap[scale]))
         bev_order[slot] = _row_order(packed, f"bev{slot}")
     pyr = {"tables": tables,
-           "subm_idx": [packed[f"{p}_idx"] for p in subm],
-           "down_rb": [packed[f"{p}_idx"] for p in down],
-           "up_rb": [packed[f"{p}_idx"] for p in up],
+           "subm_idx": [_book(packed, p, cap[k])
+                        for k, p in enumerate(subm)],
+           "down_rb": [_book(packed, p, cap[k]) for k, p in enumerate(down)],
+           "up_rb": [_book(packed, p, cap[n_scales - 1 - i])
+                     for i, p in enumerate(up)],
            "bev": bev,
            "subm_order": [_row_order(packed, p) for p in subm],
            "down_order": [_row_order(packed, p) for p in down],

@@ -13,6 +13,12 @@ layer's ``true_num``:
               and row order (data/pyramid_packing.pack_pyramid): the
               device runs no sort, scatter or search before the convs.
 
+:func:`make_batch_predict_fn` answers a unit of B buildings with one
+forward, as the JAX package's ``jax.vmap`` does: the dict of each form
+stacked over B gives stacked tables and flat books (ops/sparse.py), each
+kernel launches once a unit, and building b's detections are what it
+gives alone. :func:`make_predict_fn` runs the same code on one building.
+
 :func:`run_inference` answers a list of buildings one after another
 (raw form), or pipelined: worker threads pack and copy unit i+1.. to
 the card while it runs unit i (see :func:`run_inference`).
@@ -109,9 +115,9 @@ def make_batch_predict_fn(cfg: Config, model: Optional[SparseRCNN] = None,
     """Multi-building predict: ``predict(stacked) -> ((B, K, 10), (B,))``
     over a packed dict whose every array is stacked on a leading axis B
     (``np.stack`` per key over pack_table / pack_pyramid / pack_scene
-    outputs). The JAX package vmaps one forward over B; PyTorch has no
-    vmap over this model (custom kernels, data-dependent shapes), so the
-    B buildings run one after another inside the call."""
+    outputs): one forward over the unit (the JAX package's vmap), whose
+    building b gives what it gives alone. Nothing waits for the card
+    before the outputs are fetched."""
     if packed not in (True, "table", "pyramid"):
         raise ValueError(
             f"packed={packed!r}: expected True, 'table' or 'pyramid'")
@@ -120,11 +126,7 @@ def make_batch_predict_fn(cfg: Config, model: Optional[SparseRCNN] = None,
 
     @torch.inference_mode()
     def predict(stacked, phases=None):
-        outs = [_predict_one(cfg, model, packed, dev,
-                             {k: v[i] for k, v in stacked.items()}, phases)
-                for i in range(len(stacked["origin"]))]
-        return (torch.stack([o[0] for o in outs]),
-                torch.stack([o[1] for o in outs]))
+        return _predict_one(cfg, model, packed, dev, stacked, phases)
 
     return predict
 

@@ -132,10 +132,11 @@ def check_capacities(cfg: Config, scene: Dict, logger=None, device="cuda"):
 
 def pack_detections(det) -> torch.Tensor:
     """A Boxes3D of detections as one (K, 10) f32 tensor ``[boxes7 |
-    score | label | valid]`` (the serving output's packed form)."""
-    return torch.cat([det.boxes, det.fields["scores"][:, None],
-                      det.fields["labels"].to(torch.float32)[:, None],
-                      det.valid.to(torch.float32)[:, None]], -1)
+    score | label | valid]`` (the serving output's packed form); a
+    unit's as (B, K, 10)."""
+    return torch.cat([det.boxes, det.fields["scores"][..., None],
+                      det.fields["labels"].to(torch.float32)[..., None],
+                      det.valid.to(torch.float32)[..., None]], -1)
 
 
 def unpack_detections(packed: np.ndarray) -> Dict[str, np.ndarray]:

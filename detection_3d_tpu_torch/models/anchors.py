@@ -13,6 +13,7 @@ import torch
 
 from detection_3d_tpu_torch.config.defaults import Config
 from detection_3d_tpu_torch.models.structures import Boxes3D
+from detection_3d_tpu_torch.utils.device import device_constant
 
 
 def cell_anchors(cfg: Config):
@@ -33,7 +34,9 @@ def cell_anchors(cfg: Config):
 
 
 def generate_anchors(cfg: Config, rpn_maps) -> Boxes3D:
-    """All-level anchors of one example, validity from each table's rows."""
+    """All-level anchors of one example, validity from each table's rows;
+    a unit's maps give (B, A, 7) anchors, each building's at its own
+    sites."""
     cells = cell_anchors(cfg)
     strides = cfg.anchor_strides()
     vs = float(cfg.sparse3d.voxel_scale)
@@ -41,12 +44,16 @@ def generate_anchors(cfg: Config, rpn_maps) -> Boxes3D:
     all_boxes, all_valid = [], []
     for lvl, table in enumerate(rpn_maps):
         dev = table.device
-        stride = torch.tensor(strides[lvl], dtype=torch.float32, device=dev)
-        centers = table.coords[:, :3].to(torch.float32) * stride / vs
-        cent7 = torch.cat([centers, centers.new_zeros((centers.shape[0], 4))],
-                          -1)
-        base = torch.from_numpy(cells[lvl]).to(dev)
-        boxes = cent7[:, None, :] + base[None, :, :]
-        all_boxes.append(boxes.reshape(-1, 7))
-        all_valid.append(torch.repeat_interleave(table.row_valid, a))
-    return Boxes3D(torch.cat(all_boxes, 0), torch.cat(all_valid, 0))
+        stride = device_constant(tuple(strides[lvl]), torch.float32, dev)
+        centers = table.coords[..., :3].to(torch.float32) * stride / vs
+        cent7 = torch.cat([centers, centers.new_zeros(centers.shape[:-1]
+                                                      + (4,))], -1)
+        base = device_constant(tuple(map(tuple, cells[lvl].tolist())),
+                               torch.float32, dev)
+        boxes = cent7[..., :, None, :] + base
+        lead = boxes.shape[:-3]
+        all_boxes.append(boxes.reshape(lead + (-1, 7)))
+        rv = table.row_valid
+        all_valid.append(rv[..., None].expand(rv.shape + (a,))
+                         .reshape(lead + (-1,)))
+    return Boxes3D(torch.cat(all_boxes, -2), torch.cat(all_valid, -1))

@@ -14,6 +14,9 @@ SparseConvNet fpn_net.py:13-265):
     pyramid is built for a training forward, its backward book
     (ops/sparse_conv.BackwardBook: the transposed book, its row order and
     the per-offset entry lists);
+  * a unit of B buildings (ops/sparse.py) builds one pyramid for all of
+    them: stacked tables, flat books and row orders, one launch of each
+    kernel a book; BN takes each building's own statistics;
   * every sparse conv goes through kernel A (ops/sparse_conv.py), with
     its rulebook's row order and backward book;
   * BN runs on batch statistics (ops/norm.py) fused with (leaky) ReLU.
@@ -54,24 +57,31 @@ def he_normal_(w: torch.Tensor, gen: torch.Generator):
 
 def bev_with_rulebook(table: SparseTensor, capacity: int):
     """BEV (z=0) table + (Z, V_bev) rulebook by scatter: every 3D row's
-    BEV row comes from the z=0 dedup sort, and rb[z_i, bev_row_i] = i."""
-    coords = table.coords.clone()
-    coords[:, 2] = 0
-    X, Y, Z = table.spatial_size
-    v_in = table.capacity
-    dev = table.device
-    feats = torch.zeros((coords.shape[0], 0), dtype=table.feats.dtype,
+    BEV row comes from the z=0 dedup sort, and rb[z_i, bev_row_i] = i. A
+    unit gives its stacked BEV tables and the flat (Z, B * V_bev) book
+    over its B * V rows."""
+    t = table.stacked()
+    nb, v_in = t.units, t.capacity
+    coords = t.coords.clone()
+    coords[..., 2] = 0
+    X, Y, Z = t.spatial_size
+    dev = t.device
+    feats = torch.zeros(coords.shape[:-1] + (0,), dtype=t.feats.dtype,
                         device=dev)
-    rv = table.row_valid
+    rv = t.row_valid
     bev_t, row_map = build_sparse_tensor(coords, feats, rv, (X, Y, 1),
-                                         table.batch_size, capacity,
+                                         t.batch_size, capacity,
                                          reduce="sum", return_row_map=True)
+    unit = torch.arange(nb, device=dev)[:, None]
     ok = rv & (row_map < capacity)
-    z = table.coords[:, 2].to(torch.int64)
-    flat = torch.where(ok, z * capacity + row_map, Z * capacity)
-    rb = torch.full((Z * capacity + 1,), v_in, dtype=torch.int32, device=dev)
-    rb[flat] = torch.arange(v_in, dtype=torch.int32, device=dev)
-    return bev_t, rb[:Z * capacity].reshape(Z, capacity)
+    z = t.coords[..., 2].to(torch.int64)
+    n_out = nb * capacity
+    flat = torch.where(ok, z * n_out + row_map + unit * capacity, Z * n_out)
+    rb = torch.full((Z * n_out + 1,), nb * v_in, dtype=torch.int32,
+                    device=dev)
+    rb[flat] = (torch.arange(v_in, device=dev) + unit * v_in).to(torch.int32)
+    bev = bev_t if table.batched else bev_t.building(0)
+    return bev, rb[:Z * n_out].reshape(Z, n_out)
 
 
 def pyramid_levels(table0: SparseTensor, kernels, strides, caps,
@@ -85,6 +95,9 @@ def pyramid_levels(table0: SparseTensor, kernels, strides, caps,
       scatters of its dedup sort; subm_order, down_order, up_order: each
       book's RowOrder (a submanifold book's from B's masks); with
       ``backward`` subm_bwd, down_bwd, up_bwd: each book's BackwardBook.
+
+    A unit's ``table0`` gives its stacked tables and flat books, each
+    row order sorting all B * V rows of a book by mask.
     """
     tables = [table0]
     down_rb, up_rb = [], []
@@ -96,8 +109,8 @@ def pyramid_levels(table0: SparseTensor, kernels, strides, caps,
         tables.append(t)
     matched = [neighbor_match_3x3x3(t) for t in tables]
     subm_idx = [idx for idx, _ in matched]
-    valid = [t.row_valid for t in tables]
-    cap = [t.capacity for t in tables]
+    valid = [t.row_valid.reshape(-1) for t in tables]
+    cap = [t.rows for t in tables]
     up_order = [rulebook_row_order(rb, cap[k + 1], valid[k])
                 for k, rb in enumerate(up_rb)]
     down_order = [rulebook_row_order(rb, cap[k], valid[k + 1])
@@ -155,9 +168,9 @@ def build_pyramid(table0: SparseTensor, cfg: Config,
     for slot, i_from_top in enumerate(cfg.rpn.rpn_scales_from_top):
         t3d = tables[n_scales - 1 - i_from_top]
         bev[slot] = bev_with_rulebook(t3d, t3d.capacity)
-        bev_v_in[slot] = t3d.capacity
-        bev_order[slot] = rulebook_row_order(bev[slot][1], t3d.capacity,
-                                             bev[slot][0].row_valid)
+        bev_v_in[slot] = t3d.rows
+        bev_order[slot] = rulebook_row_order(
+            bev[slot][1], t3d.rows, bev[slot][0].row_valid.reshape(-1))
     pyr.update(bev=bev, bev_order=bev_order, up_rb=pyr["up_rb"][::-1],
                up_order=pyr["up_order"][::-1])
     if backward:

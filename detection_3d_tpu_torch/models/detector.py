@@ -40,9 +40,10 @@ def voxelize_points(cfg: Config, points_xyz, feats, valid,
     """Continuous scaled coords -> deduplicated scale-0 voxel table: floor
     to int voxels and average the features of points sharing a voxel.
     ``capacity`` overrides the configured scale-0 table size (a spatial
-    shard's own rows, parallel/spatial.py)."""
+    shard's own rows, parallel/spatial.py). Stacked points (B, N, 3) of a
+    unit give its stacked tables, each building's as it is alone."""
     coords = torch.floor(points_xyz).to(torch.int32)
-    coords4 = torch.cat([coords, torch.zeros_like(coords[:, :1])], -1)
+    coords4 = torch.cat([coords, torch.zeros_like(coords[..., :1])], -1)
     if capacity is None:
         capacity = cfg.caps.scale_caps(cfg.sparse3d.num_scales)[0]
     return build_sparse_tensor(coords4, feats, valid,
@@ -247,12 +248,12 @@ def rpn_detections(proposals: Boxes3D) -> Boxes3D:
     """An rpn_only model's detections of one group: its proposals in
     descending objectness, invalid rows last (a stable sort, as JAX's
     ``argsort(-score)``), scores = objectness, labels 1
-    (rpn_sparse3d.py:294-305)."""
+    (rpn_sparse3d.py:294-305); each building's of a unit."""
     obj = proposals.fields["objectness"]
     score = torch.where(proposals.valid, obj, float("-inf"))
-    order = torch.sort(score, descending=True, stable=True).indices
+    order = torch.sort(score, dim=-1, descending=True, stable=True).indices
     p = proposals.gather(order)
     p.fields["scores"] = p.fields["objectness"]
-    p.fields["labels"] = torch.ones((p.capacity,), dtype=torch.int32,
+    p.fields["labels"] = torch.ones(obj.shape, dtype=torch.int32,
                                     device=obj.device)
     return p

@@ -5,7 +5,8 @@ Counterpart of detection_3d_tpu/models/roi_head.py:
   * LevelMapper_3d: size = sqrt(max(y_size, x_size)), rate = size /
     canonical, level = argmin |spatial_scale - rate|;
   * all FPN levels pool in ONE roi_align pass over a merged table whose
-    batch axis is the level;
+    batch axis is the level (a unit of B buildings merges each building's
+    levels into its own table of the stack);
   * extractor: conv3d [1,1,os2] (one matmul) + BN + ReLU, fc6, fc7;
   * predictor: linear cls + 7*C box regression;
   * targets and loss (box_head_3d/loss.py:22-237): matcher FG = BG =
@@ -31,7 +32,7 @@ from detection_3d_tpu_torch.models.matcher import (
     BETWEEN, balanced_sample, match_boxes,
 )
 from detection_3d_tpu_torch.models.rpn import top_k
-from detection_3d_tpu_torch.models.structures import Boxes3D
+from detection_3d_tpu_torch.models.structures import Boxes3D, take_rows
 from detection_3d_tpu_torch.ops.box_coder import BoxCoder3D
 from detection_3d_tpu_torch.ops.geometry import yx_zb_to_standard
 from detection_3d_tpu_torch.ops.nms import nms_boxes
@@ -43,20 +44,24 @@ from detection_3d_tpu_torch.ops.rotated_iou import (
 from detection_3d_tpu_torch.ops.sparse import (
     SparseTensor, build_sparse_tensor,
 )
+from detection_3d_tpu_torch.utils.device import device_constant
 
 
 def map_levels(cfg: Config, boxes):
-    """(R,) level index per roi (first level on ties, as jnp.argmin)."""
-    scales = torch.tensor(cfg.roi_spatial_scales(), dtype=torch.float32,
-                          device=boxes.device)
-    size = torch.sqrt(torch.maximum(boxes[:, 3], boxes[:, 4]))
+    """(..., R) level index per roi (first level on ties, as
+    jnp.argmin)."""
+    scales = device_constant(tuple(cfg.roi_spatial_scales()), torch.float32,
+                             boxes.device)
+    size = torch.sqrt(torch.maximum(boxes[..., 3], boxes[..., 4]))
     rate = size / cfg.roi.canonical_size
-    return torch.argmin(torch.abs(scales[None, :] - rate[:, None]), dim=1)
+    return torch.argmin(torch.abs(scales - rate[..., None]), dim=-1)
 
 
 def merge_roi_levels(roi_maps: Sequence[SparseTensor]) -> SparseTensor:
     """Stack all FPN roi levels into ONE table whose batch axis is the
-    level index, so a single roi_align pass serves every level."""
+    level index, so a single roi_align pass serves every level. A unit's
+    maps merge building by building: building b's levels make table b of
+    a stack, with capacity the sum of one building's level capacities."""
     if len(roi_maps) == 1:
         return roi_maps[0]
     X = max(t.spatial_size[0] for t in roi_maps)
@@ -65,11 +70,11 @@ def merge_roi_levels(roi_maps: Sequence[SparseTensor]) -> SparseTensor:
     coords = []
     for li, t in enumerate(roi_maps):
         c = t.coords.clone()
-        c[:, 3] = li
+        c[..., 3] = li
         coords.append(c)
-    coords = torch.cat(coords, 0)
-    feats = torch.cat([t.feats for t in roi_maps], 0)
-    valid = torch.cat([t.row_valid for t in roi_maps], 0)
+    coords = torch.cat(coords, -2)
+    feats = torch.cat([t.feats for t in roi_maps], -2)
+    valid = torch.cat([t.row_valid for t in roi_maps], -1)
     cap = sum(t.capacity for t in roi_maps)
     return build_sparse_tensor(coords, feats, valid, (X, Y, Z),
                                len(roi_maps), cap, reduce="sum")
@@ -78,20 +83,49 @@ def merge_roi_levels(roi_maps: Sequence[SparseTensor]) -> SparseTensor:
 def pool_rois(cfg: Config, roi_maps: Sequence[SparseTensor],
               proposals: Boxes3D):
     """(R, os0, os1, os2, C) pooled features: yx_zb proposals in meters,
-    each pooled at its level's voxel scale."""
+    each pooled at its level's voxel scale; a unit's (B, R, 7) proposals
+    give (B, R, ...), each from its own building's maps."""
     os = cfg.roi.pooler_resolution
     sr = cfg.roi.pooler_sampling_ratio
     levels = map_levels(cfg, proposals.boxes)
     std = yx_zb_to_standard(proposals.boxes)
     vs = float(cfg.sparse3d.voxel_scale)
     merged = merge_roi_levels(roi_maps)
-    factors = vs * torch.tensor(cfg.roi_spatial_scales(), dtype=std.dtype,
-                                device=std.device)
-    f = factors[levels][:, None]
-    rois = torch.cat([std[:, :6] * f, std[:, 6:7]], -1)
+    factors = vs * device_constant(tuple(cfg.roi_spatial_scales()),
+                                   std.dtype, std.device)
+    f = factors[levels][..., None]
+    rois = torch.cat([std[..., :6] * f, std[..., 6:7]], -1)
     roi_batch = levels if len(roi_maps) > 1 else None
     return roi_align_rotated_sparse(merged, rois, proposals.valid, os, sr,
                                     roi_batch=roi_batch)
+
+
+# the slices of fc6's long reduction on the card (:func:`fixed_order_matmul`)
+K_SLICE = 512
+
+
+def fixed_order_matmul(x, w):
+    """``x @ w`` for x (..., K), w (K, N). On the card in bf16, a sum over
+    K in a fixed order: f32 products of K_SLICE-wide slices of K (cuBLAS
+    does not split a reduction that short), added slice by slice, then
+    rounded once to bf16. One GEMM over a long K lets cuBLAS split K
+    among blocks by the number of rows, so a unit's B * R rois would give
+    building b other bits than its own R rows alone. A product that takes
+    a gradient (training, one building a forward) is one GEMM: the f32
+    products have no derivative."""
+    k = x.shape[-1]
+    wants_grad = torch.is_grad_enabled() and (x.requires_grad
+                                              or w.requires_grad)
+    if wants_grad or not (x.is_cuda and x.dtype == torch.bfloat16
+                          and k > K_SLICE):
+        return x @ w
+    rows = x.reshape(-1, k)
+    acc = None
+    for k0 in range(0, k, K_SLICE):
+        part = torch.mm(rows[:, k0:k0 + K_SLICE], w[k0:k0 + K_SLICE],
+                        out_dtype=torch.float32)
+        acc = part if acc is None else acc + part
+    return acc.to(x.dtype).reshape(x.shape[:-1] + (w.shape[-1],))
 
 
 class ROIBoxFeatureExtractor(nn.Module):
@@ -128,19 +162,25 @@ class ROIBoxFeatureExtractor(nn.Module):
             self.bn_scale.fill_(1.0)
 
     def forward(self, pooled, roi_valid):
-        r, os0, os1, os2, c = pooled.shape
+        """(..., R, os0, os1, os2, C) pooled rois -> (..., R, rep); the BN
+        statistics are taken over each leading index's (building's)
+        rois."""
+        *lead, r, os0, os1, os2, c = pooled.shape
+        lead = tuple(lead)
         rep = self.conv3d_w.shape[1]
         dt = pooled.dtype
-        h = pooled.reshape(r, os0, os1, os2 * c) @ self.conv3d_w.to(dt) \
-            + self.conv3d_b.to(dt)
-        flat = h.reshape(r * os0 * os1, rep)
-        vmask = torch.repeat_interleave(roi_valid, os0 * os1)
+        h = pooled.reshape(lead + (r, os0, os1, os2 * c)) \
+            @ self.conv3d_w.to(dt) + self.conv3d_b.to(dt)
+        flat = h.reshape(lead + (r * os0 * os1, rep))
+        vmask = roi_valid[..., None].expand(lead + (r, os0 * os1)).reshape(
+            lead + (r * os0 * os1,))
         flat = batch_norm_leaky_relu(flat, vmask, self.bn_scale,
                                      self.bn_bias)
-        h = flat.reshape(r, os0 * os1 * rep)
-        h = torch.relu(h @ self.fc6_w.to(dt) + self.fc6_b.to(dt))
+        h = flat.reshape(lead + (r, os0 * os1 * rep))
+        h = torch.relu(fixed_order_matmul(h, self.fc6_w.to(dt))
+                       + self.fc6_b.to(dt))
         h = torch.relu(h @ self.fc7_w.to(dt) + self.fc7_b.to(dt))
-        return torch.where(roi_valid[:, None], h, 0.0)
+        return torch.where(roi_valid[..., None], h, 0.0)
 
 
 class ROIPredictor(nn.Module):
@@ -241,38 +281,43 @@ def roi_loss(cfg: Config, sampled: Boxes3D, class_logits, box_regression):
 def postprocess(cfg: Config, proposals: Boxes3D, class_logits,
                 box_regression, num_classes: int, detections_cap: int):
     """Per-class score threshold -> per-class rotated NMS -> global top-K.
-    Static output: (detections_cap,) rows; fields scores, labels."""
+    Static output: (detections_cap,) rows; fields scores, labels. The
+    foreground classes' NMS runs as one batch, as JAX vmaps it over the
+    classes; a unit's (B, R, ...) inputs give (B, detections_cap) rows
+    from one NMS over its B * (num_classes - 1) problems."""
     probs = torch.softmax(class_logits, dim=-1)
     coder = BoxCoder3D(weights=cfg.roi.bbox_reg_weights)
-    r = box_regression.shape[0]
+    r = box_regression.shape[-2]
+    lead = box_regression.shape[:-2]
     dec = coder.decode(box_regression, proposals.boxes).reshape(
-        r, num_classes, 7)
+        lead + (r, num_classes, 7))
     ay, az = cfg.roi.nms_aug_thickness_y_z
     post_cap = min(cfg.roi.nms_post_cap, r)
 
-    boxes, scores, labels, valid = [], [], [], []
-    for j in range(1, num_classes):      # foreground classes
-        boxes_j, scores_j = dec[:, j], probs[:, j]
-        valid_j = proposals.valid & (scores_j > cfg.roi.score_thresh)
-        nms_in = boxes_j.clone()
-        nms_in[:, 3:5] = torch.clamp(nms_in[:, 3:5], min=ay)
-        nms_in[:, 5] = torch.clamp(nms_in[:, 5], min=az)
-        keep_idx, _ = nms_boxes(nms_in, scores_j, valid_j, cfg.roi.nms,
-                                post_cap)
-        kept = Boxes3D(boxes_j, valid_j,
-                       {"scores": scores_j}).gather(keep_idx)
-        boxes.append(kept.boxes)
-        scores.append(kept.fields["scores"])
-        valid.append(kept.valid)
-        labels.append(torch.full((post_cap,), j, dtype=torch.int32,
-                                 device=dec.device))
-    boxes, scores = torch.cat(boxes, 0), torch.cat(scores, 0)
-    labels, valid = torch.cat(labels, 0), torch.cat(valid, 0)
+    # (..., C - 1, R) problems, foreground classes in order
+    boxes_c = dec[..., 1:, :].movedim(-2, -3)
+    scores_c = probs[..., 1:].movedim(-1, -2)
+    valid_c = proposals.valid[..., None, :] & (scores_c > cfg.roi.score_thresh)
+    nms_in = boxes_c.clone()
+    nms_in[..., 3:5] = torch.clamp(nms_in[..., 3:5], min=ay)
+    nms_in[..., 5] = torch.clamp(nms_in[..., 5], min=az)
+    keep_idx, _ = nms_boxes(nms_in, scores_c, valid_c, cfg.roi.nms,
+                            post_cap)
+    kept = Boxes3D(boxes_c, valid_c, {"scores": scores_c}).gather(keep_idx)
+    labels = torch.arange(1, num_classes, dtype=torch.int32,
+                          device=dec.device)[:, None].expand(
+                              keep_idx.shape)
+    flat = lead + (-1,)
+    boxes = kept.boxes.reshape(lead + (-1, 7))
+    scores = kept.fields["scores"].reshape(flat)
+    labels, valid = labels.reshape(flat), kept.valid.reshape(flat)
 
     pri = torch.where(valid, scores, -1.0)
-    top_scores, idx = top_k(pri, min(detections_cap, pri.shape[0]))
-    return Boxes3D(boxes[idx], valid[idx] & (top_scores >= 0),
-                   {"scores": scores[idx], "labels": labels[idx]})
+    top_scores, idx = top_k(pri, min(detections_cap, pri.shape[-1]))
+    return Boxes3D(take_rows(boxes, idx),
+                   take_rows(valid, idx) & (top_scores >= 0),
+                   {"scores": take_rows(scores, idx),
+                    "labels": take_rows(labels, idx)})
 
 
 class ROIBoxHead(nn.Module):

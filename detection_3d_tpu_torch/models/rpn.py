@@ -24,7 +24,9 @@ from detection_3d_tpu_torch.models.losses import (
 from detection_3d_tpu_torch.models.matcher import (
     BETWEEN, balanced_sample, match_boxes,
 )
-from detection_3d_tpu_torch.models.structures import Boxes3D, concat_boxes
+from detection_3d_tpu_torch.models.structures import (
+    Boxes3D, concat_boxes, take_rows,
+)
 from detection_3d_tpu_torch.ops.box_coder import BoxCoder3D
 from detection_3d_tpu_torch.ops.geometry import limit_period
 from detection_3d_tpu_torch.ops.nms import nms_boxes
@@ -35,11 +37,11 @@ from detection_3d_tpu_torch.ops.sparse import SparseTensor
 
 
 def top_k(values, k: int):
-    """(values, indices) of the k largest entries, ties lowest index
-    first — the order of ``jax.lax.top_k`` (``torch.topk`` promises no
-    order among ties)."""
-    out = torch.sort(values, descending=True, stable=True)
-    return out.values[:k], out.indices[:k]
+    """(values, indices) of the k largest entries along the last axis,
+    ties lowest index first — the order of ``jax.lax.top_k``
+    (``torch.topk`` promises no order among ties)."""
+    out = torch.sort(values, dim=-1, descending=True, stable=True)
+    return out.values[..., :k], out.indices[..., :k]
 
 
 class RPNHead(nn.Module):
@@ -71,7 +73,8 @@ class RPNHead(nn.Module):
         """(N_anchors, G) logits and (N_anchors, 7G) regressions: a
         site's columns are anchor-major, then group (JAX's reshape to
         (-1, A, G) and (-1, A, 7G)), so group gi's objectness is column
-        gi and its regression columns [7gi, 7gi + 7)."""
+        gi and its regression columns [7gi, 7gi + 7). A unit's maps
+        (B, V, C) give (B, N_anchors, ...)."""
         g = self.groups
         logits, regs = [], []
         for f in feats_per_level:
@@ -80,9 +83,10 @@ class RPNHead(nn.Module):
             lg = t @ self.cls_w.to(dt) + self.cls_b.to(dt)
             rg = t @ self.box_w.to(dt) + self.box_b.to(dt)
             # box/score math downstream is f32
-            logits.append(lg.reshape(-1, g).to(torch.float32))
-            regs.append(rg.reshape(-1, 7 * g).to(torch.float32))
-        return torch.cat(logits, 0), torch.cat(regs, 0)
+            lead = lg.shape[:-2]
+            logits.append(lg.reshape(lead + (-1, g)).to(torch.float32))
+            regs.append(rg.reshape(lead + (-1, 7 * g)).to(torch.float32))
+        return torch.cat(logits, -2), torch.cat(regs, -2)
 
 
 def num_anchors(cfg: Config) -> int:
@@ -152,26 +156,29 @@ def select_proposals(cfg: Config, anchors: Boxes3D, objectness, box_reg,
 
     Runs without autograd: proposals are constants for the ROI stage (a
     gradient through the NMS geometry would be NaN on duplicate boxes),
-    as the JAX package's stop_gradient makes them."""
+    as the JAX package's stop_gradient makes them. A unit's anchors and
+    head outputs (B, N_anchors, ...) give (B, post) proposals: top-k per
+    building, then one NMS over the B buildings."""
     pre_n = (cfg.rpn_pre_nms_top_n_train if is_train
              else cfg.rpn_pre_nms_top_n_test)
     post_n = (cfg.rpn_post_nms_top_n_train if is_train
               else cfg.rpn_post_nms_top_n_test)
-    pre_n = min(pre_n, objectness.shape[0])
+    pre_n = min(pre_n, objectness.shape[-1])
     score = torch.where(anchors.valid, torch.sigmoid(objectness), -1.0)
     top_score, top_idx = top_k(score, pre_n)
     top_valid = top_score >= 0.0
-    dec = BoxCoder3D().decode(box_reg[top_idx], anchors.boxes[top_idx])
+    dec = BoxCoder3D().decode(take_rows(box_reg, top_idx),
+                              take_rows(anchors.boxes, top_idx))
 
     # NMS with thickness augmentation on y/x sizes and z
     ay, az = cfg.rpn.nms_aug_thickness_y_z
     nms_in = dec.clone()
-    nms_in[:, 3:5] = torch.clamp(nms_in[:, 3:5], min=ay)
-    nms_in[:, 5] = torch.clamp(nms_in[:, 5], min=az)
+    nms_in[..., 3:5] = torch.clamp(nms_in[..., 3:5], min=ay)
+    nms_in[..., 5] = torch.clamp(nms_in[..., 5], min=az)
     keep_idx, _ = nms_boxes(nms_in, top_score, top_valid, cfg.rpn.nms_thresh,
                             post_n)
     kept = Boxes3D(dec, top_valid, {"objectness": top_score}).gather(keep_idx)
-    kept.fields["is_gt"] = torch.zeros((kept.capacity,), device=dec.device)
+    kept.fields["is_gt"] = torch.zeros(keep_idx.shape, device=dec.device)
     if is_train and cfg.rpn.add_gt_proposals and gt is not None:
         ones = torch.ones((gt.capacity,), device=dec.device)
         kept = concat_boxes(kept, Boxes3D(gt.boxes, gt.valid, {
@@ -201,7 +208,7 @@ class RPN(nn.Module):
         g = self.head.groups
         proposals_g, losses = [], {}
         for gi in range(g):
-            obj, reg = objectness[:, gi], box_reg[:, 7 * gi:7 * gi + 7]
+            obj, reg = objectness[..., gi], box_reg[..., 7 * gi:7 * gi + 7]
             gt_gi = None if gt is None else gt[gi]
             proposals_g.append(select_proposals(
                 self.cfg, anchors, obj, reg, gt_gi is not None, gt_gi))

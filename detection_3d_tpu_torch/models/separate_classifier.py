@@ -27,6 +27,7 @@ import torch
 
 from detection_3d_tpu_torch.config.defaults import Config
 from detection_3d_tpu_torch.models.structures import Boxes3D
+from detection_3d_tpu_torch.utils.device import device_constant
 
 
 def grouped_class_ids(cfg: Config) -> Tuple[Tuple[int, ...], ...]:
@@ -66,29 +67,30 @@ def separate_targets(cfg: Config, gt: Boxes3D, gt_labels):
 
 
 def slice_group_logits(cfg: Config, class_logits, box_regression, gi: int):
-    """The head's outputs -> group gi's class columns and their 7-wide
-    box columns (seperate_classifier.py:221-238)."""
-    cols = torch.tensor(grouped_class_ids(cfg)[gi],
-                        device=class_logits.device)
-    n = box_regression.shape[0]
+    """The head's outputs (..., R, ...) -> group gi's class columns and
+    their 7-wide box columns (seperate_classifier.py:221-238)."""
+    cols = device_constant(grouped_class_ids(cfg)[gi], torch.int64,
+                           class_logits.device)
+    lead = box_regression.shape[:-1]
     nc_total = cfg.num_classes + len(cfg.separate_classes)
-    reg = box_regression.reshape(n, nc_total, 7)[:, cols, :]
-    return class_logits[:, cols], reg.reshape(n, -1)
+    reg = box_regression.reshape(lead + (nc_total, 7))[..., cols, :]
+    return class_logits[..., cols], reg.reshape(lead + (-1,))
 
 
 def merge_group_detections(cfg: Config, results_g: List[Boxes3D]) -> Boxes3D:
-    """Concatenate the groups' detections, local labels mapped back to
-    the original ids (seperate_classifier.py:297-321)."""
+    """Concatenate the groups' detections (along each building's rows),
+    local labels mapped back to the original ids
+    (seperate_classifier.py:297-321)."""
     groups = grouped_class_ids(cfg)
     boxes, valid, scores, labels = [], [], [], []
     for gi, det in enumerate(results_g):
-        local_to_org = torch.tensor(groups[gi], dtype=torch.int32,
-                                    device=det.boxes.device)
+        local_to_org = device_constant(groups[gi], torch.int32,
+                                       det.boxes.device)
         lab = det.fields["labels"].to(torch.int64)
         labels.append(local_to_org[torch.clamp(lab, 0, len(groups[gi]) - 1)])
         boxes.append(det.boxes)
         valid.append(det.valid)
         scores.append(det.fields["scores"])
-    return Boxes3D(torch.cat(boxes, 0), torch.cat(valid, 0),
-                   {"scores": torch.cat(scores, 0),
-                    "labels": torch.cat(labels, 0)})
+    return Boxes3D(torch.cat(boxes, -2), torch.cat(valid, -1),
+                   {"scores": torch.cat(scores, -1),
+                    "labels": torch.cat(labels, -1)})

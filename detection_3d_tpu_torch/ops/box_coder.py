@@ -18,6 +18,7 @@ from dataclasses import dataclass, field
 import torch
 
 from detection_3d_tpu_torch.ops.geometry import limit_period
+from detection_3d_tpu_torch.utils.device import device_constant
 
 
 def second_box_encode(boxes, anchors, smooth_dim: bool = True):
@@ -73,8 +74,8 @@ class BoxCoder3D:
         return 10000.0 if self.smooth_dim else math.log(1000.0)
 
     def encode(self, targets, anchors):
-        w = torch.tensor(self.weights, dtype=targets.dtype,
-                         device=targets.device)
+        w = device_constant(tuple(self.weights), targets.dtype,
+                            targets.device)
         enc = second_box_encode(targets, anchors, self.smooth_dim)
         yaw = limit_period(enc[..., -1:], 0.5, math.pi)
         return torch.cat([enc[..., :-1], yaw], dim=-1) * w
@@ -87,7 +88,7 @@ class BoxCoder3D:
         enc = encodings.reshape(lead + (num_classes, 7))
         anc = anchors[..., None, :].expand(lead + (num_classes, 7))
 
-        w = torch.tensor(self.weights, dtype=enc.dtype, device=enc.device)
+        w = device_constant(tuple(self.weights), enc.dtype, enc.device)
         enc = enc / w
         sizes = torch.clamp(enc[..., 3:6], max=self.bbox_xform_clip)
         enc = torch.cat([enc[..., :3], sizes, enc[..., 6:]], dim=-1)

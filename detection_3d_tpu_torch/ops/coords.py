@@ -52,13 +52,17 @@ def lex_sort(hi, lo, *arrays):
 def key_search(keys_sorted, hi_q, lo_q):
     """Find composite-key queries in a sorted int64 key table.
 
-    Returns (idx, found): ``idx`` (...,) int32 is the lower-bound position
-    clipped to the table (meaningful only where found), ``found`` is true
-    on an exact match of a real (non-INVALID) key.
+    ``keys_sorted`` is one table (V,) or a stack of B tables (B, V), each
+    sorted; the queries of table b are ``hi_q[b]`` / ``lo_q[b]`` (any
+    shape after the leading B). Returns (idx, found): ``idx`` int32 of
+    the queries' shape is the lower-bound position in the query's own
+    table, clipped to it (meaningful only where found), ``found`` is
+    true on an exact match of a real (non-INVALID) key.
     """
     q = composite_key(hi_q, lo_q)
-    n = keys_sorted.shape[0]
-    pos = torch.searchsorted(keys_sorted, q.reshape(-1)).reshape(q.shape)
-    idx = pos.clamp(0, n - 1)
-    found = (keys_sorted[idx] == q) & (hi_q != INVALID)
-    return idx.to(torch.int32), found
+    n = keys_sorted.shape[-1]
+    rows = q.reshape(*keys_sorted.shape[:-1], -1)
+    idx = torch.searchsorted(keys_sorted, rows).clamp(0, n - 1)
+    found = (keys_sorted.gather(-1, idx).reshape(q.shape) == q) \
+        & (hi_q != INVALID)
+    return idx.reshape(q.shape).to(torch.int32), found

@@ -36,21 +36,22 @@ BUILD_DIR = _PKG / "build"
 
 # one library per source file under csrc/
 KERNELS = ("gather_conv", "gather_conv_bwd", "subm_match", "rotated_iou",
-           "multi_match")
+           "multi_match", "greedy_nms")
 # one launch counter per kernel: kernel A's source runs the forward and
 # the backward's dFeats, the backward source dW
 COUNTERS = ("gather_conv", "gather_conv_dfeats", "gather_conv_dw",
-            "subm_match", "rotated_iou", "multi_match")
+            "subm_match", "rotated_iou", "multi_match", "greedy_nms")
 # each counter's kernel symbols in a device trace (kernel A's body runs
 # under the ConvForward and ConvDFeats tags; dW is a partial kernel and
 # its reduction), and the kernel's short name in the tools' reports
 SYMBOLS = {"gather_conv": "ConvForward", "gather_conv_dfeats": "ConvDFeats",
            "gather_conv_dw": "gather_dw_", "subm_match": "subm_match_",
            "rotated_iou": "rotated_iou_kernel",
-           "multi_match": "multi_match_kernel"}
+           "multi_match": "multi_match_kernel",
+           "greedy_nms": "greedy_nms_kernel"}
 LABELS = {"gather_conv": "A", "gather_conv_dfeats": "dFeats",
           "gather_conv_dw": "dW", "subm_match": "B", "rotated_iou": "C",
-          "multi_match": "D"}
+          "multi_match": "D", "greedy_nms": "E"}
 # the dynamic shared memory one block may take on an H100 (227 KB):
 # kernel B's wrapper keeps its windows under it
 SHARED_BYTES = 232448
@@ -71,9 +72,10 @@ _ENTRY_POINTS = {
                                  "gather_conv_dfeats_bf16")},
     "gather_conv_bwd": {"gather_conv_dw_f32": [_P] * 6 + [_I] * 5 + [_P],
                         "gather_conv_dw_bf16": [_P] * 6 + [_I] * 5 + [_P]},
-    "subm_match": {"subm_match_3x3x3": [_P] * 3 + [_I] * 5 + [_P] * 3},
-    "rotated_iou": {"rotated_iou_matrix": [_P] * 2 + [_I] * 4 + [_P] * 2},
+    "subm_match": {"subm_match_3x3x3": [_P] * 3 + [_I] * 6 + [_P] * 3},
+    "rotated_iou": {"rotated_iou_matrix": [_P] * 2 + [_I] * 5 + [_P] * 2},
     "multi_match": {"multi_match": [_P] * 3 + [_I] * 2 + [_P]},
+    "greedy_nms": {"greedy_nms": [_P] * 2 + [_I] * 3 + [_P] * 3},
 }
 
 launches: Dict[str, int] = {name: 0 for name in COUNTERS}

@@ -81,11 +81,29 @@ def _deltas(kernel, device):
                         dtype=torch.int32, device=device)
 
 
+def _unit_book(book_fn, out_table: SparseTensor, in_table: SparseTensor,
+               kernel, stride):
+    """``book_fn`` on each building of a unit, as the unit's flat book
+    (ops/sparse.py): building u's entries + u * V_in, the pad B * V_in.
+    These searched books serve the spatial shards and the API, one
+    building a call; a unit's own pyramid takes its books from the
+    downsample scatter."""
+    nb, v_in = in_table.units, in_table.capacity
+    books = [book_fn(out_table.building(u), in_table.building(u), kernel,
+                     stride) for u in range(nb)]
+    return torch.cat([torch.where(bk < v_in, bk + u * v_in, nb * v_in)
+                      for u, bk in enumerate(books)], 1).to(torch.int32)
+
+
 def conv_rulebook_match(out_table: SparseTensor, in_table: SparseTensor,
                         kernel, stride):
     """(K, V_out) strided-conv rulebook: entry [k, o] is the input row at
     out_coord(o) * stride + offset_k, V_in where absent (the contract of
-    the JAX package's ops/sparse.conv_rulebook)."""
+    the JAX package's ops/sparse.conv_rulebook); a unit's flat book for
+    stacked tables."""
+    if out_table.batched:
+        return _unit_book(conv_rulebook_match, out_table, in_table, kernel,
+                          stride)
     st = torch.tensor([stride[0], stride[1], stride[2], 1],
                       dtype=torch.int32, device=out_table.device)
     q = (out_table.coords * st)[None] + _deltas(kernel, st.device)[:, None]
@@ -98,7 +116,11 @@ def deconv_rulebook_match(fine_table: SparseTensor,
                           coarse_table: SparseTensor, kernel, stride):
     """(K, V_fine) deconv rulebook: entry [k, x] is the coarse row o with
     fine_coord(x) == o * stride + offset_k, V_coarse where absent (the
-    contract of the JAX package's ops/sparse_conv.deconv_rulebook)."""
+    contract of the JAX package's ops/sparse_conv.deconv_rulebook); a
+    unit's flat book for stacked tables."""
+    if fine_table.batched:
+        return _unit_book(deconv_rulebook_match, fine_table, coarse_table,
+                          kernel, stride)
     st = torch.tensor([stride[0], stride[1], stride[2], 1],
                       dtype=torch.int32, device=fine_table.device)
     num = fine_table.coords[None] - _deltas(kernel, st.device)[:, None]

@@ -6,10 +6,17 @@ Counterpart of detection_3d_tpu/ops/nms.py. Boxes are sorted by score
 that order (kernel C on the card), and a greedy pass suppresses every
 later box whose IoU with a kept box exceeds the threshold.
 
-The greedy pass is sequential over rows. It runs on the host over the
-boolean "IoU > threshold" matrix: one device-to-host copy of N^2 bytes,
-then one vector OR per kept row, instead of N small device launches.
-:func:`nms_from_iou` runs the same pass on a given IoU matrix, and
+Every function takes G independent problems at once, as the JAX package
+vmaps its NMS over classes and buildings: boxes (G, N, 7) give keep
+positions (G, post) and counts (G,), one kernel C and one kernel E
+launch for all G; a problem without the leading axis is the G = 1 case.
+
+The greedy pass is sequential over rows. On the card it is kernel E
+(csrc/greedy_nms.cu): one block a matrix holds the suppressed set as a
+bit mask in shared memory and streams the "IoU > threshold" rows in, so
+nothing goes to the host. On the CPU the plain :func:`greedy_plain`
+runs the same pass in numpy, one vector OR per kept row.
+:func:`nms_from_iou` runs it on a given IoU matrix, and
 :func:`rotate_nms_3d` is the JAX package's name for :func:`nms_boxes`.
 """
 
@@ -18,71 +25,134 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from detection_3d_tpu_torch.ops import cuda_lib
 from detection_3d_tpu_torch.ops.rotated_iou import boxes_iou_3d
+
+# kernel E's largest matrix side: its suppressed mask and one staged row
+# block live in shared memory
+GREEDY_MAX_N = 8192
+
+
+def greedy_plain(over, valid_o, post_max_size: int):
+    """Plain version of kernel E: the greedy pass over ``over`` (G, N, N)
+    bool = (IoU > threshold), each matrix already in score order. Row i,
+    when not suppressed, suppresses every j > i it overlaps; invalid
+    rows start suppressed.
+
+    Returns (keep_pos (G, post_max_size) int32 positions into the sorted
+    order, ascending, padded -1; keep_count (G,) int32, at most
+    post_max_size), on ``over``'s device."""
+    dev = over.device
+    over_np = over.cpu().numpy()
+    sup_all = ~valid_o.cpu().numpy()
+    g = over_np.shape[0]
+    keep_pos = np.full((g, post_max_size), -1, np.int32)
+    counts = np.zeros((g,), np.int32)
+    for m in range(g):
+        sup = sup_all[m]
+        for i in range(sup.shape[0]):
+            if not sup[i]:
+                sup[i + 1:] |= over_np[m, i, i + 1:]
+        kept = np.flatnonzero(~sup)[:post_max_size]
+        keep_pos[m, :kept.size] = kept
+        counts[m] = kept.size
+    return torch.from_numpy(keep_pos).to(dev), torch.from_numpy(counts).to(dev)
+
+
+def greedy_cuda(over, valid_o, post_max_size: int):
+    """Kernel E on the card: same contract as :func:`greedy_plain`, the
+    same keep sets; one block a matrix, all G in one launch."""
+    g, n = valid_o.shape
+    if (over.dtype != torch.bool or valid_o.dtype != torch.bool
+            or over.shape != (g, n, n) or not over.is_cuda
+            or valid_o.device != over.device or not 0 < n <= GREEDY_MAX_N
+            or not 0 < g <= 65535 or post_max_size < 1):
+        raise ValueError("greedy_cuda: expected bool (G, N, N) and (G, N) "
+                         f"on one card, 0 < N <= {GREEDY_MAX_N}, "
+                         "0 < G <= 65535 and post_max_size >= 1")
+    over, valid_o = over.contiguous(), valid_o.contiguous()
+    keep_pos = torch.empty((g, post_max_size), dtype=torch.int32,
+                           device=over.device)
+    counts = torch.empty((g,), dtype=torch.int32, device=over.device)
+    status = cuda_lib.library("greedy_nms").greedy_nms(
+        over.data_ptr(), valid_o.data_ptr(), g, n, post_max_size,
+        keep_pos.data_ptr(), counts.data_ptr(),
+        cuda_lib.stream_ptr(over.device))
+    cuda_lib.check("greedy_nms", status)
+    cuda_lib.launches["greedy_nms"] += 1
+    return keep_pos, counts
 
 
 def greedy_suppress(over, valid_o, post_max_size: int):
-    """Greedy pass over ``over`` = (IoU > threshold), already in score
-    order. Row i, when not suppressed, suppresses every j > i it
-    overlaps; invalid rows start suppressed.
-
-    Returns (keep_pos (post_max_size,) int32 positions into the sorted
-    order, padded -1; keep_count 0-d int32), on ``over``'s device.
-    """
-    dev = over.device
-    over_np = over.cpu().numpy()
-    sup = ~valid_o.cpu().numpy()
-    n = sup.shape[0]
-    for i in range(n):
-        if not sup[i]:
-            sup[i + 1:] |= over_np[i, i + 1:]
-    kept = np.flatnonzero(~sup)[:post_max_size]
-    keep_pos = np.full((post_max_size,), -1, np.int32)
-    keep_pos[:kept.size] = kept
-    return (torch.from_numpy(keep_pos).to(dev),
-            torch.tensor(kept.size, dtype=torch.int32, device=dev))
+    """The greedy pass over (G, N, N) score-ordered overlap matrices:
+    kernel E on the card, :func:`greedy_plain` on the CPU."""
+    if over.is_cuda:
+        return greedy_cuda(over, valid_o, post_max_size)
+    return greedy_plain(over, valid_o, post_max_size)
 
 
 def _score_order(scores, valid):
-    """Indices by descending score, stable, invalid rows last."""
+    """Indices by descending score along the last axis, stable, invalid
+    rows last."""
     neg = torch.finfo(scores.dtype).min
-    return torch.sort(torch.where(valid, scores, neg), descending=True,
-                      stable=True).indices
+    return torch.sort(torch.where(valid, scores, neg), dim=-1,
+                      descending=True, stable=True).indices
 
 
 def _keep(over_o, valid, order, post_max_size: int):
-    """:func:`greedy_suppress` over ``over_o`` (in ``order``), its kept
-    positions mapped back to the input order."""
-    keep_pos, keep_count = greedy_suppress(over_o, valid[order],
-                                           post_max_size)
-    keep_idx = torch.where(keep_pos >= 0,
-                           order[keep_pos.clamp(min=0).to(torch.int64)], -1)
+    """:func:`greedy_suppress` over ``over_o`` (G, N, N) (in ``order``,
+    (G, N)), its kept positions mapped back to the input order."""
+    valid_o = valid.gather(-1, order)
+    keep_pos, keep_count = greedy_suppress(over_o, valid_o, post_max_size)
+    picked = order.gather(-1, keep_pos.clamp(min=0).to(torch.int64))
+    keep_idx = torch.where(keep_pos >= 0, picked, -1)
     return keep_idx.to(torch.int32), keep_count
+
+
+def _problems(valid):
+    """(lead shape, G) of problems whose validity is ``valid`` (..., N)."""
+    lead = valid.shape[:-1]
+    return lead, int(np.prod(lead, dtype=np.int64))
 
 
 def nms_boxes(boxes, scores, valid, iou_threshold: float,
               post_max_size: int):
-    """Sort-then-IoU greedy NMS on yx_zb boxes (N, 7).
+    """Sort-then-IoU greedy NMS on yx_zb boxes (..., N, 7), one problem
+    per leading index.
 
-    Returns (keep_idx (post_max_size,) int32 into the ORIGINAL order,
-    score-descending, padded -1; keep_count 0-d int32).
-    """
+    Returns (keep_idx (..., post_max_size) int32 into the ORIGINAL order,
+    score-descending, padded -1; keep_count (...) int32)."""
+    lead, g = _problems(valid)
+    n = valid.shape[-1]
+    scores, valid = scores.reshape(g, n), valid.reshape(g, n)
     order = _score_order(scores, valid)
-    boxes_o = boxes[order]
+    boxes_o = boxes.reshape(g, n, 7).gather(
+        1, order[..., None].expand(g, n, 7))
     iou_o = boxes_iou_3d(boxes_o, boxes_o, criterion=-1)
-    return _keep(iou_o > iou_threshold, valid, order, post_max_size)
+    keep_idx, keep_count = _keep(iou_o > iou_threshold, valid, order,
+                                 post_max_size)
+    return (keep_idx.reshape(lead + (post_max_size,)),
+            keep_count.reshape(lead))
 
 
 def nms_from_iou(iou, scores, valid, iou_threshold: float,
                  post_max_size: int):
-    """Greedy NMS given a full (N, N) IoU matrix in the input order:
+    """Greedy NMS given full (..., N, N) IoU matrices in the input order:
     boxes taken by descending score (stable), each suppressing the later
     ones it overlaps by more than ``iou_threshold``; invalid rows never
-    kept. Returns (keep_idx (post_max_size,) int32 into the input order,
-    padded -1; keep_count 0-d int32)."""
+    kept. Returns (keep_idx (..., post_max_size) int32 into the input
+    order, padded -1; keep_count (...) int32)."""
+    lead, g = _problems(valid)
+    n = valid.shape[-1]
+    scores, valid = scores.reshape(g, n), valid.reshape(g, n)
     order = _score_order(scores, valid)
-    return _keep(iou[order][:, order] > iou_threshold, valid, order,
-                 post_max_size)
+    iou = iou.reshape(g, n, n)
+    rows = iou.gather(1, order[..., None].expand(g, n, n))
+    iou_o = rows.gather(2, order[:, None, :].expand(g, n, n))
+    keep_idx, keep_count = _keep(iou_o > iou_threshold, valid, order,
+                                 post_max_size)
+    return (keep_idx.reshape(lead + (post_max_size,)),
+            keep_count.reshape(lead))
 
 
 def rotate_nms_3d(boxes, scores, valid, iou_threshold: float,

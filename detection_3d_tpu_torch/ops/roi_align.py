@@ -33,24 +33,55 @@ def _sample_offsets(num_bins: int, ratio: int, size):
         + (sub[None, :] + 0.5) * bin_size[:, None] / ratio)
 
 
+class _CornerGather(torch.autograd.Function):
+    """``feats_pad[idx]``, ``feats_pad`` the features with one zero row
+    appended (the missing corners' row, the last). Backward: the gradient
+    of the found rows scattered onto their rows; a missing corner's, which
+    is dropped, goes to its ``spread`` row with weight 0, so the
+    scatter's atomics do not pile up on the zero row."""
+
+    @staticmethod
+    def forward(ctx, feats_pad, idx, spread):
+        ctx.save_for_backward(idx, spread)
+        ctx.rows = feats_pad.shape[0]
+        return feats_pad.index_select(0, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, spread = ctx.saved_tensors
+        found = idx < ctx.rows - 1
+        d = g.new_zeros((ctx.rows, g.shape[1]))
+        d.index_add_(0, torch.where(found, idx, spread),
+                     g * found[:, None].to(g.dtype))
+        return d, None, None
+
+
 def roi_align_rotated_sparse(table: SparseTensor, rois, roi_valid,
                              out_size: Tuple[int, int, int],
                              sampling_ratio: int = 2, roi_batch=None):
     """Args:
-      table: SparseTensor feature map (V, C);
+      table: SparseTensor feature map (V, C), or a unit's stacked maps
+        (B, V, C);
       rois: (R, 7) standard-mode boxes in the table's voxel units
-        [xc, yc, zc, xs, ys, zs, yaw];
-      roi_valid: (R,) bool;
+        [xc, yc, zc, xs, ys, zs, yaw]; (B, R, 7) on a unit, building b's
+        rois pooled from its own table;
+      roi_valid: (R,) bool, or (B, R);
       out_size: (os0, os1, os2) bins along (x_size, y_size, z_size);
-      roi_batch: optional (R,) batch coordinate per roi (the FPN level
-        of the merged multi-level table, models/roi_head.pool_rois).
+      roi_batch: optional (R,) (or (B, R)) batch coordinate per roi (the
+        FPN level of the merged multi-level table,
+        models/roi_head.pool_rois).
 
-    Returns (R, os0, os1, os2, C) pooled features (invalid rois zero).
+    Returns (R, os0, os1, os2, C) pooled features (invalid rois zero),
+    with the leading B of a unit.
     """
     os0, os1, os2 = out_size
     sr = sampling_ratio
-    r = rois.shape[0]
-    c = table.num_channels
+    t = table.stacked()
+    nb, v = t.units, t.capacity
+    lead = rois.shape[:-2]
+    r = rois.shape[-2]
+    rois = rois.reshape(nb * r, 7)
+    c = t.num_channels
     dev = rois.device
 
     xc, yc, zc = rois[:, 0], rois[:, 1], rois[:, 2]
@@ -68,16 +99,17 @@ def roi_align_rotated_sparse(table: SparseTensor, rois, roi_valid,
           + ly[:, None, :] * cos[:, None, None] + yc[:, None, None])
     gz = lz + zc[:, None]
 
-    shape = (r, os0 * sr, os1 * sr, os2 * sr)
+    shape = (nb * r, os0 * sr, os1 * sr, os2 * sr)
     px = gx[:, :, :, None].expand(shape)
     py = gy[:, :, :, None].expand(shape)
     pz = gz[:, None, None, :].expand(shape)
     if roi_batch is None:
         pb = torch.zeros(shape, dtype=torch.int32, device=dev)
     else:
-        pb = roi_batch.to(torch.int32)[:, None, None, None].expand(shape)
+        pb = roi_batch.reshape(-1).to(torch.int32)[:, None, None,
+                                                   None].expand(shape)
 
-    X, Y, Z = table.spatial_size
+    X, Y, Z = t.spatial_size
     inb = ((px > -1.0) & (px < X) & (py > -1.0) & (py < Y)
            & (pz > -1.0) & (pz < Z))
     px = torch.clamp(px, 0.0, X - 1)
@@ -92,26 +124,33 @@ def roi_align_rotated_sparse(table: SparseTensor, rois, roi_valid,
     fx, fy, fz = px - x0, py - y0, pz - z0
     inb_f = inb.to(fx.dtype)
 
-    feats = table.feats
-    acc = torch.zeros((r, os0, os1, os2, c), dtype=torch.float32, device=dev)
-    # a missing corner reads a zero: it gathers some real row with weight
-    # 0. The row is its sample's position modulo V, so the gradient's
-    # scatter (index_select's backward adds with atomics) spreads the
-    # zeros instead of piling every missing corner onto one row
-    spread = torch.arange(px.numel(), device=dev).reshape(shape) % \
-        table.capacity
+    feats = t.feats.reshape(nb * v, c)
+    feats_pad = torch.cat([feats, feats.new_zeros((1, c))], 0)
+    # each building's queries search its own table and read its own rows
+    # (flat row b * V + idx); a missing corner reads the zero row nb * V
+    base = (torch.arange(nb, device=dev) * v).reshape(
+        (nb,) + (1,) * len(shape))
+    unit_shape = (nb, r) + shape[1:]
+    spread = (torch.arange(px.numel(), device=dev).reshape(unit_shape) % v
+              + base).reshape(-1)
+    acc = torch.zeros((nb * r, os0, os1, os2, c), dtype=torch.float32,
+                      device=dev)
     # one corner at a time: the sr^3 sub-samples are summed into the bin
     # grid inside the loop, so the full sample grid of features is never
     # held for all 8 corners at once
     for cx, wx in ((x0, 1 - fx), (x1, fx)):
         for cy, wy in ((y0, 1 - fy), (y1, fy)):
             for cz, wz in ((z0, 1 - fz), (z1, fz)):
-                idx, found = table.lookup(torch.stack([cx, cy, cz, pb], -1))
-                idx = torch.where(found, idx.to(torch.int64), spread)
-                w = (wx * wy * wz * inb_f * found).to(feats.dtype)
-                g = feats.index_select(0, idx.reshape(-1)).reshape(
-                    shape + (c,)) * w[..., None]
-                acc += g.reshape(r, os0, sr, os1, sr, os2, sr, c).sum(
+                q = torch.stack([cx, cy, cz, pb], -1).reshape(
+                    unit_shape + (4,))
+                idx, found = t.lookup(q)
+                idx = torch.where(found, idx.to(torch.int64) + base, nb * v)
+                w = (wx * wy * wz * inb_f).to(feats.dtype)
+                g = _CornerGather.apply(feats_pad, idx.reshape(-1), spread)
+                g = g.reshape(shape + (c,)) * w[..., None]
+                acc += g.reshape(nb * r, os0, sr, os1, sr, os2, sr, c).sum(
                     dim=(2, 4, 6), dtype=torch.float32)
     pooled = (acc * (1.0 / (sr * sr * sr))).to(feats.dtype)
-    return torch.where(roi_valid[:, None, None, None, None], pooled, 0.0)
+    pooled = torch.where(roi_valid.reshape(-1)[:, None, None, None, None],
+                         pooled, 0.0)
+    return pooled.reshape(lead + (r, os0, os1, os2, c))

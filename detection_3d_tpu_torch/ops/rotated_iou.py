@@ -6,6 +6,9 @@ validity masks (4 query corners inside the target, 4 target corners
 inside the query, 16 query-edge x target-edge intersections), ordered
 around their centroid by a sort-free rank and measured by the shoelace
 formula. result[i, j] = iou(boxes_i as target, query_j as anchor).
+Every function here also takes a batch of G such problems, (G, N, 5) x
+(G, K, 5) -> (G, N, K), matrix g over its own boxes alone and equal bit
+for bit to its own call (kernel C runs them in one launch).
 
 IoU criteria (rbox1 = query, rbox2 = target box):
   -1 : inter / union
@@ -30,6 +33,7 @@ import torch
 
 from detection_3d_tpu_torch.ops import cuda_lib
 from detection_3d_tpu_torch.ops.geometry import rbbox_corners_2d
+from detection_3d_tpu_torch.utils.device import device_constant
 
 _NC = 24
 _BIG = 1e9
@@ -52,57 +56,60 @@ _SAME = 1e-6     # check_same_boxes' tolerance on each of the 5 numbers
 
 
 def _extents(boxes):
-    """(lo_x, hi_x, lo_y, hi_y) per box from its corners, each (N,), or
+    """(lo_x, hi_x, lo_y, hi_y) per box from its corners, each (..., N), or
     (-inf, inf) for a box that must never be culled: a non-finite corner,
     or a zero edge (its point-in-quad test accepts a whole strip)."""
     c = rbbox_corners_2d(boxes)
     px, py = c[..., 0], c[..., 1]
-    abx, aby = px[:, 1] - px[:, 0], py[:, 1] - py[:, 0]
-    adx, ady = px[:, 3] - px[:, 0], py[:, 3] - py[:, 0]
+    abx, aby = px[..., 1] - px[..., 0], py[..., 1] - py[..., 0]
+    adx, ady = px[..., 3] - px[..., 0], py[..., 3] - py[..., 0]
     abab = abx * abx + aby * aby
     adad = adx * adx + ady * ady
-    ok = (torch.isfinite(c).flatten(1).all(1) & torch.isfinite(abab)
+    ok = (torch.isfinite(c).flatten(-2).all(-1) & torch.isfinite(abab)
           & torch.isfinite(adad) & (abab > 0.0) & (adad > 0.0))
     inf = torch.full_like(abab, float("inf"))
-    return (torch.where(ok, px.amin(1), -inf), torch.where(ok, px.amax(1), inf),
-            torch.where(ok, py.amin(1), -inf), torch.where(ok, py.amax(1), inf))
+    return (torch.where(ok, px.amin(-1), -inf),
+            torch.where(ok, px.amax(-1), inf),
+            torch.where(ok, py.amin(-1), -inf),
+            torch.where(ok, py.amax(-1), inf))
 
 
 def iou_may_meet(boxes, query_boxes):
-    """(N, K) bool: False where kernel C skips the pair because the two
+    """(..., N, K) bool: False where kernel C skips the pair because the two
     boxes' extents are more than 1e-3 apart in x or in y (such a pair has
     no valid candidate vertex, so its intersection is +0). A comparison
     that sees a NaN never rules a pair out."""
     b = _extents(boxes.to(torch.float32))
     q = _extents(query_boxes.to(torch.float32))
-    apart = ((b[0][:, None] - q[1][None, :] > _GAP)
-             | (q[0][None, :] - b[1][:, None] > _GAP)
-             | (b[2][:, None] - q[3][None, :] > _GAP)
-             | (q[2][None, :] - b[3][:, None] > _GAP))
+    b = [e[..., :, None] for e in b]
+    q = [e[..., None, :] for e in q]
+    apart = ((b[0] - q[1] > _GAP) | (q[0] - b[1] > _GAP)
+             | (b[2] - q[3] > _GAP) | (q[2] - b[3] > _GAP))
     return ~apart
 
 
 def _same_boxes(boxes, query_boxes):
-    """(N, K) bool: all five |differences| < 1e-6, one (N, K) plane at a
-    time."""
+    """(..., N, K) bool: all five |differences| < 1e-6, one (N, K) plane
+    at a time."""
     same = None
     for t in range(5):
-        s = torch.abs(boxes[:, t][:, None] - query_boxes[:, t][None, :]) < _SAME
+        s = torch.abs(boxes[..., :, t, None]
+                      - query_boxes[..., None, :, t]) < _SAME
         same = s if same is None else same & s
     return same
 
 
 def rotated_iou_plain(boxes, query_boxes, criterion: int = -1,
                       same_box_fix: bool = False):
-    """Plain version of kernel C: (N, 5) x (K, 5) -> (N, K) f32, every
-    pair computed.
+    """Plain version of kernel C: (N, 5) x (K, 5) -> (N, K) f32, or a
+    batch (G, N, 5) x (G, K, 5) -> (G, N, K), every pair computed.
 
     ``same_box_fix`` forces pairs whose five numbers all differ by less
     than 1e-6 to 1 (the reference's check_same_boxes)."""
-    bc = rbbox_corners_2d(boxes)                     # (N, 4, 2)
-    qc = rbbox_corners_2d(query_boxes)               # (K, 4, 2)
+    bc = rbbox_corners_2d(boxes)                     # (..., N, 4, 2)
+    qc = rbbox_corners_2d(query_boxes)               # (..., K, 4, 2)
     # targets as (N, 1) columns, queries as (1, K) rows
-    inter = _intersection(bc[:, None], qc[None, :])
+    inter = _intersection(bc[..., :, None, :, :], qc[..., None, :, :, :])
     return _finish(inter, boxes, query_boxes, criterion, same_box_fix)
 
 
@@ -114,12 +121,12 @@ def rotated_iou_pairs(boxes, query_boxes, criterion: int = -1,
     anchors' pad rows and the far boxes would otherwise cost as much as
     the pairs that meet."""
     meet = iou_may_meet(boxes, query_boxes)
-    ti, qi = torch.nonzero(meet, as_tuple=True)
+    pair = torch.nonzero(meet, as_tuple=True)    # (g,) target, query
     bc = rbbox_corners_2d(boxes)
     qc = rbbox_corners_2d(query_boxes)
     inter = torch.zeros(meet.shape, dtype=torch.float32,
                         device=boxes.device)
-    inter[ti, qi] = _intersection(bc[ti], qc[qi])
+    inter[pair] = _intersection(bc[pair[:-1]], qc[pair[:-2] + pair[-1:]])
     return _finish(inter, boxes, query_boxes, criterion, same_box_fix)
 
 
@@ -219,8 +226,8 @@ def _intersection(bc, qc):
 
 
 def _criterion(inter, boxes, query_boxes, criterion):
-    area_q = (query_boxes[:, 2] * query_boxes[:, 3])[None, :]
-    area_b = (boxes[:, 2] * boxes[:, 3])[:, None]
+    area_q = (query_boxes[..., 2] * query_boxes[..., 3])[..., None, :]
+    area_b = (boxes[..., 2] * boxes[..., 3])[..., :, None]
     union = area_q + area_b - inter
     if criterion == -1:
         return inter / union
@@ -229,8 +236,8 @@ def _criterion(inter, boxes, query_boxes, criterion):
     if criterion == 1:
         return inter / area_b
     if criterion == 2:
-        mx = torch.maximum(boxes[:, 2], boxes[:, 3])[:, None]
-        mn = torch.minimum(boxes[:, 2], boxes[:, 3])[:, None]
+        mx = torch.maximum(boxes[..., 2], boxes[..., 3])[..., :, None]
+        mn = torch.minimum(boxes[..., 2], boxes[..., 3])[..., :, None]
         thin = mn / mx < 0.25
         thin_denom = area_b + torch.clamp(area_q * 0.5 - inter, min=0.0)
         return torch.where(thin, inter / thin_denom, inter / union)
@@ -312,21 +319,27 @@ def rotated_iou_pair(qbox, box, criterion: int = -1):
 def rotated_iou_cuda(boxes, query_boxes, criterion: int = -1,
                      same_box_fix: bool = False):
     """Kernel C on the card: same contract as :func:`rotated_iou_plain`,
-    bit for bit."""
+    bit for bit; a batch of G matrices in one launch."""
     if (boxes.dtype != torch.float32 or query_boxes.dtype != torch.float32
-            or boxes.ndim != 2 or boxes.shape[1] != 5
-            or query_boxes.ndim != 2 or query_boxes.shape[1] != 5
+            or boxes.ndim not in (2, 3) or boxes.shape[-1] != 5
+            or query_boxes.ndim != boxes.ndim or query_boxes.shape[-1] != 5
+            or boxes.shape[:-2] != query_boxes.shape[:-2]
             or query_boxes.device != boxes.device):
         raise ValueError("rotated_iou_cuda: expected float32 (N, 5) and "
-                         "(K, 5) boxes on one device")
+                         "(K, 5) boxes, or (G, N, 5) and (G, K, 5), on one "
+                         "device")
     boxes = boxes.contiguous()
     query_boxes = query_boxes.contiguous()
-    n, k = boxes.shape[0], query_boxes.shape[0]
-    out = torch.empty((n, k), dtype=torch.float32, device=boxes.device)
-    if n == 0 or k == 0:
+    g = boxes.shape[0] if boxes.ndim == 3 else 1
+    n, k = boxes.shape[-2], query_boxes.shape[-2]
+    out = torch.empty(boxes.shape[:-2] + (n, k), dtype=torch.float32,
+                      device=boxes.device)
+    if g == 0 or n == 0 or k == 0:
         return out
+    if g > 65535:
+        raise ValueError(f"rotated_iou_cuda: at most 65535 matrices, got {g}")
     status = cuda_lib.library("rotated_iou").rotated_iou_matrix(
-        boxes.data_ptr(), query_boxes.data_ptr(), n, k, criterion,
+        boxes.data_ptr(), query_boxes.data_ptr(), g, n, k, criterion,
         int(same_box_fix), out.data_ptr(), cuda_lib.stream_ptr(boxes.device))
     cuda_lib.check("rotated_iou", status)
     cuda_lib.launches["rotated_iou"] += 1
@@ -334,7 +347,8 @@ def rotated_iou_cuda(boxes, query_boxes, criterion: int = -1,
 
 
 def rotated_iou_matrix(boxes, query_boxes, criterion: int = -1):
-    """(N, 5) x (K, 5) -> (N, K) rotated IoU: kernel C on the card, the
+    """(N, 5) x (K, 5) -> (N, K) rotated IoU (or a (G, ...) batch of
+    such): kernel C on the card, the
     plain version over the pairs that may meet on the CPU. (Near-)identical 5-DoF boxes are forced to
     IoU 1 (the reference's check_same_boxes, ``same_box_fix``): the
     inclusive corner tests can give an identical pair IoU 0."""
@@ -347,18 +361,18 @@ def rotated_iou_matrix(boxes, query_boxes, criterion: int = -1):
 
 
 def z_interval_iou(targets_z, anchors_z):
-    """z-overlap ratio of (N, 2) [z_start, z_size] intervals: overlap over
-    common extent, negative when disjoint. Returns (N_t, N_a)."""
-    t0 = targets_z[:, 0][:, None]
-    t1 = (targets_z[:, 0] + targets_z[:, 1])[:, None]
-    a0 = anchors_z[:, 0][None, :]
-    a1 = (anchors_z[:, 0] + anchors_z[:, 1])[None, :]
+    """z-overlap ratio of (..., N, 2) [z_start, z_size] intervals: overlap
+    over common extent, negative when disjoint. Returns (..., N_t, N_a)."""
+    t0 = targets_z[..., :, 0, None]
+    t1 = (targets_z[..., 0] + targets_z[..., 1])[..., :, None]
+    a0 = anchors_z[..., None, :, 0]
+    a1 = (anchors_z[..., 0] + anchors_z[..., 1])[..., None, :]
     overlap = torch.minimum(a1, t1) - torch.maximum(a0, t0)
     common = torch.maximum(a1, t1) - torch.minimum(a0, t0)
     return overlap / common
 
 
-_BEV = [0, 1, 3, 4, 6]
+_BEV = (0, 1, 3, 4, 6)
 
 # Where :func:`park_invalid` puts rows whose IoU nobody reads: unit boxes
 # far from any scene, targets and queries apart from each other.
@@ -379,27 +393,34 @@ def park_invalid(boxes, valid, at):
     keep."""
     unit = torch.tensor([at[0], at[1], 0.0, 1.0, 1.0, 1.0, 0.0],
                         dtype=boxes.dtype, device=boxes.device)
-    return torch.where(valid[:, None], boxes, unit)
+    return torch.where(valid[..., None], boxes, unit)
 
 
 def boxes_iou_3d(targets, anchors, aug_thickness=None, criterion: int = -1,
                  only_xy: bool = False):
-    """3D IoU of yx_zb boxes: (N_t, 7) x (N_a, 7) -> (N_t, N_a).
+    """3D IoU of yx_zb boxes: (N_t, 7) x (N_a, 7) -> (N_t, N_a), or a
+    batch (G, N_t, 7) x (G, N_a, 7) -> (G, N_t, N_a).
 
     ``aug_thickness``: optional dict with keys target_Y/target_Z/anchor_Y/
-    anchor_Z — minimum sizes applied before the IoU. The BEV box is
-    columns [0, 1, 3, 4, 6] = (x, y, y_size, x_size, yaw).
+    anchor_Z — minimum sizes applied before the IoU; without it the y and
+    z sizes are clamped at 0, as the JAX package clamps them. The BEV box
+    is columns [0, 1, 3, 4, 6] = (x, y, y_size, x_size, yaw).
     """
     targets = targets.to(torch.float32).clone()
     anchors = anchors.to(torch.float32).clone()
-    if aug_thickness is not None:
-        targets[:, 3].clamp_(min=aug_thickness["target_Y"])
-        anchors[:, 3].clamp_(min=aug_thickness["anchor_Y"])
-        targets[:, 5].clamp_(min=aug_thickness["target_Z"])
-        anchors[:, 5].clamp_(min=aug_thickness["anchor_Z"])
-    iou2d = rotated_iou_matrix(targets[:, _BEV], anchors[:, _BEV],
+    aug = aug_thickness or {"target_Y": 0.0, "target_Z": 0.0,
+                            "anchor_Y": 0.0, "anchor_Z": 0.0}
+    targets[..., 3].clamp_(min=aug["target_Y"])
+    anchors[..., 3].clamp_(min=aug["anchor_Y"])
+    targets[..., 5].clamp_(min=aug["target_Z"])
+    anchors[..., 5].clamp_(min=aug["anchor_Z"])
+    bev = device_constant(_BEV, torch.int64, targets.device)
+    iou2d = rotated_iou_matrix(targets.index_select(-1, bev),
+                               anchors.index_select(-1, bev),
                                criterion=criterion)
     if only_xy:
         return iou2d
-    iouz = z_interval_iou(targets[:, [2, 5]], anchors[:, [2, 5]])
+    z = device_constant((2, 5), torch.int64, targets.device)
+    iouz = z_interval_iou(targets.index_select(-1, z),
+                          anchors.index_select(-1, z))
     return iou2d * iouz

@@ -7,7 +7,11 @@ of the backbone (submanifold, strided, deconv, BEV) is
 
 over a (K, V_out) int32 rulebook whose entry V_in reads a zero row, with
 weights laid out (K, Cin, Cout), f32 sums, output rows with ``out_valid``
-false zeroed, and the output in the feats dtype.
+false zeroed, and the output in the feats dtype. A unit of B buildings
+(ops/sparse.py) runs as one conv on its flat rows: feats (B, V_in, C)
+are read as B * V_in rows, its book is flat (entries global, pad
+B * V_in), and the output comes back as (B, V_out, Cout); each row is
+computed as it is alone.
 
 Kernel A takes every rulebook with a :class:`RowOrder`
 (:func:`rulebook_row_order`, built once per pyramid): its output rows
@@ -451,9 +455,15 @@ def sparse_conv(feats, neighbor_idx, weights, out_valid,
     one when it is None). ``halo``, a book's
     parallel/spatial.HaloExchange on a spatially sharded table, first
     refreshes the input's halo rows from the neighbouring shards (JAX
-    ops/sparse_conv.py:71-81)."""
+    ops/sparse_conv.py:71-81). A unit's feats (B, V_in, Cin) and
+    ``out_valid`` (B, V_out) run on the flat rows over its flat book and
+    give (B, V_out, Cout)."""
     if halo is not None:
         feats = halo.refresh(feats)
+    if out_valid.dim() == 2:    # a unit: its flat rows
+        out = sparse_conv(feats.flatten(0, 1), neighbor_idx, weights,
+                          out_valid.reshape(-1), order, bwd)
+        return out.reshape(out_valid.shape + out.shape[-1:])
     if torch.is_grad_enabled() and (feats.requires_grad
                                     or weights.requires_grad):
         return GatherConv.apply(feats, neighbor_idx, weights, out_valid,
@@ -492,7 +502,7 @@ def deconv(in_feats, rulebook_idx, weights, out_valid,
 def nin_conv(feats, weight, out_valid):
     """1x1x1 (NetworkInNetwork) conv: one plain matmul over the rows."""
     out = feats @ weight
-    return torch.where(out_valid[:, None], out, 0.0).to(feats.dtype)
+    return torch.where(out_valid[..., None], out, 0.0).to(feats.dtype)
 
 
 def deconv_rulebook(fine_table, coarse_table, kernel, stride):

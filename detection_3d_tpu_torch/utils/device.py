@@ -1,8 +1,30 @@
-"""Device selection for the port's entry points."""
+"""Device selection for the port's entry points, and constants on the
+card."""
 
 from __future__ import annotations
 
+from typing import Dict, Tuple
+
 import torch
+
+_CONSTANTS: Dict[Tuple, torch.Tensor] = {}
+
+
+def device_constant(values, dtype, device) -> torch.Tensor:
+    """A tensor of nested Python numbers ``values`` (tuples) on
+    ``device``, made once per (values, dtype, device) and shared by every
+    later call; callers must not write to it. A fresh ``torch.tensor`` on
+    the card is a host-to-device copy that waits for the card, and a
+    serving forward must queue its whole unit without waiting."""
+    key = (values, dtype, torch.device(device))
+    t = _CONSTANTS.get(key)
+    if t is None:
+        # a normal tensor even when first made under inference_mode, so
+        # that a later forward with autograd may index with it
+        with torch.inference_mode(False):
+            t = _CONSTANTS[key] = torch.tensor(values, dtype=dtype,
+                                               device=device)
+    return t
 
 
 def resolve_device(device="cuda") -> torch.device:

@@ -13,6 +13,12 @@ A and the backward (dFeats through kernel A on the transposed book, the
 dW kernel) within 1e-4 of the
 largest output in f32 (sum order) and 1e-2 in bf16 (one bf16 rounding
 of the f32 sum). The backward gives the same bits on every call.
+
+A unit of B buildings (ops/sparse.py): A on its flat book bit equal in
+f32 to each building's own call (one bf16 step of the largest output in
+bf16), B over its stacked tables bit equal to each table's own launch,
+C over a batch of matrices bit equal matrix by matrix, and E (the greedy
+NMS pass) with the numpy pass's keep sets.
 """
 
 import numpy as np
@@ -21,6 +27,7 @@ import torch
 
 from detection_3d_tpu_torch.ops import cuda_lib
 from detection_3d_tpu_torch.ops.coords import INVALID
+from detection_3d_tpu_torch.ops.nms import greedy_cuda, greedy_plain
 from detection_3d_tpu_torch.ops.multi_match import (
     conv_rulebook_match, deconv_rulebook_match, multi_match_cuda,
     multi_match_plain)
@@ -37,8 +44,8 @@ from detection_3d_tpu_torch.ops.sparse import (
 from detection_3d_tpu_torch.ops.sparse_conv import (
     BackwardBook, RowOrder, backward_book, gather_conv, gather_conv_backward,
     gather_conv_cuda, gather_conv_dfeats, gather_conv_dfeats_cuda,
-    gather_conv_dw, gather_conv_dw_cuda, row_masks, rulebook_entries,
-    rulebook_row_order, sparse_conv,
+    gather_conv_dw, gather_conv_dw_cuda, masks_row_order, row_masks,
+    rulebook_entries, rulebook_row_order, sparse_conv,
 )
 from torch_iou_cases import adversarial_bev
 from torch_match_cases import MATCH_CASES
@@ -828,3 +835,159 @@ def test_device_activity_names_the_port_kernels(dev):
         lambda: gather_conv_cuda(feats, idx, w, t.row_valid), dev)
     assert act["port_kernels_ms"]["gather_conv"] > 0
     assert "A" in [label for label, _ in act["top_ms"]]
+
+
+# ---- a unit of buildings ---------------------------------------------------
+
+
+def _unit(dev, ns, cap, spatial=SPATIAL, seed=0):
+    """Stacked tables of len(ns) buildings (ns[b] random voxels each, the
+    capacity ``cap`` shared): one build of the stacked coords."""
+    n = max(ns)
+    coords, valid = [], []
+    for b, m in enumerate(ns):
+        rng = np.random.RandomState(seed + b)
+        c = np.zeros((n, 4), np.int32)
+        c[:m, :3] = np.stack([rng.randint(0, s, m) for s in spatial], -1)
+        coords.append(c)
+        valid.append(np.arange(n) < m)
+    coords = torch.from_numpy(np.stack(coords)).to(dev)
+    return build_sparse_tensor(coords, torch.zeros(coords.shape[:2] + (0,),
+                                                   device=dev),
+                               torch.from_numpy(np.stack(valid)).to(dev),
+                               spatial, 1, cap)
+
+
+@pytest.mark.parametrize("window", [SUBM_WINDOW, 0])
+@pytest.mark.parametrize("size", ["window", "whole"])
+def test_subm_match_unit_bit_exact(dev, size, window):
+    """Kernel B over B stacked tables in one launch: book and masks bit
+    equal to each table's own launch (its entries made global) and to the
+    plain version, with shared-memory windows and with the whole-table
+    search; at a table of SUBM_WINDOW_MIN_ROWS rows (window-sized) and a
+    small one."""
+    cap = 65536 if size == "window" else 4096
+    unit = _unit(dev, (cap // 3, cap + 500, cap // 2), cap,
+                 spatial=(96, 96, 48) if size == "window" else SPATIAL)
+    nb, v = unit.units, unit.capacity
+    before = cuda_lib.launches["subm_match"]
+    got, masks = subm_match_cuda(unit, window)
+    assert cuda_lib.launches["subm_match"] == before + 1
+    assert got.shape == (27, nb * v) and masks.shape == (nb * v,)
+    for b in range(nb):
+        one, m = subm_match_cuda(unit.building(b), window)
+        glob = torch.where(one < v, one + b * v, nb * v)
+        assert torch.equal(got[:, b * v:(b + 1) * v], glob)
+        assert torch.equal(masks[b * v:(b + 1) * v], m)
+    plain, plain_masks = neighbor_match_columns(unit)
+    assert torch.equal(got, plain) and torch.equal(masks, plain_masks)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cin,cout", [(9, 32), (32, 32), (64, 128)])
+def test_gather_conv_unit_matches_own_calls(dev, dtype, cin, cout):
+    """Kernel A on a unit's flat submanifold book (rows of all buildings
+    sorted together by mask) against each building's own call on its own
+    book and row order: bit equal in f32; in bf16 within one bf16 step of
+    the largest output."""
+    unit = _unit(dev, (1500, 4500, 3000), 4096, seed=3)
+    nb, v = unit.units, unit.capacity
+    idx, masks = neighbor_match_3x3x3(unit)
+    order = masks_row_order(masks)
+    valid = unit.row_valid.reshape(-1)
+    gen = torch.Generator(device=dev).manual_seed(cin + cout)
+    feats = (torch.randn((nb * v, cin), generator=gen, device=dev)
+             * valid[:, None]).to(dtype)
+    w = (torch.randn((27, cin, cout), generator=gen, device=dev)
+         * 0.2).to(dtype)
+    got = gather_conv_cuda(feats, idx, w, valid, order)
+    scale = float(got.float().abs().max())
+    for b in range(nb):
+        rows = slice(b * v, (b + 1) * v)
+        bidx, bmasks = neighbor_match_3x3x3(unit.building(b))
+        one = gather_conv_cuda(feats[rows], bidx, w, valid[rows],
+                               masks_row_order(bmasks))
+        if dtype == torch.float32:
+            assert torch.equal(got[rows], one)
+        else:
+            step = 2.0 ** (np.floor(np.log2(scale)) - 7)
+            assert float((got[rows].float() - one.float()).abs().max()) \
+                <= step
+
+
+@pytest.mark.parametrize("criterion", [-1, 2])
+def test_rotated_iou_batch_bit_exact(dev, criterion):
+    """Kernel C over a batch of matrices in one launch, each bit equal to
+    its own 2-D call and to the plain version."""
+    mats = [torch.from_numpy(adversarial_bev(seed)).to(dev)
+            for seed in (0, 1, 2)]
+    boxes = torch.stack(mats)
+    query = torch.stack([m.flip(0) for m in mats])
+    before = cuda_lib.launches["rotated_iou"]
+    got = rotated_iou_cuda(boxes, query, criterion, True)
+    assert cuda_lib.launches["rotated_iou"] == before + 1
+    for g in range(boxes.shape[0]):
+        assert _bits_equal(got[g], rotated_iou_cuda(boxes[g], query[g],
+                                                    criterion, True))
+        assert _bits_equal(got[g], rotated_iou_plain(boxes[g], query[g],
+                                                     criterion, True))
+
+
+@pytest.mark.parametrize("n,g,post", [(2000, 2, 1000), (1000, 5, 500),
+                                      (1000, 1, 3), (37, 3, 64)])
+def test_greedy_nms_keep_sets_identical(dev, n, g, post):
+    """Kernel E against the numpy greedy pass: keep positions and counts
+    identical, on overlap matrices with ties (equal rows, a block of
+    overlaps in every row) and an all-invalid matrix."""
+    rng = np.random.RandomState(n + g)
+    over = rng.rand(g, n, n) > 0.97
+    over[:, :, :16] = True
+    over[:, 3] = over[:, 5]
+    valid = rng.rand(g, n) > 0.1
+    valid[-1] = False
+    over_t = torch.from_numpy(over).to(dev)
+    valid_t = torch.from_numpy(valid).to(dev)
+    before = cuda_lib.launches["greedy_nms"]
+    keep, count = greedy_cuda(over_t, valid_t, post)
+    assert cuda_lib.launches["greedy_nms"] == before + 1
+    want_keep, want_count = greedy_plain(over_t, valid_t, post)
+    assert torch.equal(keep, want_keep) and torch.equal(count, want_count)
+    assert int(count[-1]) == 0
+
+
+@pytest.mark.parametrize("pack_mode", ["table", "pyramid"])
+def test_batch_predict_on_card_matches_per_building(dev, pack_mode):
+    """make_batch_predict_fn on the card (two units of two buildings, one
+    of them padded by repeating its building) against the per-building
+    predict on the card: true_num equal and the detections the same set
+    within 1e-4; each unit launches C and E once for the RPN and once
+    for the postprocess."""
+    from detection_3d_tpu_torch.data.native_packer import (
+        pack_pyramid_native, pack_table_native)
+    from detection_3d_tpu_torch.engine.inference import (
+        make_batch_predict_fn, make_predict_fn)
+    from detection_3d_tpu_torch.models.detector import SparseRCNN
+    cfg, _ = _tiny_served(0)
+    pack = {"pyramid": pack_pyramid_native, "table": pack_table_native}
+    packs = [pack[pack_mode](cfg, _tiny_served(s)[1]) for s in range(3)]
+    model = SparseRCNN(cfg, seed=0)
+    one = make_predict_fn(cfg, model, device=dev, packed=pack_mode)
+    batch = make_batch_predict_fn(cfg, model, device=dev, packed=pack_mode)
+    for unit in ([0, 1], [2, 2]):
+        cuda_lib.reset_launches()
+        out, true_num = batch({k: np.stack([packs[i][k] for i in unit])
+                               for k in packs[0]})
+        assert cuda_lib.launches["rotated_iou"] == 2
+        assert cuda_lib.launches["greedy_nms"] == 2
+        for b, i in enumerate(unit):
+            o, t = one(packs[i])
+            assert int(true_num[b]) == int(t)
+            got, want = (a.cpu().numpy() for a in (out[b], o))
+            got = got[got[:, 9] > 0.5]
+            want = want[want[:, 9] > 0.5]
+            got = got[np.lexsort((got[:, 7], got[:, 8]))]
+            want = want[np.lexsort((want[:, 7], want[:, 8]))]
+            assert got.shape == want.shape and want.shape[0] > 0
+            np.testing.assert_array_equal(got[:, 8], want[:, 8])
+            np.testing.assert_allclose(got[:, :8], want[:, :8], atol=1e-4,
+                                       rtol=0)

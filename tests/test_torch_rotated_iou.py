@@ -1,7 +1,11 @@
 """Kernel C's module (ops/rotated_iou.py, ops/nms.py) and the box
 geometry it rests on: the port's plain IoU against JAX's XLA path for
 criteria -1/0/1/2 within atol 1e-5 (float rounding of cos/sin and the
-centroid sums), and NMS keep sets identical.
+centroid sums), and NMS keep sets identical. A batch of matrices (the
+NMS of a unit's buildings and classes) against per-matrix calls: the
+plain IoU bit for bit, the greedy pass (kernel E's plain version) keep
+set for keep set and against JAX's fori_loop; boxes_iou_3d without
+thickness floors clamps negative sizes at 0 as JAX does.
 """
 
 import numpy as np
@@ -11,16 +15,18 @@ import torch
 
 from detection_3d_tpu.ops import box_coder as jcoder
 from detection_3d_tpu.ops import geometry as jgeo
+from detection_3d_tpu.ops.nms import _greedy_suppress as j_greedy
 from detection_3d_tpu.ops.nms import nms_boxes as j_nms
 from detection_3d_tpu.ops.rotated_iou import (
     boxes_iou_3d as j_iou3d, rotated_iou_matrix as j_iou,
 )
 from detection_3d_tpu_torch.ops import box_coder as tcoder
 from detection_3d_tpu_torch.ops import geometry as tgeo
-from detection_3d_tpu_torch.ops.nms import nms_boxes
+from detection_3d_tpu_torch.ops.nms import greedy_plain, nms_boxes
 from detection_3d_tpu_torch.ops.rotated_iou import (
-    boxes_iou_3d, rotated_iou_matrix, rotated_iou_plain,
+    boxes_iou_3d, rotated_iou_matrix, rotated_iou_pairs, rotated_iou_plain,
 )
+from torch_iou_cases import adversarial_bev
 
 
 def _random_bev(rng, n, spread=3.0):
@@ -145,3 +151,64 @@ def test_geometry_and_decode_match_jax():
     got = tcoder.BoxCoder3D().encode(torch.from_numpy(tgt),
                                      torch.from_numpy(boxes)).numpy()
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("criterion", [-1, 2])
+def test_batched_plain_iou_bit_equal_per_matrix(criterion):
+    # the adversarial boxes as targets, a slice of them reversed as
+    # queries, two matrices
+    mats = [torch.from_numpy(adversarial_bev(seed)[160:]) for seed in (0, 1)]
+    boxes = torch.stack(mats)
+    query = torch.stack([m.flip(0)[::3] for m in mats])
+    for fix in (False, True):
+        got = rotated_iou_plain(boxes, query, criterion, fix)
+        pairs = rotated_iou_pairs(boxes, query, criterion, fix)
+        for g in range(boxes.shape[0]):
+            want = rotated_iou_plain(boxes[g], query[g], criterion, fix)
+            for a in (got[g], pairs[g]):
+                assert torch.equal(torch.nan_to_num(a, nan=7.0),
+                                   torch.nan_to_num(want, nan=7.0))
+
+
+def _overlap_cases(n, g, seed):
+    """(G, N, N) IoU matrices with ties and a matrix whose rows are all
+    invalid, and their validity."""
+    rng = np.random.RandomState(seed)
+    iou = rng.rand(g, n, n).astype(np.float32)
+    iou[:, :, :8] = 0.5                          # exactly at the threshold
+    iou[1, 3] = iou[1, 5]                        # two equal rows
+    valid = rng.rand(g, n) > 0.2
+    valid[2] = False                             # all invalid
+    return iou, valid
+
+
+@pytest.mark.parametrize("n,post", [(300, 64), (97, 200)])
+def test_batched_greedy_keep_sets_identical(n, post):
+    iou, valid = _overlap_cases(n, 4, seed=n)
+    over = torch.from_numpy(iou > 0.5)
+    keep, count = greedy_plain(over, torch.from_numpy(valid), post)
+    assert keep.shape == (4, post) and count.shape == (4,)
+    assert int(count[2]) == 0 and bool((keep[2] == -1).all())
+    for g in range(4):
+        k1, c1 = greedy_plain(over[g:g + 1], torch.from_numpy(valid[g:g + 1]),
+                              post)
+        assert torch.equal(keep[g], k1[0]) and int(count[g]) == int(c1[0])
+        jk, jc = j_greedy(jnp.asarray(iou[g]), jnp.asarray(valid[g]), 0.5,
+                          post)
+        np.testing.assert_array_equal(keep[g].numpy(), np.asarray(jk))
+        assert int(count[g]) == int(jc)
+
+
+def test_boxes_iou_3d_clamps_negative_sizes_as_jax():
+    rng = np.random.RandomState(8)
+    t, a = _random_boxes7(rng, 30), _random_boxes7(rng, 20)
+    t[::3, 3] *= -1          # negative y sizes
+    a[1::4, 5] *= -1         # negative z sizes
+    t[2::5, 5] = -0.3
+    want = np.asarray(j_iou3d(jnp.asarray(t), jnp.asarray(a)))
+    got = boxes_iou_3d(torch.from_numpy(t), torch.from_numpy(a)).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+    # G = 2 of them at once, each matrix its own call's bits
+    both = boxes_iou_3d(torch.from_numpy(np.stack([t, t[::-1].copy()])),
+                        torch.from_numpy(np.stack([a, a])))
+    assert torch.equal(both[0], torch.from_numpy(got))

@@ -10,7 +10,8 @@ Detections: the valid rows equal as sets (boxes and scores within 1e-4),
 in descending score within each group in both packages, every label 1
 (with groups: 1 mapped to the group's first class id by the merge),
 equal ``true_num``; losses within rtol 1e-5, gradients within atol
-1e-5 + rtol 1e-3.
+1e-5 + rtol 1e-3. A unit of two buildings (make_batch_predict_fn) gives
+each the bits of its own predict, with one group and with groups.
 """
 
 import numpy as np
@@ -23,7 +24,9 @@ from detection_3d_tpu.engine.inference import make_predict_fn as j_predict_fn
 from detection_3d_tpu.models.detector import (
     SparseRCNN as JRCNN, voxelize_points as jvox)
 from detection_3d_tpu.models.structures import Boxes3D as JBoxes3D
-from detection_3d_tpu_torch.engine.inference import make_predict_fn, pad_scene
+from detection_3d_tpu_torch.data.packing import pack_table
+from detection_3d_tpu_torch.engine.inference import (
+    make_batch_predict_fn, make_predict_fn, pad_scene)
 from detection_3d_tpu_torch.engine.trainer import (
     Trainer, batch_to_device, total_loss)
 from detection_3d_tpu_torch.models.detector import (
@@ -178,3 +181,20 @@ def test_rpn_detections_order_ties_and_invalid_rows():
     assert torch.all(d.fields["labels"] == 1)
     np.testing.assert_array_equal(d.fields["scores"].numpy(),
                                   obj.numpy()[[1, 4, 0, 2, 3, 5]])
+
+
+@pytest.mark.parametrize("form", sorted(FORMS))
+def test_batch_predict_matches_per_building(form):
+    """One forward over a unit of two buildings (table form) gives each
+    building the bits of its own predict."""
+    make_pair, make_scene = FORMS[form]
+    _, tcfg = make_pair()
+    model = SparseRCNN(tcfg, seed=0)
+    packs = [pack_table(tcfg, make_scene(seed)) for seed in (0, 1)]
+    out, true_num = make_batch_predict_fn(tcfg, model, device="cpu",
+                                          packed="table")(
+        {k: np.stack([p[k] for p in packs]) for k in packs[0]})
+    one = make_predict_fn(tcfg, model, device="cpu", packed="table")
+    for b, p in enumerate(packs):
+        o, t = one(p)
+        assert torch.equal(out[b], o) and int(true_num[b]) == int(t)
