@@ -70,9 +70,11 @@
    scale-0 book (f32 bit equal to each building's own call), B over the
    4 stacked tables (bit exact, and against each table's own launch), C
    at the unit's two NMS calls (bit exact matrix by matrix) and E, the
-   greedy NMS pass (identical keep sets against the numpy pass, also on
-   2000^2 and 1000^2 cases with ties and an all-invalid matrix), each
-   timed beside its plain version and bound.
+   greedy NMS pass over the float32 IoU (identical keep sets against the
+   torch compare and numpy pass, also on 2000^2 and 1000^2 cases with
+   ties, entries at the threshold, beside it and NaN, and an all-invalid
+   matrix), each timed beside its plain version and bound; E also beside
+   the torch compare it absorbs and its walk's serial floor.
 5. Training path at full width: a Trainer on the card takes 6 steps over
    6 such buildings (bf16 compute, SparseRCNN(cfg, seed=0)); checks
    finite losses, applied steps, moved parameters and that A, both A'
@@ -1011,14 +1013,14 @@ def check_rotated_iou(dev):
         if crit == -1:
             iouz = z_interval_iou(boxes[:, [2, 5]], boxes[:, [2, 5]])
             valid = torch.ones(n, dtype=torch.bool, device=dev)
-            k_keep = greedy_plain((got * iouz > 0.5)[None], valid[None],
+            k_keep = greedy_plain((got * iouz)[None], valid[None], 0.5,
                                   1000)
-            p_keep = greedy_plain((want * iouz > 0.5)[None], valid[None],
+            p_keep = greedy_plain((want * iouz)[None], valid[None], 0.5,
                                   1000)
             check(torch.equal(k_keep[0], p_keep[0]),
                   "kernel C: NMS keep sets differ from the plain version")
             t0 = time.perf_counter()
-            greedy_plain((got * iouz > 0.5)[None], valid[None], 1000)
+            greedy_plain((got * iouz)[None], valid[None], 0.5, 1000)
             greedy_ms = (time.perf_counter() - t0) * 1e3
             ms = time_ms(lambda: rotated_iou_cuda(bev, bev, crit, True))
             plain = time_ms(lambda: rotated_iou_plain(bev, bev, crit, True),
@@ -4104,49 +4106,84 @@ def check_kernel_c_unit(calls):
     return lines
 
 
+# an estimate, not a measurement, of the serial floor of kernel E's
+# walk: every row of a matrix is taken to cost two dependent integer
+# operations of ~4 cycles (the test of its bit, the predicated OR of its
+# diagonal word) at the H100 SXM's 1.98 GHz boost clock; the G matrices
+# walk at once. Printed on the "kernel E shape" lines only.
+E_CYCLES_PER_ROW = 8
+H100_CLOCK_HZ = 1.98e9
+
+
 def _greedy_cases(dev):
-    """(G, N, N) overlap matrices with ties (equal rows, a block of
-    overlaps) and an all-invalid matrix, at N = 2000 and 1000."""
+    """(G, N, N) float32 IoU matrices with ties (equal rows, a block of
+    overlaps in every row), entries at float32(t), beside it on both
+    sides and NaN, and an all-invalid matrix, at N = 2000 and 1000, with
+    their threshold t (0.7 and 0.1, neither exact in float32)."""
     out = []
-    for n, g in ((2000, 2), (1000, 5)):
+    for n, g, t in ((2000, 2, 0.7), (1000, 5, 0.1)):
         rng = np.random.RandomState(n)
-        over = rng.rand(g, n, n) > 0.97
-        over[:, :, :16] = True
-        over[:, 7] = over[:, 9]
+        t32 = np.float32(t)
+        iou = (rng.rand(g, n, n) * t32).astype(np.float32)
+        iou[rng.rand(g, n, n) > 0.97] = 0.9
+        iou[:, :, :16] = 0.9
+        edges = np.array([t32, np.nextafter(t32, np.float32(2)),
+                          np.nextafter(t32, np.float32(-1)), np.nan],
+                         np.float32)
+        pick = rng.rand(g, n, n) < 0.02
+        iou[pick] = edges[rng.randint(0, 4, int(pick.sum()))]
+        iou[:, 7] = iou[:, 9]
         valid = rng.rand(g, n) > 0.1
         valid[-1] = False
-        out.append((torch.from_numpy(over).to(dev),
-                    torch.from_numpy(valid).to(dev), n // 2))
+        out.append((torch.from_numpy(iou).to(dev),
+                    torch.from_numpy(valid).to(dev), t, n // 2))
     return out
 
 
 def check_kernel_e(calls, dev):
-    """Kernel E against the plain greedy pass (numpy on the host): keep
-    positions and counts identical at a unit's calls and at the cases of
-    :func:`_greedy_cases`; each call timed. The bound is the bytes: the
-    (G, N, N) bools and validity read once, the keep positions and counts
-    written once."""
+    """Kernel E against the plain greedy pass (the compare in torch, the
+    pass in numpy on the host): keep positions and counts identical at a
+    unit's calls and at the cases of :func:`_greedy_cases`; each call
+    timed by CUDA events (``ms``: at these sizes the host's launches can
+    set that pace) and its pack and walk launches by the profiler
+    (``device_ms`` their sum), beside the torch compare ``iou > t`` E
+    absorbs (``compare_ms``). The bound is the bytes: the entries right of
+    the diagonal of the float32 matrices and the validity read once, the
+    keep positions and counts written once. Each printed line also shows
+    ``walk_floor_ms``, the estimate of the walk's serial floor (N rows,
+    E_CYCLES_PER_ROW each), which the returned lines leave out."""
     from detection_3d_tpu_torch.ops.nms import greedy_cuda, greedy_plain
     lines = []
     cases = [(a, "unit") for a in calls] + [
-        (a, "ties") for a in _greedy_cases(dev)]
-    for (over, valid, post), what in cases:
+        (a, "edges") for a in _greedy_cases(dev)]
+    for (iou, valid, t, post), what in cases:
         g, n = valid.shape
-        k, c = greedy_cuda(over, valid, post)
-        pk, pc = greedy_plain(over, valid, post)
+        k, c = greedy_cuda(iou, valid, t, post)
+        pk, pc = greedy_plain(iou, valid, t, post)
         check(torch.equal(k, pk) and torch.equal(c, pc),
               f"kernel E ({what}, G={g}, N={n}): keep sets differ from "
               "the plain greedy pass")
-        nbytes = g * n * n + g * n + g * post * 4 + g * 4
-        b_ms, b_by = bound(nbytes, float(g) * n * (n // 32 + 1), SCALAR_OPS)
+        nbytes = (g * n * (n - 1) // 2 * 4 + g * n + g * post * 4
+                  + g * 4)
+        b_ms, b_by = bound(nbytes, float(g) * n * (n - 1) // 2, SCALAR_OPS)
+        pack_ms, walk_ms = (device_ms(lambda: greedy_cuda(iou, valid, t, post),
+                                      [sym])
+                            for sym in ("greedy_nms_pack", "greedy_nms_walk"))
         line = {"case": what, "G": g, "N": n, "post": post,
-                "kept": [int(x) for x in c],
-                "ms": time_ms(lambda: greedy_cuda(over, valid, post)),
-                "plain_ms": time_ms(lambda: greedy_plain(over, valid, post),
-                                    2),
-                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-                "max_abs_err": 0.0, "tolerance": "identical keep sets"}
-        print("kernel E shape", json.dumps(line))
+                "threshold": t, "kept": [int(x) for x in c],
+                "ms": time_ms(lambda: greedy_cuda(iou, valid, t, post)),
+                "device_ms": (None if None in (pack_ms, walk_ms)
+                              else pack_ms + walk_ms),
+                "pack_device_ms": pack_ms,
+                "walk_device_ms": walk_ms,
+                "compare_ms": time_ms(lambda: iou > t),
+                "plain_ms": time_ms(
+                    lambda: greedy_plain(iou, valid, t, post), 2),
+                "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": None, "max_abs_err": 0.0,
+                "tolerance": "identical keep sets"}
+        floor = n * E_CYCLES_PER_ROW / H100_CLOCK_HZ * 1e3
+        print("kernel E shape", json.dumps({**line, "walk_floor_ms": floor}))
         lines.append(line)
     return lines
 
@@ -4503,6 +4540,9 @@ def main():
             "library_ms": rep.get("library_ms")})
         if "bound_all_pairs_ms" in rep:
             kernels[-1]["bound_all_pairs_ms"] = rep["bound_all_pairs_ms"]
+        for key in ("device_ms", "compare_ms"):   # E
+            if key in rep:
+                kernels[-1][key] = rep[key]
         if rep.get("library_ms") is not None:
             kernels[-1]["library_computes"] = (
                 "torch.searchsorted over the same composite queries: the "

@@ -1,153 +1,334 @@
-// Greedy NMS pass: for each of G score-ordered (N, N) bool matrices
-// over[g][i][j] = (IoU(i, j) > threshold), row i, when not suppressed,
-// suppresses every j > i it overlaps; rows with valid[g][i] false start
-// suppressed. Writes keep[g] (post,) int32, the kept positions ascending,
-// padded -1, and count[g] = min(kept, post).
+// Greedy NMS pass: for each of G score-ordered (N, N) float32 IoU
+// matrices, row i, when not suppressed, suppresses every j > i with
+// iou[g][i][j] > threshold (compared in float32, as JAX compares a float32
+// array with a Python float; NaN never exceeds it); rows with valid[g][i]
+// false start suppressed. Writes keep[g] (post,) int32, the kept positions
+// ascending, padded -1, and count[g] = min(kept, post).
 //
 // Replaces the JAX package's lax.fori_loop in detection_3d_tpu/ops/nms.py
-// (_greedy_suppress, not a Pallas kernel), which the port had run on the
-// host after copying each matrix there. Contract, the same keep sets as
-// the plain version detection_3d_tpu_torch/ops/nms.py:greedy_plain (a
-// numpy loop over the same bits in the same order).
+// (_greedy_suppress, not a Pallas kernel). Contract: the same keep sets as
+// the plain version detection_3d_tpu_torch/ops/nms.py:greedy_plain.
 //
-// What bounds it on an H100: the N^2 bytes of a matrix are read once,
-// 4 MB at N = 2000; the pass is sequential over the rows, so one block
-// owns a matrix and the G matrices of a unit (its buildings' RPN
-// proposals, or their classes' detections) run on G SMs at once.
+// What bounds it on an H100: the upper triangle of the float32 matrices,
+// read once (32 MB at 4 x 2000^2, ~10 us at 3.35 TB/s), and the walk,
+// which is sequential over the rows: a predicated OR a row in the
+// chain, a few cycles, and the OR of the alive rows' words beside it.
 //
-// Design:
-//  * The suppressed set is a bit mask of ceil(N / 32) words in shared
-//    memory. Positions past N start suppressed, so they are never kept.
-//  * Rows come in blocks of kRows: every thread packs 32 bools of a row
-//    into one word (four 4-byte loads when the row is aligned, else byte
-//    loads), only the words at or right of the block's diagonal, into
-//    shared memory.
-//  * Warp 0 then walks the block's rows in order: a row whose bit is
-//    clear ORs its words (bits j > i only) into the mask, a lane a word.
+// Design, two launches on the caller's stream:
+//  * pack (every SM): a warp a row. 32 lanes read 32 consecutive floats
+//    (coalesced, streaming) and __ballot_sync turns "> threshold" into 32
+//    bits, two ballots a u64 word; four words' loads are in flight at
+//    once. Only the words at or right of the row's diagonal word are read
+//    (the pass never looks below the diagonal), into a u64 scratch laid
+//    out slab by slab: the 64 rows of slab b (rows 64 b ..) one after
+//    another, each from word b & ~1 to W = ceil(N / 64) rounded up to
+//    even, so every slab is one contiguous, 16-byte aligned block. The
+//    bits (1 MB at 4 x 2000^2) stay in L2 for the walk.
+//  * walk (a block a matrix): one thread of warp 1 copies each slab with
+//    one cp.async.bulk (TMA) into a ring of shared-memory stages (up to
+//    kMaxStages, as many as kRingBytes holds), each with a transaction
+//    mbarrier, and waits for a stage's release before reusing it. (A
+//    bulk copy a row, 64 a slab, held the walk at ~2 us a slab on the
+//    H100, whatever the rows kept.) Warp 0 holds the suppressed mask in
+//    registers (word w in lane w % 32, at most 4 words a lane at N =
+//    8192). For slab b every lane takes the suppressed word b from its
+//    owner (one shuffle) and the slab's 64 diagonal words
+//    (broadcast loads, all in flight at once) into registers, then runs
+//    the greedy chain over the slab's rows there: a predicated OR a row,
+//    the only serial part. (Jumping from alive row to alive row with
+//    __ffsll put a dependent shared-memory load in the chain: ~170 cycles
+//    a kept row on the H100, against a few here.) Each lane then ORs the
+//    alive rows' words right of b into its own, loads that do not depend
+//    on one another, and the owner keeps word b.
 //  * The kept positions are compacted by warp 0, 32 words a round, with
 //    a warp prefix sum of the words' popcounts.
-// Each output is written once; the kernel allocates nothing and launches
-// on the caller's stream.
+// Each output is written once; the wrapper allocates the scratch and the
+// kernels allocate nothing.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kRows = 32;
+constexpr int kMaxN = 8192;         // ops/nms.py GREEDY_MAX_N
+constexpr int kLaneWords = 4;       // ceil(ceil(kMaxN / 64) / 32)
+constexpr int kPackWarps = 8;       // rows a pack block
+constexpr int kPackUnroll = 4;      // words whose loads are in flight
+constexpr int kSlab = 64;           // rows a walk slab: one mask word
+constexpr int kMaxStages = 8;
+// the ring's shared memory: 3 stages of 64 rows at N = 8192, 8 at N <= 3072
+constexpr int kRingBytes = 3 * kSlab * 128 * 8;
 constexpr unsigned kFull = 0xFFFFFFFFu;
 
-// bits t of the word: row[32 * w + t] != 0 for positions below n
-__device__ __forceinline__ uint32_t pack_word(const uint8_t* row, int w,
-                                              int n) {
-  const int p0 = 32 * w;
-  uint32_t bits = 0;
-  if (p0 + 32 <= n && (reinterpret_cast<uintptr_t>(row + p0) & 3) == 0) {
-    const uint32_t* q = reinterpret_cast<const uint32_t*>(row + p0);
-    uint32_t u[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) u[j] = q[j];
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int b = 0; b < 4; ++b)
-        if ((u[j] >> (8 * b)) & 0xFFu) bits |= 1u << (4 * j + b);
-    return bits;
-  }
-  for (int t = 0; t < 32 && p0 + t < n; ++t)
-    if (row[p0 + t]) bits |= 1u << t;
-  return bits;
+__host__ __device__ constexpr int mask_words(int n) {
+  return ((n + 63) / 64 + 1) & ~1;
 }
 
-__global__ void __launch_bounds__(kThreads)
-greedy_nms_kernel(const uint8_t* __restrict__ over,
-                  const uint8_t* __restrict__ valid, int n, int post,
-                  int* __restrict__ keep, int* __restrict__ count) {
-  extern __shared__ uint32_t smem[];
-  const int words = (n + 31) >> 5;
-  uint32_t* sup = smem;                 // (words,) suppressed bits
-  uint32_t* blk = smem + words;         // (kRows, words) staged rows
-  const int g = blockIdx.x;
-  over += (size_t)g * n * n;
-  valid += (size_t)g * n;
-  keep += (size_t)g * post;
-  const int tid = threadIdx.x, lane = tid & 31;
+// where slab b starts in a matrix's scratch, in words: slab b' holds 64
+// rows of words - (b' & ~1) words each, one after another
+__host__ __device__ constexpr long long slab_offset(int b, int words) {
+  return (long long)kSlab *
+         ((long long)b * words - 2LL * (b >> 1) * ((b >> 1) - 1) -
+          2LL * (b >> 1) * (b & 1));
+}
 
-  for (int w = tid; w < words; w += kThreads) {
-    uint32_t bits = 0;
-    for (int t = 0; t < 32; ++t) {
-      const int p = 32 * w + t;
-      if (p >= n || !valid[p]) bits |= 1u << t;
+// the walk's ring stages at this n: as many 64-row slabs as kRingBytes holds
+__host__ __device__ constexpr int ring_stages(int n) {
+  return kRingBytes / (kSlab * mask_words(n) * 8) < kMaxStages
+             ? kRingBytes / (kSlab * mask_words(n) * 8)
+             : kMaxStages;
+}
+
+__global__ void __launch_bounds__(32 * kPackWarps)
+greedy_nms_pack_kernel(const float* __restrict__ iou, float t, int n,
+                       uint64_t* __restrict__ bits) {
+  const int lane = threadIdx.x & 31;
+  const int r = blockIdx.x * kPackWarps + (threadIdx.x >> 5);
+  if (r >= n) return;   // uniform over the warp
+  const int words = mask_words(n);
+  const int wd = r >> 6, w0 = wd & ~1;   // diagonal word, first stored
+  const float* src = iou + ((size_t)blockIdx.y * n + r) * n;
+  // the row's words w0.. at dst[w - w0], in its slab's block of rows
+  uint64_t* dst = bits + blockIdx.y * slab_offset((n + 63) / 64, words) +
+                  slab_offset(wd, words) + (r & 63) * (words - w0);
+  uint64_t mine = 0;                     // word (group * 32 + lane)
+  for (int wb = wd & ~(kPackUnroll - 1); wb < words; wb += kPackUnroll) {
+    bool o[2 * kPackUnroll];
+#pragma unroll
+    for (int u = 0; u < kPackUnroll; ++u) {
+      const int w = wb + u, p = 64 * w + lane;
+      o[2 * u] = w >= wd && p < n && __ldcs(src + p) > t;
+      o[2 * u + 1] = w >= wd && p + 32 < n && __ldcs(src + p + 32) > t;
     }
-    sup[w] = bits;
+#pragma unroll
+    for (int u = 0; u < kPackUnroll; ++u) {
+      const uint64_t word =
+          (uint64_t)__ballot_sync(kFull, o[2 * u + 1]) << 32 |
+          __ballot_sync(kFull, o[2 * u]);
+      if (lane == ((wb + u) & 31)) mine = word;
+    }
+    if (((wb + kPackUnroll) & 31) == 0 || wb + kPackUnroll >= words) {
+      const int w = (wb & ~31) + lane;   // a group of 32 words ends
+      if (w >= w0 && w < words) dst[w - w0] = mine;
+      mine = 0;
+    }
   }
+}
 
-  for (int r0 = 0; r0 < n; r0 += kRows) {
-    const int rows = min(kRows, n - r0);
-    const int w0 = r0 >> 5, span = words - w0;
-    __syncthreads();   // the mask is set, the previous block is read
-    for (int e = tid; e < rows * span; e += kThreads) {
-      const int rr = e / span, w = w0 + e % span;
-      blk[rr * words + w] = pack_word(over + (size_t)(r0 + rr) * n, w, n);
+__device__ __forceinline__ uint32_t smem(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void bar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+               :: "r"(smem(bar)), "r"(count) : "memory");
+}
+
+// waits for the completion of the barrier's phase of this parity; a
+// wait that never ends traps (a launch error) instead of hanging the card
+__device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done, polls = 0;
+  do {
+    asm volatile("{\n\t.reg .pred p;\n\t"
+                 "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+                 "selp.u32 %0, 1, 0, p;\n\t}"
+                 : "=r"(done) : "r"(smem(bar)), "r"(parity) : "memory");
+    if (++polls == (1u << 24)) __trap();
+  } while (!done);
+}
+
+__device__ __forceinline__ void bar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];"
+               :: "r"(smem(bar)) : "memory");
+}
+
+__device__ __forceinline__ void bar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(smem(bar)), "r"(bytes) : "memory");
+}
+
+// one bulk (TMA) copy from global to shared memory, completing on ``bar``
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx"
+               "::bytes [%0], [%1], %2, [%3];"
+               :: "r"(smem(dst)), "l"(src), "r"(bytes), "r"(smem(bar))
+               : "memory");
+}
+
+__global__ void __launch_bounds__(64)
+greedy_nms_walk_kernel(const uint64_t* __restrict__ bits,
+                       const uint8_t* __restrict__ valid, int n, int post,
+                       int* __restrict__ keep, int* __restrict__ count) {
+  extern __shared__ __align__(128) uint64_t ring[];   // (stages, 64, W)
+  __shared__ __align__(8) uint64_t full[kMaxStages], empty[kMaxStages];
+  const int g = blockIdx.x, lane = threadIdx.x & 31;
+  const int words = mask_words(n), slabs = (n + kSlab - 1) / kSlab;
+  const int stages = ring_stages(n);
+  bits += g * slab_offset(slabs, words);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      bar_init(&full[s], 1);
+      bar_init(&empty[s], 1);
     }
-    __syncthreads();
-    if (tid < 32) {
-      for (int rr = 0; rr < rows; ++rr) {
-        const int i = r0 + rr, wi = i >> 5;
-        if ((sup[wi] >> (i & 31)) & 1u) continue;   // uniform over the warp
-        for (int w = wi + lane; w < words; w += 32) {
-          uint32_t m = blk[rr * words + w];
-          if (w == wi) m &= (i & 31) == 31 ? 0u : kFull << ((i & 31) + 1);
-          sup[w] |= m;
-        }
-        __syncwarp();
-      }
-    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
 
-  if (tid < 32) {
-    int base = 0;
-    for (int w0 = 0; w0 < words && base < post; w0 += 32) {
-      const int w = w0 + lane;
-      const uint32_t kept = w < words ? ~sup[w] : 0u;
-      const int c = __popc(kept);
-      int incl = c;
-#pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const int y = __shfl_up_sync(kFull, incl, off);
-        if (lane >= off) incl += y;
-      }
-      int at = base + incl - c;
-      for (uint32_t b = kept; b != 0 && at < post; b &= b - 1, ++at)
-        keep[at] = 32 * w + __ffs(b) - 1;
-      base += __shfl_sync(kFull, incl, 31);
+  if (threadIdx.x >= 32) {   // warp 1: one thread copies each slab
+    if (threadIdx.x > 32) return;
+    for (int b = 0; b < slabs; ++b) {
+      const int s = b % stages, span = words - (b & ~1);
+      const uint32_t bytes = min(kSlab, n - kSlab * b) * span * 8;
+      if (b >= stages) bar_wait(&empty[s], (b / stages - 1) & 1);
+      bar_expect(&full[s], bytes);
+      bulk_load(ring + (size_t)s * kSlab * words,
+                bits + slab_offset(b, words), bytes, &full[s]);
     }
-    base = min(base, post);
-    if (lane == 0) count[g] = base;
-    for (int at = base + lane; at < post; at += 32) keep[at] = -1;
+    return;
   }
+
+  // warp 0: the suppressed mask, word 32 k + lane in sup[k]; positions
+  // past n start suppressed, so they are never kept
+  valid += (size_t)g * n;
+  uint64_t sup[kLaneWords];
+#pragma unroll
+  for (int k = 0; k < kLaneWords; ++k) {
+    sup[k] = ~0ull;
+    for (int j0 = 0; j0 < 32 && 32 * k + j0 < words; j0 += 8) {
+      bool lo[8], hi[8];   // eight words' loads in flight
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int p = 64 * (32 * k + j0 + u) + lane;
+        lo[u] = p >= n || !valid[p];
+        hi[u] = p + 32 >= n || !valid[p + 32];
+      }
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const uint64_t word = (uint64_t)__ballot_sync(kFull, hi[u]) << 32 |
+                              __ballot_sync(kFull, lo[u]);
+        if (lane == j0 + u) sup[k] = word;
+      }
+    }
+  }
+
+  for (int b = 0; b < slabs; ++b) {
+    const int s = b % stages, w0 = b & ~1, span = words - w0;
+    const int kb = b >> 5;
+    uint64_t own = sup[0];
+#pragma unroll
+    for (int k = 1; k < kLaneWords; ++k)
+      if (k == kb) own = sup[k];
+    uint64_t cur = __shfl_sync(kFull, own, b & 31);   // word b
+    bar_wait(&full[s], (b / stages) & 1);
+    const uint64_t* stage = ring + (size_t)s * kSlab * words;   // [i][w - w0]
+    // the slab's diagonal words (one broadcast load each), only the bits
+    // right of each row's own; rows past n are suppressed in cur
+    uint64_t d[kSlab];
+#pragma unroll
+    for (int i = 0; i < kSlab; ++i)
+      d[i] = stage[(size_t)i * span + b - w0] &
+             (i == 63 ? 0ull : ~0ull << (i + 1));
+    // the greedy chain over the slab's rows, the only serial part: a
+    // predicated OR a row, from registers; rows 0..31 touch the high half
+    // off the chain
+    uint32_t lo = static_cast<uint32_t>(cur);
+    uint32_t hi = static_cast<uint32_t>(cur >> 32);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      if (!((lo >> i) & 1u)) {
+        lo |= static_cast<uint32_t>(d[i]);
+        hi |= static_cast<uint32_t>(d[i] >> 32);
+      }
+    }
+#pragma unroll
+    for (int i = 32; i < kSlab; ++i)
+      if (!((hi >> (i - 32)) & 1u)) hi |= static_cast<uint32_t>(d[i] >> 32);
+    cur = (uint64_t)hi << 32 | lo;
+    const uint64_t alive = ~cur;
+    // each lane ORs the alive rows' words right of b into its own: every
+    // load unconditional, masked by its row's alive bit, so none waits
+    // for another
+#pragma unroll
+    for (int k = 0; k < kLaneWords; ++k) {
+      const int w = 32 * k + lane;
+      if (alive == 0 || 32 * k + 31 <= b || 32 * k >= words) continue;
+      if (w > b && w < words) {
+        uint64_t acc = 0;
+#pragma unroll
+        for (int i = 0; i < kSlab; ++i)
+          acc |= stage[(size_t)i * span + w - w0] &
+                 (0ull - ((alive >> i) & 1ull));
+        sup[k] |= acc;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kLaneWords; ++k)
+      if (k == kb && lane == (b & 31)) sup[k] = cur;
+    __syncwarp();   // every lane has read the stage
+    if (lane == 0) bar_arrive(&empty[s]);
+  }
+
+  keep += (size_t)g * post;
+  int base = 0;
+#pragma unroll
+  for (int k = 0; k < kLaneWords; ++k) {
+    if (32 * k >= words || base >= post) break;   // uniform over the warp
+    const int w = 32 * k + lane;
+    const uint64_t kept = w < words ? ~sup[k] : 0ull;
+    const int c = __popcll(kept);
+    int incl = c;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int y = __shfl_up_sync(kFull, incl, off);
+      if (lane >= off) incl += y;
+    }
+    int at = base + incl - c;
+    for (uint64_t x = kept; x != 0 && at < post; x &= x - 1, ++at)
+      keep[at] = 64 * w + __ffsll(static_cast<long long>(x)) - 1;
+    base += __shfl_sync(kFull, incl, 31);
+  }
+  base = min(base, post);
+  if (lane == 0) count[g] = base;
+  for (int at = base + lane; at < post; at += 32) keep[at] = -1;
 }
 
 }  // namespace
 
-// over (g, n, n) and valid (g, n) as bytes (torch.bool); keep (g, post)
-// and count (g,) int32. One block a matrix.
-extern "C" int greedy_nms(const void* over, const void* valid, int g, int n,
-                          int post, void* keep, void* count, void* stream) {
-  if (g < 1 || n < 1 || post < 1)
+// the u64 scratch words a matrix takes: its slabs, W = ceil(n / 64)
+// rounded up to even
+extern "C" int greedy_nms_scratch_words(int n) {
+  return static_cast<int>(
+      slab_offset((n + kSlab - 1) / kSlab, mask_words(n)));
+}
+
+// iou (g, n, n) float32 and valid (g, n) bytes (torch.bool); bits a u64
+// scratch of greedy_nms_scratch_words(n) words a matrix; keep (g, post)
+// and count (g,) int32. The pack launch over every SM, then the walk, a
+// block a matrix.
+extern "C" int greedy_nms(const void* iou, const void* valid,
+                          float threshold, int g, int n, int post,
+                          void* bits, void* keep, void* count,
+                          void* stream) {
+  if (g < 1 || g > 65535 || n < 1 || n > kMaxN || post < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int words = (n + 31) / 32;
-  const size_t smem = (size_t)(kRows + 1) * words * sizeof(uint32_t);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        greedy_nms_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid((n + kPackWarps - 1) / kPackWarps, g);
+  greedy_nms_pack_kernel<<<grid, 32 * kPackWarps, 0, st>>>(
+      static_cast<const float*>(iou), threshold, n,
+      static_cast<uint64_t*>(bits));
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const size_t ring = (size_t)ring_stages(n) * kSlab * mask_words(n) *
+                      sizeof(uint64_t);
+  if (ring + 2 * kMaxStages * sizeof(uint64_t) > 48 * 1024) {
+    e = cudaFuncSetAttribute(greedy_nms_walk_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)ring);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  greedy_nms_kernel<<<g, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(over), static_cast<const uint8_t*>(valid),
+  greedy_nms_walk_kernel<<<g, 64, ring, st>>>(
+      static_cast<const uint64_t*>(bits), static_cast<const uint8_t*>(valid),
       n, post, static_cast<int*>(keep), static_cast<int*>(count));
   return static_cast<int>(cudaGetLastError());
 }

@@ -12,7 +12,8 @@ each, all started together).
 
 ``launches`` counts, per kernel, the launches its wrapper made: the
 forward and dFeats entries of csrc/gather_conv.cu count apart, and dW
-(csrc/gather_conv_bwd.cu) counts once per call. A wrapper adds one exactly where it launches its kernel; a
+(csrc/gather_conv_bwd.cu) and the greedy NMS pass (csrc/greedy_nms.cu,
+a pack and a walk) count once per call. A wrapper adds one exactly where it launches its kernel; a
 run can then show that a path went through every kernel.
 """
 
@@ -43,12 +44,13 @@ COUNTERS = ("gather_conv", "gather_conv_dfeats", "gather_conv_dw",
             "subm_match", "rotated_iou", "multi_match", "greedy_nms")
 # each counter's kernel symbols in a device trace (kernel A's body runs
 # under the ConvForward and ConvDFeats tags; dW is a partial kernel and
-# its reduction), and the kernel's short name in the tools' reports
+# its reduction, E a pack and a walk), and the kernel's short name in
+# the tools' reports
 SYMBOLS = {"gather_conv": "ConvForward", "gather_conv_dfeats": "ConvDFeats",
            "gather_conv_dw": "gather_dw_", "subm_match": "subm_match_",
            "rotated_iou": "rotated_iou_kernel",
            "multi_match": "multi_match_kernel",
-           "greedy_nms": "greedy_nms_kernel"}
+           "greedy_nms": "greedy_nms_"}
 LABELS = {"gather_conv": "A", "gather_conv_dfeats": "dFeats",
           "gather_conv_dw": "dW", "subm_match": "B", "rotated_iou": "C",
           "multi_match": "D", "greedy_nms": "E"}
@@ -62,9 +64,9 @@ _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _EXTRA_FLAGS = {"rotated_iou": ["--fmad=false"]}
 
 # the C entry points of each library: name -> argument types (pointers
-# and the stream as c_void_p, sizes as c_int); every one returns the
-# cudaError_t of its launch as an int
-_P, _I = ctypes.c_void_p, ctypes.c_int
+# and the stream as c_void_p, sizes as c_int, a threshold as c_float);
+# every one returns an int: the cudaError_t of its launch, or a size
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ENTRY_POINTS = {
     "gather_conv": {name: [_P] * 6 + [_I] * 4 + [_P]
                     for name in ("gather_conv_f32", "gather_conv_bf16",
@@ -75,7 +77,8 @@ _ENTRY_POINTS = {
     "subm_match": {"subm_match_3x3x3": [_P] * 3 + [_I] * 6 + [_P] * 3},
     "rotated_iou": {"rotated_iou_matrix": [_P] * 2 + [_I] * 5 + [_P] * 2},
     "multi_match": {"multi_match": [_P] * 3 + [_I] * 2 + [_P]},
-    "greedy_nms": {"greedy_nms": [_P] * 2 + [_I] * 3 + [_P] * 3},
+    "greedy_nms": {"greedy_nms": [_P] * 2 + [_F] + [_I] * 3 + [_P] * 4,
+                   "greedy_nms_scratch_words": [_I]},
 }
 
 launches: Dict[str, int] = {name: 0 for name in COUNTERS}

@@ -11,11 +11,15 @@ vmaps its NMS over classes and buildings: boxes (G, N, 7) give keep
 positions (G, post) and counts (G,), one kernel C and one kernel E
 launch for all G; a problem without the leading axis is the G = 1 case.
 
-The greedy pass is sequential over rows. On the card it is kernel E
-(csrc/greedy_nms.cu): one block a matrix holds the suppressed set as a
-bit mask in shared memory and streams the "IoU > threshold" rows in, so
-nothing goes to the host. On the CPU the plain :func:`greedy_plain`
-runs the same pass in numpy, one vector OR per kept row.
+The greedy pass takes the score-ordered float32 IoU matrices and the
+threshold, as JAX's ``_greedy_suppress`` does, and compares in float32.
+On the card it is kernel E (csrc/greedy_nms.cu), two launches: a pack
+over every SM turns the upper triangle's "IoU > threshold" into bits,
+then one block a matrix walks its rows in order, the suppressed set as
+a bit mask in registers and the bit rows streamed into shared memory by
+bulk copies; nothing goes to the host. On the CPU the plain
+:func:`greedy_plain` compares in torch and runs the same pass in numpy,
+one vector OR per kept row.
 :func:`nms_from_iou` runs it on a given IoU matrix, and
 :func:`rotate_nms_3d` is the JAX package's name for :func:`nms_boxes`.
 """
@@ -28,22 +32,24 @@ import torch
 from detection_3d_tpu_torch.ops import cuda_lib
 from detection_3d_tpu_torch.ops.rotated_iou import boxes_iou_3d
 
-# kernel E's largest matrix side: its suppressed mask and one staged row
-# block live in shared memory
+# kernel E's largest matrix side: its suppressed mask is at most 4 words
+# a lane of one warp, and a ring of 64-row bit slabs fits shared memory
 GREEDY_MAX_N = 8192
 
 
-def greedy_plain(over, valid_o, post_max_size: int):
-    """Plain version of kernel E: the greedy pass over ``over`` (G, N, N)
-    bool = (IoU > threshold), each matrix already in score order. Row i,
-    when not suppressed, suppresses every j > i it overlaps; invalid
-    rows start suppressed.
+def greedy_plain(iou_o, valid_o, iou_threshold: float, post_max_size: int):
+    """Plain version of kernel E: the greedy pass over ``iou_o`` (G, N, N)
+    IoU matrices, each already in score order. Row i, when not
+    suppressed, suppresses every j > i with IoU > ``iou_threshold``
+    (compared in the matrix's dtype, as torch and JAX compare a tensor
+    with a Python float; NaN never exceeds it); invalid rows start
+    suppressed.
 
     Returns (keep_pos (G, post_max_size) int32 positions into the sorted
     order, ascending, padded -1; keep_count (G,) int32, at most
-    post_max_size), on ``over``'s device."""
-    dev = over.device
-    over_np = over.cpu().numpy()
+    post_max_size), on ``iou_o``'s device."""
+    dev = iou_o.device
+    over_np = (iou_o > iou_threshold).cpu().numpy()
     sup_all = ~valid_o.cpu().numpy()
     g = over_np.shape[0]
     keep_pos = np.full((g, post_max_size), -1, np.int32)
@@ -59,36 +65,47 @@ def greedy_plain(over, valid_o, post_max_size: int):
     return torch.from_numpy(keep_pos).to(dev), torch.from_numpy(counts).to(dev)
 
 
-def greedy_cuda(over, valid_o, post_max_size: int):
-    """Kernel E on the card: same contract as :func:`greedy_plain`, the
-    same keep sets; one block a matrix, all G in one launch."""
+def greedy_cuda(iou_o, valid_o, iou_threshold: float, post_max_size: int):
+    """Kernel E on the card: same contract as :func:`greedy_plain` for
+    float32 matrices, the same keep sets (the threshold rounded to
+    float32); all G matrices in one call, its pack and walk launches
+    counted once."""
     g, n = valid_o.shape
-    if (over.dtype != torch.bool or valid_o.dtype != torch.bool
-            or over.shape != (g, n, n) or not over.is_cuda
-            or valid_o.device != over.device or not 0 < n <= GREEDY_MAX_N
+    dev = iou_o.device
+    if (iou_o.dtype != torch.float32 or valid_o.dtype != torch.bool
+            or iou_o.shape != (g, n, n) or not iou_o.is_cuda
+            or valid_o.device != dev or not 0 < n <= GREEDY_MAX_N
             or not 0 < g <= 65535 or post_max_size < 1):
-        raise ValueError("greedy_cuda: expected bool (G, N, N) and (G, N) "
-                         f"on one card, 0 < N <= {GREEDY_MAX_N}, "
+        raise ValueError("greedy_cuda: expected float32 (G, N, N) and bool "
+                         f"(G, N) on one card, 0 < N <= {GREEDY_MAX_N}, "
                          "0 < G <= 65535 and post_max_size >= 1")
-    over, valid_o = over.contiguous(), valid_o.contiguous()
+    iou_o, valid_o = iou_o.contiguous(), valid_o.contiguous()
+    lib = cuda_lib.library("greedy_nms")
+    bits = torch.empty((g, lib.greedy_nms_scratch_words(n)),
+                       dtype=torch.int64, device=dev)
     keep_pos = torch.empty((g, post_max_size), dtype=torch.int32,
-                           device=over.device)
-    counts = torch.empty((g,), dtype=torch.int32, device=over.device)
-    status = cuda_lib.library("greedy_nms").greedy_nms(
-        over.data_ptr(), valid_o.data_ptr(), g, n, post_max_size,
-        keep_pos.data_ptr(), counts.data_ptr(),
-        cuda_lib.stream_ptr(over.device))
+                           device=dev)
+    counts = torch.empty((g,), dtype=torch.int32, device=dev)
+    status = lib.greedy_nms(
+        iou_o.data_ptr(), valid_o.data_ptr(), float(iou_threshold), g, n,
+        post_max_size, bits.data_ptr(), keep_pos.data_ptr(),
+        counts.data_ptr(), cuda_lib.stream_ptr(dev))
     cuda_lib.check("greedy_nms", status)
     cuda_lib.launches["greedy_nms"] += 1
     return keep_pos, counts
 
 
-def greedy_suppress(over, valid_o, post_max_size: int):
-    """The greedy pass over (G, N, N) score-ordered overlap matrices:
-    kernel E on the card, :func:`greedy_plain` on the CPU."""
-    if over.is_cuda:
-        return greedy_cuda(over, valid_o, post_max_size)
-    return greedy_plain(over, valid_o, post_max_size)
+def greedy_suppress(iou_o, valid_o, iou_threshold: float,
+                    post_max_size: int):
+    """The greedy pass over (G, N, N) score-ordered IoU matrices:
+    kernel E on the card, :func:`greedy_plain` on the CPU. A matrix of
+    another dtype than float32 is compared in its own dtype, as JAX
+    compares it, and kernel E gets the result as 0/1 at threshold 0.5."""
+    if not iou_o.is_cuda:
+        return greedy_plain(iou_o, valid_o, iou_threshold, post_max_size)
+    if iou_o.dtype != torch.float32:
+        iou_o, iou_threshold = (iou_o > iou_threshold).float(), 0.5
+    return greedy_cuda(iou_o, valid_o, iou_threshold, post_max_size)
 
 
 def _score_order(scores, valid):
@@ -99,11 +116,12 @@ def _score_order(scores, valid):
                       descending=True, stable=True).indices
 
 
-def _keep(over_o, valid, order, post_max_size: int):
-    """:func:`greedy_suppress` over ``over_o`` (G, N, N) (in ``order``,
+def _keep(iou_o, valid, order, iou_threshold: float, post_max_size: int):
+    """:func:`greedy_suppress` over ``iou_o`` (G, N, N) (in ``order``,
     (G, N)), its kept positions mapped back to the input order."""
     valid_o = valid.gather(-1, order)
-    keep_pos, keep_count = greedy_suppress(over_o, valid_o, post_max_size)
+    keep_pos, keep_count = greedy_suppress(iou_o, valid_o, iou_threshold,
+                                           post_max_size)
     picked = order.gather(-1, keep_pos.clamp(min=0).to(torch.int64))
     keep_idx = torch.where(keep_pos >= 0, picked, -1)
     return keep_idx.to(torch.int32), keep_count
@@ -129,7 +147,7 @@ def nms_boxes(boxes, scores, valid, iou_threshold: float,
     boxes_o = boxes.reshape(g, n, 7).gather(
         1, order[..., None].expand(g, n, 7))
     iou_o = boxes_iou_3d(boxes_o, boxes_o, criterion=-1)
-    keep_idx, keep_count = _keep(iou_o > iou_threshold, valid, order,
+    keep_idx, keep_count = _keep(iou_o, valid, order, iou_threshold,
                                  post_max_size)
     return (keep_idx.reshape(lead + (post_max_size,)),
             keep_count.reshape(lead))
@@ -139,8 +157,8 @@ def nms_from_iou(iou, scores, valid, iou_threshold: float,
                  post_max_size: int):
     """Greedy NMS given full (..., N, N) IoU matrices in the input order:
     boxes taken by descending score (stable), each suppressing the later
-    ones it overlaps by more than ``iou_threshold``; invalid rows never
-    kept. Returns (keep_idx (..., post_max_size) int32 into the input
+    ones it overlaps by more than ``iou_threshold`` (compared in the
+    matrices' dtype, as JAX compares them); invalid rows never kept. Returns (keep_idx (..., post_max_size) int32 into the input
     order, padded -1; keep_count (...) int32)."""
     lead, g = _problems(valid)
     n = valid.shape[-1]
@@ -149,7 +167,7 @@ def nms_from_iou(iou, scores, valid, iou_threshold: float,
     iou = iou.reshape(g, n, n)
     rows = iou.gather(1, order[..., None].expand(g, n, n))
     iou_o = rows.gather(2, order[:, None, :].expand(g, n, n))
-    keep_idx, keep_count = _keep(iou_o > iou_threshold, valid, order,
+    keep_idx, keep_count = _keep(iou_o, valid, order, iou_threshold,
                                  post_max_size)
     return (keep_idx.reshape(lead + (post_max_size,)),
             keep_count.reshape(lead))

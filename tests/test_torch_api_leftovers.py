@@ -146,6 +146,29 @@ def test_nms_from_iou_keep_sets(seed):
     np.testing.assert_array_equal(tk.numpy(), np.asarray(jk))
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_nms_from_iou_compares_in_its_dtype(dtype):
+    """An IoU matrix of another dtype than float32 is compared in that
+    dtype, as JAX compares it: entries at the threshold rounded to the
+    dtype and beside it decide the keep sets. (float64 is not held here:
+    JAX without x64 holds it as float32.)"""
+    boxes, scores, valid = _nms_case(2)
+    iou = torch.from_numpy(np.array(jiou.boxes_iou_3d(
+        jnp.asarray(boxes), jnp.asarray(boxes)))).to(getattr(torch, dtype))
+    t_d = torch.tensor(0.3, dtype=iou.dtype)
+    edges = torch.stack([t_d, torch.nextafter(t_d, torch.ones_like(t_d)),
+                         torch.nextafter(t_d, torch.zeros_like(t_d))])
+    pick = torch.from_numpy(np.random.RandomState(3).rand(*iou.shape)
+                            < 0.05)
+    iou[pick] = edges[torch.arange(int(pick.sum())) % 3]
+    jk, jc = jnms.nms_from_iou(jnp.asarray(iou.double().numpy()).astype(
+        dtype), jnp.asarray(scores), jnp.asarray(valid), 0.3, 64)
+    tk, tc = tnms.nms_from_iou(iou, torch.from_numpy(scores),
+                               torch.from_numpy(valid), 0.3, 64)
+    assert int(tc) == int(jc) > 0
+    np.testing.assert_array_equal(tk.numpy(), np.asarray(jk))
+
+
 def test_rotate_nms_3d_basic():
     """JAX's own case (tests/test_rotated_iou.py:test_nms_basic)."""
     boxes = torch.tensor([[0.0, 0.0, 0.0, 1.0, 1.0, 1.0, 0.0],

@@ -18,7 +18,9 @@ A unit of B buildings (ops/sparse.py): A on its flat book bit equal in
 f32 to each building's own call (one bf16 step of the largest output in
 bf16), B over its stacked tables bit equal to each table's own launch,
 C over a batch of matrices bit equal matrix by matrix, and E (the greedy
-NMS pass) with the numpy pass's keep sets.
+NMS pass over float32 IoU matrices, entries at the threshold, beside it
+and NaN among them) with the numpy pass's keep sets, one launch counted
+a call and no host sync.
 """
 
 import numpy as np
@@ -933,26 +935,99 @@ def test_rotated_iou_batch_bit_exact(dev, criterion):
                                                      criterion, True))
 
 
-@pytest.mark.parametrize("n,g,post", [(2000, 2, 1000), (1000, 5, 500),
-                                      (1000, 1, 3), (37, 3, 64)])
-def test_greedy_nms_keep_sets_identical(dev, n, g, post):
-    """Kernel E against the numpy greedy pass: keep positions and counts
-    identical, on overlap matrices with ties (equal rows, a block of
-    overlaps in every row) and an all-invalid matrix."""
-    rng = np.random.RandomState(n + g)
-    over = rng.rand(g, n, n) > 0.97
-    over[:, :, :16] = True
-    over[:, 3] = over[:, 5]
+def _greedy_iou(n, g, t, seed):
+    """(G, N, N) float32 IoU matrices: sparse overlaps, a block of
+    overlaps in every row, two equal rows (N > 5), entries at float32(t),
+    beside it on both sides and NaN; the last matrix all invalid."""
+    rng = np.random.RandomState(seed)
+    t32 = np.float32(t)
+    iou = (rng.rand(g, n, n) * t32).astype(np.float32)
+    iou[rng.rand(g, n, n) > 0.97] = 0.9
+    iou[:, :, :16] = 0.9
+    edges = np.array([t32, np.nextafter(t32, np.float32(2)),
+                      np.nextafter(t32, np.float32(-1)), np.nan], np.float32)
+    pick = rng.rand(g, n, n) < 0.02
+    iou[pick] = edges[rng.randint(0, 4, int(pick.sum()))]
+    if n > 5:
+        iou[:, 3] = iou[:, 5]
     valid = rng.rand(g, n) > 0.1
     valid[-1] = False
-    over_t = torch.from_numpy(over).to(dev)
+    return iou, valid
+
+
+@pytest.mark.parametrize("n,g,post", [(2000, 2, 1000), (1000, 5, 500),
+                                      (1000, 1, 3), (37, 3, 64),
+                                      (8192, 2, 4096), (1000, 20, 500)])
+def test_greedy_nms_keep_sets_identical(dev, n, g, post):
+    """Kernel E against the plain greedy pass on the same float32 IoU
+    matrices: keep positions and counts identical, one launch counted a
+    call, on matrices with ties (equal rows, a block of overlaps in every
+    row), threshold edges and NaN, and an all-invalid matrix; up to
+    GREEDY_MAX_N and G = 20."""
+    iou, valid = _greedy_iou(n, g, 0.5, n + g)
+    iou_t = torch.from_numpy(iou).to(dev)
     valid_t = torch.from_numpy(valid).to(dev)
     before = cuda_lib.launches["greedy_nms"]
-    keep, count = greedy_cuda(over_t, valid_t, post)
+    keep, count = greedy_cuda(iou_t, valid_t, 0.5, post)
     assert cuda_lib.launches["greedy_nms"] == before + 1
-    want_keep, want_count = greedy_plain(over_t, valid_t, post)
+    want_keep, want_count = greedy_plain(iou_t, valid_t, 0.5, post)
     assert torch.equal(keep, want_keep) and torch.equal(count, want_count)
     assert int(count[-1]) == 0
+
+
+@pytest.mark.parametrize("n", [1, 37, 64, 65, 129])
+@pytest.mark.parametrize("t", [0.5, 0.7, 0.1])
+def test_greedy_nms_threshold_edges(dev, t, n):
+    """Kernel E on the CPU tests' threshold cases (entries at float32(t),
+    its neighbours and NaN, across the 64-bit word boundaries), post
+    below and above the kept count: the plain pass's keep sets."""
+    iou, valid = _greedy_iou(n, 3, t, 7 * n)
+    iou_t = torch.from_numpy(iou).to(dev)
+    valid_t = torch.from_numpy(valid).to(dev)
+    for post in (1, max(1, n // 3), n + 7):
+        keep, count = greedy_cuda(iou_t, valid_t, t, post)
+        want_keep, want_count = greedy_plain(iou_t, valid_t, t, post)
+        assert torch.equal(keep, want_keep)
+        assert torch.equal(count, want_count)
+
+
+def test_greedy_nms_no_host_sync(dev):
+    """A call of kernel E waits for nothing on the host (torch's sync
+    debug mode raises on a sync)."""
+    iou, valid = _greedy_iou(2000, 4, 0.7, 3)
+    iou_t = torch.from_numpy(iou).to(dev)
+    valid_t = torch.from_numpy(valid).to(dev)
+    greedy_cuda(iou_t, valid_t, 0.7, 1000)   # builds the library
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        keep, count = greedy_cuda(iou_t, valid_t, 0.7, 1000)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    want_keep, want_count = greedy_plain(iou_t, valid_t, 0.7, 1000)
+    assert torch.equal(keep, want_keep) and torch.equal(count, want_count)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float64])
+def test_nms_from_iou_other_dtypes_on_card(dev, dtype):
+    """nms_from_iou on the card with an IoU matrix of another dtype than
+    float32 (compared in that dtype, then kernel E on the 0/1 result):
+    the CPU's keep sets, one E launch; greedy_cuda itself refuses it."""
+    from detection_3d_tpu_torch.ops.nms import nms_from_iou
+    iou, valid = _greedy_iou(300, 1, 0.7, 11)
+    iou_d = torch.from_numpy(iou[0]).to(dtype)
+    scores = torch.from_numpy(
+        np.random.RandomState(12).rand(300).astype(np.float32))
+    valid_d = torch.from_numpy(valid[0] | True)
+    want = nms_from_iou(iou_d, scores, valid_d, 0.7, 100)
+    before = cuda_lib.launches["greedy_nms"]
+    got = nms_from_iou(iou_d.to(dev), scores.to(dev), valid_d.to(dev), 0.7,
+                       100)
+    assert cuda_lib.launches["greedy_nms"] == before + 1
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+    with pytest.raises(ValueError):
+        greedy_cuda(iou_d.to(dev)[None], valid_d.to(dev)[None], 0.7, 100)
 
 
 @pytest.mark.parametrize("pack_mode", ["table", "pyramid"])

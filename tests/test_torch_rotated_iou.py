@@ -4,8 +4,9 @@ criteria -1/0/1/2 within atol 1e-5 (float rounding of cos/sin and the
 centroid sums), and NMS keep sets identical. A batch of matrices (the
 NMS of a unit's buildings and classes) against per-matrix calls: the
 plain IoU bit for bit, the greedy pass (kernel E's plain version) keep
-set for keep set and against JAX's fori_loop; boxes_iou_3d without
-thickness floors clamps negative sizes at 0 as JAX does.
+set for keep set and against JAX's fori_loop, on float32 IoU matrices
+with entries at the float32 threshold, beside it and NaN; boxes_iou_3d
+without thickness floors clamps negative sizes at 0 as JAX does.
 """
 
 import numpy as np
@@ -185,18 +186,77 @@ def _overlap_cases(n, g, seed):
 @pytest.mark.parametrize("n,post", [(300, 64), (97, 200)])
 def test_batched_greedy_keep_sets_identical(n, post):
     iou, valid = _overlap_cases(n, 4, seed=n)
-    over = torch.from_numpy(iou > 0.5)
-    keep, count = greedy_plain(over, torch.from_numpy(valid), post)
+    iou_t = torch.from_numpy(iou)
+    keep, count = greedy_plain(iou_t, torch.from_numpy(valid), 0.5, post)
     assert keep.shape == (4, post) and count.shape == (4,)
     assert int(count[2]) == 0 and bool((keep[2] == -1).all())
     for g in range(4):
-        k1, c1 = greedy_plain(over[g:g + 1], torch.from_numpy(valid[g:g + 1]),
-                              post)
+        k1, c1 = greedy_plain(iou_t[g:g + 1],
+                              torch.from_numpy(valid[g:g + 1]), 0.5, post)
         assert torch.equal(keep[g], k1[0]) and int(count[g]) == int(c1[0])
         jk, jc = j_greedy(jnp.asarray(iou[g]), jnp.asarray(valid[g]), 0.5,
                           post)
         np.testing.assert_array_equal(keep[g].numpy(), np.asarray(jk))
         assert int(count[g]) == int(jc)
+
+
+def _threshold_edge_cases(n, t, seed):
+    """(3, N, N) float32 IoU matrices whose entries sit on float32(t) and
+    its neighbours on both sides, with NaNs among them; the last matrix
+    all invalid."""
+    rng = np.random.RandomState(seed)
+    t32 = np.float32(t)
+    edges = np.array([t32, np.nextafter(t32, np.float32(2)),
+                      np.nextafter(t32, np.float32(-1)), np.nan, 0.0, 1.0],
+                     np.float32)
+    iou = rng.rand(3, n, n).astype(np.float32)
+    pick = rng.rand(3, n, n) < 0.6
+    iou[pick] = edges[rng.randint(0, edges.size, int(pick.sum()))]
+    valid = rng.rand(3, n) > 0.15
+    valid[2] = False
+    return iou, valid
+
+
+@pytest.mark.parametrize("post", ["below", "above"])
+@pytest.mark.parametrize("n", [37, 64, 65, 129])
+@pytest.mark.parametrize("t", [0.5, 0.7, 0.1])
+def test_greedy_threshold_edges_match_jax(t, n, post):
+    """Kernel E's contract on the CPU: greedy_plain compares the float32
+    IoU with float32(t), as JAX's _greedy_suppress does (0.7 and 0.1 are
+    not exact in float32; entries at float32(t) do not suppress, its
+    upper neighbour does, NaN never does), across the 64-bit word
+    boundaries of kernel E's masks; post below and above the kept
+    count; keep sets identical to JAX's."""
+    iou, valid = _threshold_edge_cases(n, t, seed=n + int(t * 10))
+    iou_t, valid_t = torch.from_numpy(iou), torch.from_numpy(valid)
+    _, full_count = greedy_plain(iou_t, valid_t, t, n)
+    cap = (max(1, int(full_count[:2].min()) - 3) if post == "below"
+           else n + 7)
+    keep, count = greedy_plain(iou_t, valid_t, t, cap)
+    assert int(count[2]) == 0 and bool((keep[2] == -1).all())
+    if post == "below":
+        assert bool((full_count[:2] > cap).all())
+        assert bool((count[:2] == cap).all())
+    for g in range(3):
+        jk, jc = j_greedy(jnp.asarray(iou[g]), jnp.asarray(valid[g]), t, cap)
+        np.testing.assert_array_equal(keep[g].numpy(), np.asarray(jk))
+        assert int(count[g]) == int(jc)
+
+
+@pytest.mark.parametrize("t", [0.1, 0.7])
+def test_greedy_compares_in_float32(t):
+    """An entry equal to float32(t) exceeds t in float64 (0.1, 0.7 round
+    up) or not, yet never suppresses: the pass compares in float32."""
+    t32 = np.float32(t)
+    iou = np.zeros((1, 3, 3), np.float32)
+    iou[0, 0, 1] = t32
+    iou[0, 0, 2] = np.nextafter(t32, np.float32(2))
+    valid = np.ones((1, 3), bool)
+    keep, count = greedy_plain(torch.from_numpy(iou), torch.from_numpy(valid),
+                               t, 3)
+    jk, _ = j_greedy(jnp.asarray(iou[0]), jnp.asarray(valid[0]), t, 3)
+    assert keep[0].tolist() == [0, 1, -1] == np.asarray(jk).tolist()
+    assert int(count[0]) == 2
 
 
 def test_boxes_iou_3d_clamps_negative_sizes_as_jax():
