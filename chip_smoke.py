@@ -7,6 +7,8 @@
     python3 chip_smoke.py --compare      # only D at every book and the
                                          # pyramid's host time, in any
                                          # tree of the package
+    python3 chip_smoke.py --d-forms      # only D's three forms at every
+                                         # book
     python3 chip_smoke.py --overfit      # only the overfit gate with the
                                          # 3G6c groups (4000 steps)
     python3 chip_smoke.py --parallel     # only the multi-device phase (7b)
@@ -31,7 +33,9 @@
    event and profiler times and a per-building sum; C (rotated IoU) bit for
    bit on an adversarial box set (every criterion, with and without the
    same-box fix) and on 2000 x 2000 boxes for criteria -1/0/1/2 with
-   identical greedy NMS keep sets; D (query-key match) on the queries of
+   identical greedy NMS keep sets; D (query-key match: a 4-ary search
+   for small query sets, warp compaction for large deconv ones, a binary
+   search otherwise; one launch a call) on the queries of
    every conv and deconv book of the building and on the scale-0 conv
    queries shuffled, bit exact against its plain version, with the
    scale-0 books equal to the scatter-derived ones, timed per book and
@@ -72,8 +76,9 @@
    at the unit's two NMS calls (bit exact matrix by matrix) and E, the
    greedy NMS pass over the float32 IoU (identical keep sets against the
    torch compare and numpy pass, also on 2000^2 and 1000^2 cases with
-   ties, entries at the threshold, beside it and NaN, and an all-invalid
-   matrix), each timed beside its plain version and bound; E also beside
+   ties, entries at the threshold, beside it and NaN, an all-invalid
+   matrix, and one 20000^2 matrix for the walk above N = 8192), each
+   timed beside its plain version and bound; E also beside
    the torch compare it absorbs and its walk's serial floor.
 5. Training path at full width: a Trainer on the card takes 6 steps over
    6 such buildings (bf16 compute, SparseRCNN(cfg, seed=0)); checks
@@ -738,6 +743,25 @@ def multi_match_queries(fine, coarse, kernel, stride):
             composite_key(dhi, dlo).reshape(-1), int((dhi != INVALID).sum()))
 
 
+def multi_match_sets(tables, cfg):
+    """Kernel D's 17 query sets of a pyramid: (name, keys, queries, valid
+    queries) for the conv and deconv book of every downsample, and the
+    scale-0 conv queries shuffled (seed 0)."""
+    s3d = cfg.sparse3d
+    sets = []
+    for k in range(1, s3d.num_scales):
+        fine, coarse = tables[k - 1], tables[k]
+        q, nq, qd, nqd = multi_match_queries(fine, coarse, s3d.kernels[k - 1],
+                                             s3d.strides[k - 1])
+        sets += [(f"conv {k}", fine.keys, q, nq),
+                 (f"deconv {k}", coarse.keys, qd, nqd)]
+        if k == 1:
+            gen = torch.Generator(device=q.device).manual_seed(0)
+            sets.append(("conv 1 shuffled", fine.keys, q[torch.randperm(
+                q.numel(), generator=gen, device=q.device)], nq))
+    return sets
+
+
 def check_multi_match(tables, cfg, crb, drb):
     """Kernel D on the queries of every conv and deconv book of a
     full-size building's pyramid (16 launches through its own entry
@@ -764,17 +788,7 @@ def check_multi_match(tables, cfg, crb, drb):
     check(torch.equal(deconv_rulebook_match(tables[0], tables[1], k0, st0),
                       drb), "kernel D: deconv book differs from the "
           "scatter-derived book")
-    sets = []
-    for k in range(1, s3d.num_scales):
-        fine, coarse = tables[k - 1], tables[k]
-        q, nq, qd, nqd = multi_match_queries(fine, coarse, s3d.kernels[k - 1],
-                                             s3d.strides[k - 1])
-        sets += [(f"conv {k}", fine.keys, q, nq),
-                 (f"deconv {k}", coarse.keys, qd, nqd)]
-        if k == 1:
-            gen = torch.Generator(device=q.device).manual_seed(0)
-            sets.append(("conv 1 shuffled", fine.keys, q[torch.randperm(
-                q.numel(), generator=gen, device=q.device)], nq))
+    sets = multi_match_sets(tables, cfg)
     sums = {"device_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
     lines = {}
     for name, keys, qs, searches in sets:
@@ -791,7 +805,7 @@ def check_multi_match(tables, cfg, crb, drb):
                 "found": int((got < v).sum()), "max_abs_err": 0.0,
                 "tolerance": "bit exact",
                 "device_ms": device_ms(lambda: multi_match_cuda(keys, qs),
-                                       ("multi_match_kernel",)),
+                                       ("multi_match",)),
                 "library_ms": time_ms(lambda: torch.searchsorted(keys, qs)),
                 "bound_ms": b_ms, "bound_by": b_by}
         if name == "conv 1":
@@ -4140,10 +4154,31 @@ def _greedy_cases(dev):
     return out
 
 
+def _greedy_large_case(dev, n=20000, t=0.5, seed=3):
+    """One (1, N, N) float32 IoU matrix above N = 8192 (kernel E's walk
+    with its mask in shared memory), drawn on the card: sparse overlaps
+    (0.2 %), a block of overlaps in every row, entries at float32(t) and
+    beside it, and 10 % invalid rows; its threshold and post = N / 4."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    t32 = float(np.float32(t))
+    iou = torch.rand((1, n, n), generator=gen, device=dev) * t32
+    iou[torch.rand((1, n, n), generator=gen, device=dev) > 0.998] = 0.9
+    iou[:, :, :16] = 0.9
+    edges = torch.tensor([t32, float(np.nextafter(np.float32(t), 2)),
+                          float(np.nextafter(np.float32(t), -1))],
+                         device=dev)
+    pick = torch.rand((1, n, n), generator=gen, device=dev) < 0.002
+    iou[pick] = edges[torch.randint(0, 3, (int(pick.sum()),), generator=gen,
+                                    device=dev)]
+    valid = torch.rand((1, n), generator=gen, device=dev) > 0.1
+    return iou, valid, t, n // 4
+
+
 def check_kernel_e(calls, dev):
     """Kernel E against the plain greedy pass (the compare in torch, the
     pass in numpy on the host): keep positions and counts identical at a
-    unit's calls and at the cases of :func:`_greedy_cases`; each call
+    unit's calls, at the cases of :func:`_greedy_cases` and at N = 20000
+    (:func:`_greedy_large_case`, the walk above N = 8192); each call
     timed by CUDA events (``ms``: at these sizes the host's launches can
     set that pace) and its pack and walk launches by the profiler
     (``device_ms`` their sum), beside the torch compare ``iou > t`` E
@@ -4155,7 +4190,8 @@ def check_kernel_e(calls, dev):
     from detection_3d_tpu_torch.ops.nms import greedy_cuda, greedy_plain
     lines = []
     cases = [(a, "unit") for a in calls] + [
-        (a, "edges") for a in _greedy_cases(dev)]
+        (a, "edges") for a in _greedy_cases(dev)] + [
+        (_greedy_large_case(dev), "large")]
     for (iou, valid, t, post), what in cases:
         g, n = valid.shape
         k, c = greedy_cuda(iou, valid, t, post)
@@ -4650,6 +4686,56 @@ def compare_main():
     return 0
 
 
+def d_forms_main():
+    """``--d-forms``: kernel D's three forms (binary, quad, compact) on
+    the 17 query sets of one full-size building
+    (:func:`multi_match_sets`), each bit exact against multi_match_plain,
+    with its profiler device ms and the form the wrapper chooses; the
+    sums over a pyramid's 16 books."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    from detection_3d_tpu_torch.config.defaults import full_scale_config
+    from detection_3d_tpu_torch.data.synthetic import synthetic_multiroom
+    from detection_3d_tpu_torch.engine.inference import pad_scene
+    from detection_3d_tpu_torch.models.backbone import build_pyramid
+    from detection_3d_tpu_torch.models.detector import voxelize_points
+    from detection_3d_tpu_torch.ops import cuda_lib
+    from detection_3d_tpu_torch.ops.multi_match import (
+        FORMS, multi_match_cuda, multi_match_form, multi_match_plain)
+    dev = torch.device("cuda")
+    print(f"card: {card_line()}")
+    cuda_lib.build()
+    cfg = full_scale_config()
+    scene = synthetic_multiroom(seed=100, num_points=POINTS, rooms_xy=(5, 5),
+                                room=8.0, voxel_scale=cfg.sparse3d.voxel_scale)
+    with torch.inference_mode():
+        batch = pad_scene(cfg, scene)
+        table0 = voxelize_points(cfg, *(torch.as_tensor(batch[k]).to(dev)
+                                        for k in ("points", "feats",
+                                                  "points_valid")))
+        sets = multi_match_sets(build_pyramid(table0, cfg)["tables"], cfg)
+        sums = dict.fromkeys(FORMS, 0.0)
+        for name, keys, qs, _ in sets:
+            want = multi_match_plain(keys, qs)
+            line = {"book": name, "V": keys.numel(), "queries": qs.numel(),
+                    "chosen": multi_match_form(keys.numel(), qs.numel())}
+            for form in FORMS:
+                check(torch.equal(multi_match_cuda(keys, qs, form=form),
+                                  want),
+                      f"kernel D form {form} differs ({name})")
+                line[f"{form}_device_ms"] = device_ms(
+                    lambda: multi_match_cuda(keys, qs, form=form),
+                    ("multi_match",))
+                if "shuffled" not in name:
+                    sums[form] += line[f"{form}_device_ms"] or 0.0
+            print("kernel D forms", json.dumps(line))
+        print("kernel D forms per pyramid:", json.dumps(
+            {f"{form}_device_ms": v for form, v in sums.items()}))
+    print(card_line())
+    return 0
+
+
 def overfit_main():
     """``--overfit``: the overfit gate with the 3G6c groups on the card
     (tools/overfit_check.py ``--groups`` at its default 4000 steps): one
@@ -4752,6 +4838,7 @@ def batched_main():
 
 
 MODES = {"--bwd-shapes": bwd_shapes_main, "--compare": compare_main,
+         "--d-forms": d_forms_main,
          "--overfit": overfit_main, "--parallel": parallel_main,
          "--batched": batched_main}
 

@@ -42,6 +42,17 @@
 //    on one another, and the owner keeps word b.
 //  * The kept positions are compacted by warp 0, 32 words a round, with
 //    a warp prefix sum of the words' popcounts.
+//  * Above N = 8192 (kRegMaxN) the mask no longer fits 4 words a lane
+//    and a slab (64 x W x 8 bytes: 256 KB at N = 32768) no longer fits
+//    shared memory, so another walk takes over: a block of kLargeThreads
+//    a matrix, the suppressed mask in shared memory (W words: 17.7 KB
+//    at N = 141,421, the largest (N, N) float32 matrix 80 GB hold), the
+//    slabs read from the scratch in global memory (L2) as they are. Warp
+//    0 runs the same greedy chain over a slab's 64 diagonal words (64
+//    loads at once), then every thread ORs the alive rows' words right
+//    of the slab into the mask words it owns (eight rows' loads in
+//    flight at once). Any N up to kMaxN is taken; every offset into the
+//    IoU and the scratch is 64-bit.
 // Each output is written once; the wrapper allocates the scratch and the
 // kernels allocate nothing.
 
@@ -50,8 +61,12 @@
 
 namespace {
 
-constexpr int kMaxN = 8192;         // ops/nms.py GREEDY_MAX_N
-constexpr int kLaneWords = 4;       // ceil(ceil(kMaxN / 64) / 32)
+constexpr int kRegMaxN = 8192;      // the register-mask walk's largest N
+constexpr int kLaneWords = 4;       // ceil(ceil(kRegMaxN / 64) / 32)
+// ops/nms.py GREEDY_MAX_N: a mask of 16,384 words (128 KB of shared
+// memory); its (N, N) float32 matrix would take 4 TB
+constexpr int kMaxN = 1 << 20;
+constexpr int kLargeThreads = 256;  // the large walk's block
 constexpr int kPackWarps = 8;       // rows a pack block
 constexpr int kPackUnroll = 4;      // words whose loads are in flight
 constexpr int kSlab = 64;           // rows a walk slab: one mask word
@@ -293,19 +308,109 @@ greedy_nms_walk_kernel(const uint64_t* __restrict__ bits,
   for (int at = base + lane; at < post; at += 32) keep[at] = -1;
 }
 
+// the walk above kRegMaxN: the mask in shared memory, the slabs read
+// from the scratch where they lie
+__global__ void __launch_bounds__(kLargeThreads)
+greedy_nms_walk_large_kernel(const uint64_t* __restrict__ bits,
+                             const uint8_t* __restrict__ valid, int n,
+                             int post, int* __restrict__ keep,
+                             int* __restrict__ count) {
+  extern __shared__ uint64_t sup[];   // the suppressed mask, W words
+  __shared__ uint64_t alive_s;
+  const int g = blockIdx.x, tid = threadIdx.x, lane = tid & 31;
+  const int words = mask_words(n), slabs = (n + kSlab - 1) / kSlab;
+  bits += g * slab_offset(slabs, words);
+  valid += (size_t)g * n;
+  // positions past n and invalid rows start suppressed
+  for (int w = tid; w < words; w += kLargeThreads) {
+    uint64_t word = 0;
+    for (int j = 0; j < 64; ++j) {
+      const long long p = 64LL * w + j;
+      word |= (uint64_t)(p >= n || !valid[p]) << j;
+    }
+    sup[w] = word;
+  }
+  __syncthreads();
+
+  for (int b = 0; b < slabs; ++b) {
+    const int w0 = b & ~1, span = words - w0;
+    const int rows = min(kSlab, n - kSlab * b);
+    const uint64_t* slab = bits + slab_offset(b, words);   // [i][w - w0]
+    if (tid < 32) {
+      // the slab's diagonal words, only the bits right of each row's
+      // own; rows past n are suppressed in cur and never read
+      uint64_t d[kSlab];
+#pragma unroll
+      for (int i = 0; i < kSlab; ++i)
+        d[i] = i < rows ? __ldg(slab + (size_t)i * span + b - w0) &
+                              (i == 63 ? 0ull : ~0ull << (i + 1))
+                        : 0ull;
+      uint64_t cur = sup[b];
+#pragma unroll
+      for (int i = 0; i < kSlab; ++i)
+        if (!((cur >> i) & 1ull)) cur |= d[i];
+      if (lane == 0) {
+        sup[b] = cur;
+        alive_s = ~cur;
+      }
+    }
+    __syncthreads();
+    const uint64_t alive = alive_s;
+    // the alive rows' words right of b, eight rows' loads at once
+    for (int w = b + 1 + tid; w < words && alive != 0; w += kLargeThreads) {
+      uint64_t acc = 0, x = alive;
+      while (x != 0) {
+        uint64_t got[8];
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          const int i = __ffsll(static_cast<long long>(x)) - 1;
+          got[u] = x != 0 ? __ldg(slab + (size_t)i * span + w - w0) : 0ull;
+          x &= x - 1;
+        }
+#pragma unroll
+        for (int u = 0; u < 8; ++u) acc |= got[u];
+      }
+      sup[w] |= acc;
+    }
+    __syncthreads();   // word b + 1 is final before the next slab reads it
+  }
+
+  if (tid >= 32) return;
+  keep += (size_t)g * post;
+  int base = 0;
+  for (int w0 = 0; w0 < words && base < post; w0 += 32) {   // uniform
+    const int w = w0 + lane;
+    const uint64_t kept = w < words ? ~sup[w] : 0ull;
+    const int c = __popcll(kept);
+    int incl = c;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int y = __shfl_up_sync(kFull, incl, off);
+      if (lane >= off) incl += y;
+    }
+    int at = base + incl - c;
+    for (uint64_t x = kept; x != 0 && at < post; x &= x - 1, ++at)
+      keep[at] = 64 * w + __ffsll(static_cast<long long>(x)) - 1;
+    base += __shfl_sync(kFull, incl, 31);
+  }
+  base = min(base, post);
+  if (lane == 0) count[g] = base;
+  for (int at = base + lane; at < post; at += 32) keep[at] = -1;
+}
+
 }  // namespace
 
 // the u64 scratch words a matrix takes: its slabs, W = ceil(n / 64)
 // rounded up to even
-extern "C" int greedy_nms_scratch_words(int n) {
-  return static_cast<int>(
-      slab_offset((n + kSlab - 1) / kSlab, mask_words(n)));
+extern "C" long long greedy_nms_scratch_words(int n) {
+  return slab_offset((n + kSlab - 1) / kSlab, mask_words(n));
 }
 
 // iou (g, n, n) float32 and valid (g, n) bytes (torch.bool); bits a u64
 // scratch of greedy_nms_scratch_words(n) words a matrix; keep (g, post)
 // and count (g,) int32. The pack launch over every SM, then the walk, a
-// block a matrix.
+// block a matrix: the register-mask walk up to kRegMaxN, the large one
+// above.
 extern "C" int greedy_nms(const void* iou, const void* valid,
                           float threshold, int g, int n, int post,
                           void* bits, void* keep, void* count,
@@ -319,6 +424,20 @@ extern "C" int greedy_nms(const void* iou, const void* valid,
       static_cast<uint64_t*>(bits));
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
+  if (n > kRegMaxN) {
+    const size_t mask = (size_t)mask_words(n) * sizeof(uint64_t);
+    if (mask > 48 * 1024) {
+      e = cudaFuncSetAttribute(greedy_nms_walk_large_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)mask);
+      if (e != cudaSuccess) return static_cast<int>(e);
+    }
+    greedy_nms_walk_large_kernel<<<g, kLargeThreads, mask, st>>>(
+        static_cast<const uint64_t*>(bits),
+        static_cast<const uint8_t*>(valid), n, post, static_cast<int*>(keep),
+        static_cast<int*>(count));
+    return static_cast<int>(cudaGetLastError());
+  }
   const size_t ring = (size_t)ring_stages(n) * kSlab * mask_words(n) *
                       sizeof(uint64_t);
   if (ring + 2 * kMaxStages * sizeof(uint64_t) > 48 * 1024) {

@@ -44,12 +44,12 @@ COUNTERS = ("gather_conv", "gather_conv_dfeats", "gather_conv_dw",
             "subm_match", "rotated_iou", "multi_match", "greedy_nms")
 # each counter's kernel symbols in a device trace (kernel A's body runs
 # under the ConvForward and ConvDFeats tags; dW is a partial kernel and
-# its reduction, E a pack and a walk), and the kernel's short name in
-# the tools' reports
+# its reduction, D one of three forms, E a pack and a walk), and the
+# kernel's short name in the tools' reports
 SYMBOLS = {"gather_conv": "ConvForward", "gather_conv_dfeats": "ConvDFeats",
            "gather_conv_dw": "gather_dw_", "subm_match": "subm_match_",
            "rotated_iou": "rotated_iou_kernel",
-           "multi_match": "multi_match_kernel",
+           "multi_match": "multi_match_",
            "greedy_nms": "greedy_nms_"}
 LABELS = {"gather_conv": "A", "gather_conv_dfeats": "dFeats",
           "gather_conv_dw": "dW", "subm_match": "B", "rotated_iou": "C",
@@ -65,7 +65,8 @@ _EXTRA_FLAGS = {"rotated_iou": ["--fmad=false"]}
 
 # the C entry points of each library: name -> argument types (pointers
 # and the stream as c_void_p, sizes as c_int, a threshold as c_float);
-# every one returns an int: the cudaError_t of its launch, or a size
+# every one returns an int (the cudaError_t of its launch, or a size),
+# those in _RESTYPES a wider one
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ENTRY_POINTS = {
     "gather_conv": {name: [_P] * 6 + [_I] * 4 + [_P]
@@ -76,10 +77,12 @@ _ENTRY_POINTS = {
                         "gather_conv_dw_bf16": [_P] * 6 + [_I] * 5 + [_P]},
     "subm_match": {"subm_match_3x3x3": [_P] * 3 + [_I] * 6 + [_P] * 3},
     "rotated_iou": {"rotated_iou_matrix": [_P] * 2 + [_I] * 5 + [_P] * 2},
-    "multi_match": {"multi_match": [_P] * 3 + [_I] * 2 + [_P]},
+    "multi_match": {"multi_match": [_P] * 3 + [_I] * 3 + [_P]},
     "greedy_nms": {"greedy_nms": [_P] * 2 + [_F] + [_I] * 3 + [_P] * 4,
                    "greedy_nms_scratch_words": [_I]},
 }
+
+_RESTYPES = {"greedy_nms_scratch_words": ctypes.c_longlong}
 
 launches: Dict[str, int] = {name: 0 for name in COUNTERS}
 
@@ -157,7 +160,7 @@ def library(name: str) -> ctypes.CDLL:
             for fn_name, argtypes in _ENTRY_POINTS[name].items():
                 fn = getattr(lib, fn_name)
                 fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+                fn.restype = _RESTYPES.get(fn_name, ctypes.c_int)
             err = getattr(lib, f"{name}_error_string")
             err.argtypes = [ctypes.c_int]
             err.restype = ctypes.c_char_p

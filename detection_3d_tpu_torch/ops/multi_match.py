@@ -12,11 +12,15 @@ entry points ops/sparse.conv_rulebook and ops/sparse_conv.deconv_rulebook
 (the JAX package's names) call these functions.
 
 :func:`multi_match` launches the hand-written CUDA kernel
-(csrc/multi_match.cu) for tensors on the card and takes the plain
-:func:`multi_match_plain` (one ``searchsorted`` over the 64-bit
-composite key, as kernel B's plain version) for tensors on the CPU. The
-two are equal bit for bit. Unlike the TPU kernel, neither needs the
-queries sorted.
+(csrc/multi_match.cu) for tensors on the card, in one of three forms
+chosen from the sizes (:func:`multi_match_form`): a 4-ary search for
+small query sets, warp compaction for large sets of mostly invalid
+queries (deconv books), a binary search otherwise. On the CPU it
+takes the same choice in torch: :func:`multi_match_quad`, the 4-ary
+form's algorithm, or the plain :func:`multi_match_plain` (one
+``searchsorted`` over the 64-bit composite key, as kernel B's plain
+version), which is what the other two forms compute. All are equal bit
+for bit. Unlike the TPU kernel, none needs the queries sorted.
 """
 
 from __future__ import annotations
@@ -38,29 +42,96 @@ def multi_match_plain(keys, queries):
     return torch.where(found, idx, keys.shape[0]).to(torch.int32)
 
 
-def multi_match_cuda(keys, queries):
-    """Kernel D on the card: same contract as :func:`multi_match_plain`."""
+# kernel D's forms (csrc/multi_match.cu): the 4-ary search up to this many
+# queries (one wave of the card: the chain's latency is the time), warp
+# compaction from COMPACT_MIN_N queries where they are at least
+# COMPACT_PER_ROW a table row (a deconv book's, 1 in 8 valid at stride
+# 2), the binary search otherwise
+QUAD_MAX_N = 1 << 16
+COMPACT_MIN_N = 1 << 20
+COMPACT_PER_ROW = 8
+FORMS = {"binary": 1, "quad": 2, "compact": 3}
+
+_TOP = torch.iinfo(torch.int64).max   # above every key
+
+
+def multi_match_form(v: int, n: int) -> str:
+    """The form of kernel D that (V,) keys and (N,) queries take."""
+    if n <= QUAD_MAX_N:
+        return "quad"
+    if n >= COMPACT_MIN_N and n >= COMPACT_PER_ROW * v:
+        return "compact"
+    return "binary"
+
+
+def multi_match_quad(keys, queries):
+    """The 4-ary form of kernel D in torch: the same contract and bits as
+    :func:`multi_match_plain`. The top holds the keys at stride 4^L
+    (L the least with ceil(V / 4^L) <= 4), p of them below the query;
+    each level below loads the 3 keys of stride 4^l between the
+    bracket's ends 4(p - 1) and 4p, and p becomes 4(p - 1) + 1 + those
+    below the query (rows past V above every query). The bracket's
+    upper key is carried down: at the last level it is the key at the
+    lower bound p."""
+    v = keys.shape[0]
+    levels = 0
+    while -(-v // 4 ** levels) > 4:
+        levels += 1
+
+    def at(rows):
+        return torch.where(rows < v, keys[rows.clamp(0, max(v - 1, 0))],
+                           _TOP)
+
+    top = at(torch.arange(4, device=keys.device) * 4 ** levels)
+    below = top[None, :] < queries[:, None]
+    p = below.sum(1)
+    ub = torch.cat([top, top.new_tensor([_TOP])])[p]
+    for level in range(levels - 1, -1, -1):
+        base = 4 * (p - 1)
+        e = at((base[:, None] + torch.arange(1, 4, device=keys.device))
+               * 4 ** level)
+        c = (e < queries[:, None]).sum(1)
+        inside = p > 0
+        ub = torch.where(inside & (c < 3),
+                         e.gather(1, c.clamp(max=2)[:, None])[:, 0], ub)
+        p = torch.where(inside, base + 1 + c, p)
+    found = (ub == queries) & ((queries >> 32) != INVALID)
+    return torch.where(found, p, v).to(torch.int32)
+
+
+def multi_match_cuda(keys, queries, form: str = None):
+    """Kernel D on the card: same contract as :func:`multi_match_plain`,
+    one launch in the form :func:`multi_match_form` chooses, or in
+    ``form`` ("binary", "quad" or "compact")."""
     if (keys.dtype != torch.int64 or queries.dtype != torch.int64
             or keys.ndim != 1 or queries.ndim != 1
-            or keys.device != queries.device):
+            or keys.device != queries.device or not keys.is_cuda
+            or form not in (None, *FORMS)):
         raise ValueError("multi_match_cuda: expected int64 (V,) keys and "
-                         "(N,) queries on one device")
+                         "(N,) queries on one card and a form of "
+                         f"{sorted(FORMS)}")
     keys, queries = keys.contiguous(), queries.contiguous()
     out = torch.empty(queries.shape, dtype=torch.int32, device=keys.device)
     if queries.numel() == 0:
         return out
+    v, n = keys.shape[0], queries.shape[0]
     status = cuda_lib.library("multi_match").multi_match(
-        keys.data_ptr(), queries.data_ptr(), out.data_ptr(),
-        keys.shape[0], queries.shape[0], cuda_lib.stream_ptr(keys.device))
+        keys.data_ptr(), queries.data_ptr(), out.data_ptr(), v, n,
+        FORMS[form or multi_match_form(v, n)],
+        cuda_lib.stream_ptr(keys.device))
     cuda_lib.check("multi_match", status)
     cuda_lib.launches["multi_match"] += 1
     return out
 
 
 def multi_match(keys, queries):
-    """Kernel D for tensors on the card, the plain version on the CPU."""
+    """Kernel D for tensors on the card; on the CPU the same form's
+    algorithm in torch (:func:`multi_match_quad` or the plain lower
+    bound)."""
     if keys.is_cuda:
         return multi_match_cuda(keys, queries)
+    if multi_match_form(keys.shape[0], queries.shape[0]) == "quad":
+        return multi_match_quad(keys, queries)
     return multi_match_plain(keys, queries)
 
 

@@ -15,11 +15,12 @@ The greedy pass takes the score-ordered float32 IoU matrices and the
 threshold, as JAX's ``_greedy_suppress`` does, and compares in float32.
 On the card it is kernel E (csrc/greedy_nms.cu), two launches: a pack
 over every SM turns the upper triangle's "IoU > threshold" into bits,
-then one block a matrix walks its rows in order, the suppressed set as
-a bit mask in registers and the bit rows streamed into shared memory by
-bulk copies; nothing goes to the host. On the CPU the plain
-:func:`greedy_plain` compares in torch and runs the same pass in numpy,
-one vector OR per kept row.
+then one block a matrix walks its rows in order: up to N = 8192 the
+suppressed set as a bit mask in registers and the bit rows streamed
+into shared memory by bulk copies, above it the mask in shared memory
+and the bit rows read where they lie; nothing goes to the host. On the
+CPU the plain :func:`greedy_plain` compares in torch and runs the same
+pass in numpy, one vector OR per kept row.
 :func:`nms_from_iou` runs it on a given IoU matrix, and
 :func:`rotate_nms_3d` is the JAX package's name for :func:`nms_boxes`.
 """
@@ -32,9 +33,10 @@ import torch
 from detection_3d_tpu_torch.ops import cuda_lib
 from detection_3d_tpu_torch.ops.rotated_iou import boxes_iou_3d
 
-# kernel E's largest matrix side: its suppressed mask is at most 4 words
-# a lane of one warp, and a ring of 64-row bit slabs fits shared memory
-GREEDY_MAX_N = 8192
+# kernel E's largest matrix side: a suppressed mask of 16,384 words in
+# shared memory. The (N, N) float32 matrix at that side would take 4 TB,
+# so every matrix a card can hold is taken.
+GREEDY_MAX_N = 1 << 20
 
 
 def greedy_plain(iou_o, valid_o, iou_threshold: float, post_max_size: int):

@@ -31,7 +31,7 @@ from detection_3d_tpu_torch.ops import cuda_lib
 from detection_3d_tpu_torch.ops.coords import INVALID
 from detection_3d_tpu_torch.ops.nms import greedy_cuda, greedy_plain
 from detection_3d_tpu_torch.ops.multi_match import (
-    conv_rulebook_match, deconv_rulebook_match, multi_match_cuda,
+    FORMS, conv_rulebook_match, deconv_rulebook_match, multi_match_cuda,
     multi_match_plain)
 from detection_3d_tpu_torch.ops.rotated_iou import (
     PARK_QUERIES, PARK_TARGETS, park_invalid, rotated_iou_cuda,
@@ -50,7 +50,7 @@ from detection_3d_tpu_torch.ops.sparse_conv import (
     rulebook_entries, rulebook_row_order, sparse_conv,
 )
 from torch_iou_cases import adversarial_bev
-from torch_match_cases import MATCH_CASES
+from torch_match_cases import D_TABLES, MATCH_CASES, d_queries
 
 pytestmark = pytest.mark.cuda
 
@@ -452,12 +452,53 @@ def _queries(dev, kind, keys, gen):
     return q[torch.randperm(q.numel(), generator=gen, device=dev)]
 
 
+# kernel D's edge tables (tests/torch_match_cases.D_TABLES) with query
+# orders of tests/torch_match_cases.d_queries: "<table>/<order>"
+D_EDGE_CASES = (["large/" + o for o in ("sorted", "deconv", "shuffled")]
+                + [t + "/shuffled" for t in ("full_top", "top_plus_one",
+                                             "ragged_v", "mid_node")]
+                + ["mid_node/sorted", "large/all_invalid",
+                   "ragged_v/misaligned"])
+
+
+def _d_edge_case(dev, case):
+    """(keys, queries) of a D_EDGE_CASES entry on the card; "misaligned"
+    queries start 8 bytes past a 16-byte boundary, an odd count."""
+    table, order = case.split("/")
+    coords, spatial, cap = D_TABLES[table]()
+    keys = build_sparse_tensor(torch.from_numpy(coords).to(dev),
+                               torch.zeros((coords.shape[0], 0), device=dev),
+                               None, spatial, 1, cap).keys
+    q = d_queries(keys.cpu().numpy(),
+                  "shuffled" if order == "misaligned" else order, 5)
+    q = torch.from_numpy(q).to(dev)
+    return keys, (q[1:] if order == "misaligned" else q)
+
+
 @pytest.mark.parametrize("kind", ["sorted", "unsorted", "invalid_blocks",
-                                  "small_table"])
+                                  "small_table"] + D_EDGE_CASES)
 def test_multi_match_query_orders_bit_exact(dev, kind):
     """Kernel D against multi_match_plain on sorted and unsorted queries,
     on blocks with no valid query and on a table of fewer rows than a
-    block. The same bits on a second call."""
+    block. The same bits on a second call. On the edge tables (2^17
+    rows, a full 4-ary top and one row more, a capacity no multiple of
+    4, real rows ending inside a 4-ary node; queries below and above the
+    real keys, all invalid, an odd count from a misaligned start) each
+    form of the kernel (binary, quad, compact), twice, bit exact, one
+    launch counted a call."""
+    if "/" in kind:
+        keys, q = _d_edge_case(dev, kind)
+        want = multi_match_plain(keys, q)
+        for form in FORMS:
+            for _ in range(2):
+                before = cuda_lib.launches["multi_match"]
+                got = multi_match_cuda(keys, q, form=form)
+                torch.cuda.synchronize()
+                assert cuda_lib.launches["multi_match"] == before + 1
+                assert torch.equal(got, want), form
+        assert bool((want < keys.numel()).any()) != kind.endswith(
+            "all_invalid")
+        return
     t = (_table(dev, 150, 200, 9, spatial=(8, 8, 8))
          if kind == "small_table" else _table(dev, 3000, 4096, 8))
     gen = torch.Generator(device=dev).manual_seed(3)
@@ -955,18 +996,47 @@ def _greedy_iou(n, g, t, seed):
     return iou, valid
 
 
+def _greedy_iou_on(dev, n, g, t, seed):
+    """:func:`_greedy_iou`'s recipe drawn on the card (torch), for
+    matrices too large for the host's float64 draws: sparse overlaps
+    (0.2 %, so that kept rows span the matrix), a block of overlaps in
+    every row, entries at float32(t), beside it and NaN, two equal rows;
+    the last matrix all invalid."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    t32 = float(np.float32(t))
+    iou = torch.rand((g, n, n), generator=gen, device=dev) * t32
+    iou[torch.rand((g, n, n), generator=gen, device=dev) > 0.998] = 0.9
+    iou[:, :, :16] = 0.9
+    edges = torch.tensor([t32, float(np.nextafter(np.float32(t), 2)),
+                          float(np.nextafter(np.float32(t), -1)),
+                          float("nan")], device=dev)
+    pick = torch.rand((g, n, n), generator=gen, device=dev) < 0.002
+    iou[pick] = edges[torch.randint(0, 4, (int(pick.sum()),), generator=gen,
+                                    device=dev)]
+    iou[:, 3] = iou[:, 5]
+    valid = torch.rand((g, n), generator=gen, device=dev) > 0.1
+    valid[-1] = False
+    return iou, valid
+
+
 @pytest.mark.parametrize("n,g,post", [(2000, 2, 1000), (1000, 5, 500),
                                       (1000, 1, 3), (37, 3, 64),
-                                      (8192, 2, 4096), (1000, 20, 500)])
+                                      (8192, 2, 4096), (1000, 20, 500),
+                                      (8193, 1, 4096), (20000, 1, 20000),
+                                      (20000, 6, 5000)])
 def test_greedy_nms_keep_sets_identical(dev, n, g, post):
     """Kernel E against the plain greedy pass on the same float32 IoU
     matrices: keep positions and counts identical, one launch counted a
     call, on matrices with ties (equal rows, a block of overlaps in every
-    row), threshold edges and NaN, and an all-invalid matrix; up to
-    GREEDY_MAX_N and G = 20."""
-    iou, valid = _greedy_iou(n, g, 0.5, n + g)
-    iou_t = torch.from_numpy(iou).to(dev)
-    valid_t = torch.from_numpy(valid).to(dev)
+    row), threshold edges and NaN, and an all-invalid matrix; up to G =
+    20, and above N = 8192 (the walk with its mask in shared memory), at
+    G * N^2 = 2.4e9 > 2^31 too (drawn on the card)."""
+    if g * n * n > 1 << 28:
+        iou_t, valid_t = _greedy_iou_on(dev, n, g, 0.5, n + g)
+    else:
+        iou, valid = _greedy_iou(n, g, 0.5, n + g)
+        iou_t = torch.from_numpy(iou).to(dev)
+        valid_t = torch.from_numpy(valid).to(dev)
     before = cuda_lib.launches["greedy_nms"]
     keep, count = greedy_cuda(iou_t, valid_t, 0.5, post)
     assert cuda_lib.launches["greedy_nms"] == before + 1
@@ -989,6 +1059,26 @@ def test_greedy_nms_threshold_edges(dev, t, n):
         want_keep, want_count = greedy_plain(iou_t, valid_t, t, post)
         assert torch.equal(keep, want_keep)
         assert torch.equal(count, want_count)
+
+
+def test_nms_boxes_above_8192_card_matches_cpu(dev):
+    """nms_boxes over 9000 boxes on the card (kernel C, then kernel E's
+    walk for N > 8192, one launch each) keeps the boxes its plain
+    version keeps on the CPU."""
+    from chip_smoke import _nms_boxes_np
+    from detection_3d_tpu_torch.ops.nms import nms_boxes
+    rng = np.random.RandomState(4)
+    host = (torch.from_numpy(_nms_boxes_np(9000, 4)),
+            torch.from_numpy(rng.rand(9000).astype(np.float32)),
+            torch.from_numpy(rng.rand(9000) > 0.1))
+    cuda_lib.reset_launches()
+    keep, count = nms_boxes(*(x.to(dev) for x in host), 0.3, 9000)
+    torch.cuda.synchronize()
+    assert cuda_lib.launches["rotated_iou"] == 1
+    assert cuda_lib.launches["greedy_nms"] == 1
+    want, want_count = nms_boxes(*host, 0.3, 9000)
+    assert int(count) == int(want_count) > 0
+    assert torch.equal(keep.cpu(), want)
 
 
 def test_greedy_nms_no_host_sync(dev):
