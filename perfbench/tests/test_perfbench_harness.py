@@ -1,0 +1,216 @@
+"""The harness on the CPU: every cell and metric of BENCHMARK.json loads
+from its files by name; a cell added as files and entries runs; the
+result line has the contract's keys; the check fails the fp8 control
+and faults planted in the program's timed path; the import guard."""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from perfbench import control, guard, harness as run, spec
+from perfbench.tests import tiny
+
+torch.set_num_threads(2)
+BENCH = json.loads((spec.ROOT / "BENCHMARK.json").read_text())
+
+
+@pytest.mark.parametrize("cell", [w["name"] for w in BENCH["workloads"]])
+def test_every_cell_loads_by_name(cell):
+    from detection_3d_tpu_torch.config.defaults import Config
+    from perfbench.reference.config import Config as RefConfig
+    c = spec.load_cell(cell)
+    assert callable(spec.window(spec.ROOT, c.traffic["window"]))
+    assert spec.build_config(Config, c.config) == \
+        spec.build_config(Config, c.config)
+    ref = spec.build_config(RefConfig, c.config)
+    assert ref.sparse3d.nplanes_front == \
+        tuple(c.config["model"]["sparse3d"]["nplanes_front"])
+    assert set(c.limits()) <= {"unmatched", "score_gap_median", "loss",
+                               "grad", "change", "change_q90"}
+    assert any(m["name"] == "setup_s" for m in c.end_to_end)
+    assert len(c.end_to_end) >= 2 and c.per_layer
+
+
+@pytest.mark.parametrize("metric", [m["name"] for m in BENCH["per_layer"]])
+def test_every_metric_has_a_reader(metric):
+    assert callable(spec.metric_reader(spec.ROOT, metric))
+
+
+def test_every_metric_stem_shares_one_reader():
+    """A metric ``<stem>.<part>`` without a file of its own reads through
+    ``metrics/<stem>.py``."""
+    assert spec.metric_reader(spec.ROOT, "idle_share.any_cell").__module__ \
+        == spec.metric_reader(spec.ROOT, "idle_share.train").__module__
+    with pytest.raises(FileNotFoundError):
+        spec.metric_reader(spec.ROOT, "no_such_metric.train")
+
+
+def test_size_mix_gives_every_seed_the_same_sizes():
+    from perfbench.traffic.pool import building_params
+    mix = {"pool": 5, "num_points": 500000, "rooms_xy": [5, 5],
+           "room": 8.0, "sizes": [{"count": 3, "num_points": 100000,
+                                   "rooms_xy": [2, 2]}, {"count": 2}]}
+    a, b = building_params(1, mix), building_params(3000000017, mix)
+    key = sorted(json.dumps(x, sort_keys=True) for x in a)
+    assert key == sorted(json.dumps(x, sort_keys=True) for x in b)
+    assert a != b and sum(x["num_points"] == 100000 for x in a) == 3
+    assert building_params(1, {k: v for k, v in mix.items()
+                               if k != "sizes"}) == [
+        {"num_points": 500000, "rooms_xy": [5, 5], "room": 8.0}] * 5
+    with pytest.raises(ValueError):
+        building_params(1, dict(mix, pool=4))
+
+
+def test_configuration_files_match_the_program():
+    from detection_3d_tpu_torch.config.defaults import (
+        Config, full_scale_config)
+    six = json.loads((spec.HERE / "configs/6c_fpn4321.json").read_text())
+    assert spec.build_config(Config, six) == full_scale_config()
+    assert six["reduced"] == []
+
+
+@pytest.fixture(scope="module")
+def root(tmp_path_factory):
+    return tiny.make_root(tmp_path_factory.mktemp("bench"))
+
+
+KEYS = ["correct", "attempted", "failed", "metrics", "device", "compared"]
+
+
+@pytest.mark.parametrize("cell,trace", [("tiny.stream", 0),
+                                        ("tiny.stream", 1),
+                                        ("tiny.single", 0),
+                                        ("tiny.mixed", 0),
+                                        ("tiny.train", 0),
+                                        ("tiny3g.train", 0)])
+def test_added_cell_runs_with_the_contract_keys(root, cell, trace):
+    r = run.run_cell(tiny.args(cell, trace=trace), require_card=False,
+                     root=root)
+    assert list(r) == KEYS
+    assert r["correct"] is True and r["failed"] == 0 and r["attempted"] > 0
+    assert set(r["device"]) == {"platform", "kind", "count",
+                                "memory_peak_bytes"}
+    names = {m["name"] for m in json.loads(
+        (root / "BENCHMARK.json").read_text())["end_to_end"]
+        if cell in m.get("workloads", [cell])}
+    if trace:
+        # no device trace on the CPU: only the host-clock reading is there
+        assert set(r["metrics"]) <= {"mfu.stream", "mfu.single",
+                                     "mfu.train"}
+    else:
+        assert set(r["metrics"]) == names
+    for v in r["metrics"].values():
+        assert set(v) == {"value", "unit"}
+    for v in r["compared"].values():
+        assert set(v) == {"value", "limit"}
+
+
+def _fault_half_batch(packed):
+    """Half of each unit's buildings left out: no valid detection."""
+    out = packed.clone()
+    if out.dim() == 3:
+        out[out.shape[0] // 2:, :, 9] = 0.0
+    else:
+        out[out.shape[0] // 2:, 9] = 0.0
+    return out
+
+
+def _fault_altered(packed):
+    """An answer altered where it is produced: every box moved 5 cm."""
+    out = packed.clone()
+    out[..., 0] += 0.05
+    return out
+
+
+@pytest.mark.parametrize("cell", ["tiny.stream", "tiny.single"])
+@pytest.mark.parametrize("fault", [_fault_half_batch, _fault_altered])
+def test_planted_fault_is_not_correct(root, monkeypatch, cell, fault):
+    from detection_3d_tpu_torch.engine import inference
+    pack = inference.pack_detections
+    monkeypatch.setattr(inference, "pack_detections",
+                        lambda det: fault(pack(det)))
+    r = run.run_cell(tiny.args(cell), require_card=False, root=root)
+    assert r["correct"] is False and r["failed"] > 0
+
+
+def test_fp8_control_is_not_correct(root):
+    """The reference in float8 put in the program's place fails the
+    check on three seeds."""
+    from perfbench import compare
+    from perfbench.control import fp8
+    cell = spec.load_cell("tiny.stream", root)
+    dev = torch.device("cpu")
+    for seed in (5, 6, 7):
+        r = run.prepare(cell, seed, 0.1, False, dev)
+        ref = run.reference_model(r)
+        ctl = run.reference_model(r, fp8)
+        answers = [(b, run.reference_detections(
+            r.ref_cfg, ctl, run.pad_scene(r.ref_cfg, r.pool[b]), dev))
+            for b in range(len(r.pool))]
+        numbers = compare.worst(run.check(r, answers, ref))
+        assert not compare.judge(numbers, cell.limits())[0], numbers
+
+
+@pytest.mark.parametrize("cell", ["tiny.train", "tiny3g.train"])
+@pytest.mark.parametrize("fault", sorted(control.FAULTS))
+def test_planted_training_fault_is_not_correct(root, monkeypatch, cell,
+                                               fault):
+    control.FAULTS[fault](monkeypatch.setattr)
+    r = run.run_cell(tiny.args(cell), require_card=False, root=root)
+    assert r["correct"] is False and r["failed"] == 1
+
+
+@pytest.mark.parametrize("cell", ["tiny.train", "tiny3g.train"])
+def test_fp8_control_fails_the_training_check(root, cell):
+    from perfbench import compare, train
+    c = spec.load_cell(cell, root)
+    r = run.prepare(c, 5, 0.1, False, torch.device("cpu"))
+    run.drive(r)
+    r.draws = run.close_window(r)["draws"]
+    want = train.reference_steps(r, run.reference_model(r), 3)
+    got = train.reference_steps(r, run.reference_model(r, control.fp8), 3)
+    numbers = train.numbers(got, want, r.weights)
+    assert not compare.judge(numbers, c.limits())[0], numbers
+
+
+def test_no_card_exits_nonzero_without_a_result():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card")
+    p = subprocess.run([sys.executable, "-m", "perfbench.run", "--workload",
+                        BENCH["workloads"][0]["name"], "--seed", "1",
+                        "--seconds", "1", "--trace", "0"],
+                       cwd=spec.ROOT, capture_output=True, text=True,
+                       timeout=300, env=dict(os.environ))
+    assert p.returncode != 0 and p.stdout.strip() == ""
+
+
+def test_import_guard_compares_whole_top_level_names():
+    assert guard.forbidden_modules(["detection_3d_tpu_torch.models",
+                                    "jaxtyping", "flaxen"]) == []
+    assert guard.forbidden_modules(["detection_3d_tpu.models", "jax.numpy",
+                                    "jaxlib", "flax.linen"]) == [
+        "detection_3d_tpu.models", "flax.linen", "jax.numpy", "jaxlib"]
+
+
+def test_yardstick_imports_nothing_of_the_port():
+    assert guard.port_imports_in() == []
+
+
+def test_a_run_loads_no_jax(root):
+    """A whole run in a fresh process loads neither JAX nor the JAX
+    package."""
+    code = ("import sys; from pathlib import Path; "
+            "from perfbench import harness, guard; from perfbench.tests "
+            "import tiny; harness.run_cell(tiny.args('tiny.single', seconds=0.5), "
+            f"require_card=False, root=Path({str(root)!r})); "
+            "print(guard.forbidden_modules())")
+    p = subprocess.run([sys.executable, "-c", code], cwd=spec.ROOT,
+                       capture_output=True, text=True, timeout=600)
+    assert p.returncode == 0, p.stderr[-2000:]
+    assert p.stdout.strip().splitlines()[-1] == "[]"

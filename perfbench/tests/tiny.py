@@ -1,0 +1,115 @@
+"""A tiny benchmark for the CPU tests: a checkout root with its own
+BENCHMARK.json, a small configuration of the same model, two traffic
+mixes of small buildings and their limits, added as files and entries
+beside copies of the real per-layer readers. The limits were read from
+these cells' own runs on the CPU (program and fp8 control, compare.py's
+numbers): program at most 0.03 unmatched and 7.4e-4 score gap, the
+control 0.28 and 3.4e-3."""
+
+from __future__ import annotations
+
+import argparse
+import json
+import shutil
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parents[2]
+LIMITS = {"unmatched": 0.12}
+TRAIN_LIMITS = {"loss": 1e-3, "grad": 1e-3, "change": 1e-3,
+                "change_q90": 1e-3}
+BUILDINGS = {"pool": 4, "num_points": 6000, "rooms_xy": [1, 1], "room": 4.0}
+
+
+def tiny_model():
+    model = json.loads((REPO / "perfbench/configs/6c_fpn4321.json")
+                       .read_text())["model"]
+    model.update(compute_dtype="float32", backbone_out_channels=16)
+    model["sparse3d"].update(
+        voxel_scale=50, voxel_full_scale=[512, 512, 256],
+        nplanes_front=[8, 16, 16, 32, 32], kernels=[[2, 2, 2]] * 4,
+        strides=[[2, 2, 2]] * 4, nplane_map=16)
+    model["rpn"].update(
+        rpn_scales_from_top=[2, 1], rpn_3d_2d_selector=[0, 1, 2],
+        anchor_sizes_3d=[[0.2, 0.5, 3], [0.4, 1.5, 3], [0.6, 2.5, 3]],
+        use_yaws=[1, 1, 1], fpn_pre_nms_top_n_train=256,
+        fpn_pre_nms_top_n_test=256, fpn_post_nms_top_n_train=64,
+        fpn_post_nms_top_n_test=64, batch_size_per_image=64)
+    model["roi"].update(pooler_scales_from_top=[2, 1],
+                        batch_size_per_image=64, detections_per_img=32,
+                        mlp_head_dim=32)
+    model["caps"].update(max_points=8192,
+                         voxel_caps=[8192, 4096, 2048, 1024, 512], max_gt=32)
+    return model
+
+
+def make_root(root: Path) -> Path:
+    """A checkout root under ``root`` with the tiny cells ``tiny.stream``,
+    ``tiny.single``, ``tiny.mixed`` (a window file and a mix of sizes
+    added as files), ``tiny.train`` and ``tiny3g.train``; returns it."""
+    pb = root / "perfbench"
+    for d in ("metrics", "windows"):
+        shutil.copytree(REPO / "perfbench" / d, pb / d)
+    for d in ("configs", "traffic", "limits"):
+        (pb / d).mkdir(parents=True)
+    (pb / "configs/tiny.json").write_text(json.dumps(
+        {"name": "tiny", "source": "test", "reduced": [],
+         "model": tiny_model()}))
+    (pb / "configs/tiny3g.json").write_text(json.dumps(
+        {"name": "tiny3g", "source": "test", "reduced": [],
+         "model": dict(tiny_model(),
+                       separate_classes=[["wall"], ["ceiling", "floor"]])}))
+    (pb / "traffic/tiny_stream.json").write_text(json.dumps(
+        {"window": "stream", "buildings": BUILDINGS, "batch_size": 2,
+         "pack_workers": 2, "pack_mode": "table", "warm_units": 2,
+         "min_units": 4, "sized_rate": 1.0, "profile_units": 2, "check_answers": 3}))
+    (pb / "traffic/tiny_single.json").write_text(json.dumps(
+        {"window": "single", "buildings": BUILDINGS, "warm_buildings": 1,
+         "profile_after": 1, "profile_buildings": 2, "check_answers": 3}))
+    # a kind of window and a mix of sizes added as files alone
+    shutil.copy(pb / "windows/single.py", pb / "windows/single_again.py")
+    (pb / "traffic/tiny_mixed.json").write_text(json.dumps(
+        {"window": "single_again", "buildings": dict(
+            BUILDINGS, sizes=[{"count": 3},
+                              {"count": 1, "num_points": 3000}]),
+         "warm_buildings": 1, "profile_after": 1, "profile_buildings": 2,
+         "check_answers": 3}))
+    (pb / "traffic/tiny_train.json").write_text(json.dumps(
+        {"window": "train", "buildings": BUILDINGS, "checked_steps": 3,
+         "profile_after": 1, "profile_steps": 2}))
+    for c in ("tiny.stream", "tiny.single", "tiny.mixed"):
+        (pb / f"limits/{c}.json").write_text(json.dumps({"limits": LIMITS}))
+    for c in ("tiny.train", "tiny3g.train"):
+        (pb / f"limits/{c}.json").write_text(json.dumps(
+            {"limits": TRAIN_LIMITS}))
+    bench = json.loads((REPO / "BENCHMARK.json").read_text())
+    bench["configs"] = [{"name": n, "source": "test",
+                         "file": f"perfbench/configs/{n}.json",
+                         "reduced": [], "why": "test"}
+                        for n in ("tiny", "tiny3g")]
+    kinds = {w["name"]: w["traffic"] for w in bench["workloads"]}
+    bench["workloads"] = [
+        {"name": "tiny.stream", "config": "tiny", "traffic": "tiny_stream",
+         "chips": 1, "why": "test"},
+        {"name": "tiny.single", "config": "tiny", "traffic": "tiny_single",
+         "chips": 1, "why": "test"},
+        {"name": "tiny.mixed", "config": "tiny", "traffic": "tiny_mixed",
+         "chips": 1, "why": "test"},
+        {"name": "tiny.train", "config": "tiny", "traffic": "tiny_train",
+         "chips": 1, "why": "test"},
+        {"name": "tiny3g.train", "config": "tiny3g", "traffic": "tiny_train",
+         "chips": 1, "why": "test"}]
+    tiny = {"stream_b4": ["tiny.stream"],
+            "single": ["tiny.single", "tiny.mixed"],
+            "train": ["tiny.train", "tiny3g.train"]}
+    for m in bench["end_to_end"] + bench["per_layer"]:
+        if "workloads" in m:
+            m["workloads"] = sorted({c for w in m["workloads"]
+                                     for c in tiny[kinds[w]]})
+    (root / "BENCHMARK.json").write_text(json.dumps(bench))
+    return root
+
+
+def args(workload: str, seed: int = 3000000017, trace: int = 0,
+         seconds: float = 2.0):
+    return argparse.Namespace(workload=workload, seed=seed, seconds=seconds,
+                              trace=trace)
