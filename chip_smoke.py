@@ -44,7 +44,8 @@
 4. Serving path at full width: full_scale_config(), seeded random
    weights, make_predict_fn + run_inference over 4 buildings of 500k
    points; checks finite outputs, true_num > 0 and that every serving
-   kernel was launched. Prints s/building, a breakdown of one more, and
+   kernel was launched. Prints s/building, the stages of one more from
+   the span log of a profiled call (host seconds and syncs), and
    kernel A at every distinct shape that building launched (against its
    plain version, with its launches, bound and mean offsets per tile
    with and without the row order).
@@ -1162,6 +1163,32 @@ def device_profile(predict, batch):
             out, _ = predict(batch)
             out.cpu()
     return _profile(run)
+
+
+def stage_spans(predict, batch):
+    """The span log of one predict of ``batch`` under torch.profiler
+    (utils/profiling.span): {name: [host seconds, host syncs]} of
+    ``model.predict`` and every ``model.*`` span inside it, summed by
+    name; the syncs are each span's own (not those of the spans inside
+    it). The forward is not synchronised, so a stage's time is its
+    launches and its waits at host syncs."""
+    from torch.profiler import ProfilerActivity, profile
+    from detection_3d_tpu_torch.utils.profiling import recorded_spans
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    recorded_spans()
+    with torch.inference_mode(), profile(activities=acts):
+        out, _ = predict(batch)
+        out.cpu()
+    stages = {}
+    for r in recorded_spans():
+        if r.name.startswith("model."):
+            sec, syncs = stages.get(r.name, (0.0, 0))
+            stages[r.name] = [sec + r.seconds, syncs + r.syncs]
+    check("model.backbone" in stages, "the span log holds no "
+          f"model.backbone span: {sorted(stages)}")
+    return stages
 
 
 def valid_rows(packed):
@@ -4343,7 +4370,6 @@ def main():
         SparseRCNN, voxelize_points)
     from detection_3d_tpu_torch.ops import cuda_lib
     from detection_3d_tpu_torch.tools.overfit_check import GROUPS_3G6C
-    from detection_3d_tpu_torch.utils.timing import PhaseTimer
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
@@ -4433,14 +4459,12 @@ def main():
           + json.dumps([int(p["boxes"].shape[0]) for p in preds])
           + ", true_num: " + json.dumps([p["true_num"] for p in preds]))
 
-    phases = PhaseTimer(dev)
     t0 = time.perf_counter()
-    with torch.inference_mode():
-        out, _ = predict(pad_scene(cfg, scenes[-1]), phases)
-        out.cpu()
-    print(f"stages of one more building (synchronised, "
-          f"{time.perf_counter() - t0:.3f} s total): "
-          + json.dumps({k: round(v, 4) for k, v in phases.seconds.items()}))
+    stages = stage_spans(predict, pad_scene(cfg, scenes[-1]))
+    print(f"stages of one more building (span log: host seconds, own "
+          f"host syncs; {time.perf_counter() - t0:.3f} s total): "
+          + json.dumps({k: [round(v[0], 4), v[1]]
+                        for k, v in stages.items()}))
     prof = device_profile(predict, pad_scene(cfg, scenes[-1]))
     print("device profile of one more building: " + json.dumps(_brief(prof)))
     gather_conv_serving_shapes(predict, pad_scene(cfg, scenes[-1]))

@@ -53,31 +53,38 @@ from detection_3d_tpu_torch.evaluation.detection_eval import (
 )
 from detection_3d_tpu_torch.models.detector import SparseRCNN, voxelize_points
 from detection_3d_tpu_torch.utils.device import resolve_device
+from detection_3d_tpu_torch.utils.profiling import span
 
 _LOG = logging.getLogger(__name__)
 
 PACK_FNS = {"pyramid": pack_pyramid_native, "table": pack_table_native}
 
 
-def _predict_one(cfg, model, packed, dev, batch, phases=None):
-    pyramid = None
-    if not packed:
-        pts, fts, valid = (torch.as_tensor(batch[k]).to(dev)
-                           for k in ("points", "feats", "points_valid"))
-        table = voxelize_points(cfg, pts, fts, valid)
-    else:
-        batch = to_device(batch, dev)
-        if packed == "pyramid":
-            pyramid = unpack_pyramid(cfg, batch)
-            table = pyramid["tables"][0]
-        elif packed == "table":
-            table = unpack_table(cfg, batch)
-        else:
-            b = unpack_batch(cfg, batch)
-            table = voxelize_points(cfg, b["points"], b["feats"],
-                                    b["points_valid"])
-    det = model(table, phases=phases, pyramid=pyramid)
-    return pack_detections(det), table.true_num
+def _predict_one(cfg, model, packed, dev, batch, buildings):
+    """One forward over ``batch`` (``buildings`` buildings) in the
+    spans ``model.predict`` > ``model.input`` (to the device, unpack or
+    voxelize), then the forward's stages."""
+    with span("model.predict", buildings=buildings):
+        with span("model.input"):
+            pyramid = None
+            if not packed:
+                pts, fts, valid = (torch.as_tensor(batch[k]).to(dev)
+                                   for k in ("points", "feats",
+                                             "points_valid"))
+                table = voxelize_points(cfg, pts, fts, valid)
+            else:
+                batch = to_device(batch, dev)
+                if packed == "pyramid":
+                    pyramid = unpack_pyramid(cfg, batch)
+                    table = pyramid["tables"][0]
+                elif packed == "table":
+                    table = unpack_table(cfg, batch)
+                else:
+                    b = unpack_batch(cfg, batch)
+                    table = voxelize_points(cfg, b["points"], b["feats"],
+                                            b["points_valid"])
+        det = model(table, pyramid=pyramid)
+        return pack_detections(det), table.true_num
 
 
 def _model_on(cfg, model, dev):
@@ -89,12 +96,11 @@ def make_predict_fn(cfg: Config, model: Optional[SparseRCNN] = None,
     """Per-building predict on ``device`` (the card unless the caller
     asks for the CPU; raises when CUDA is asked for and absent).
 
-    Returns ``predict(batch, phases=None) -> (packed_out, true_num)``:
+    Returns ``predict(batch) -> (packed_out, true_num)``:
     ``batch`` is a dict of the input form ``packed`` (module docstring),
     as numpy arrays or as tensors already on ``device``; ``packed_out``
     is a (K, 10) f32 tensor ``[boxes7 | score | label | valid]`` and
     ``true_num`` the pre-truncation voxel count, both on ``device``.
-    ``phases`` is an optional utils/timing.PhaseTimer.
     """
     if packed not in (False, True, "table", "pyramid"):
         raise ValueError(
@@ -104,8 +110,8 @@ def make_predict_fn(cfg: Config, model: Optional[SparseRCNN] = None,
     model = _model_on(cfg, model, dev)
 
     @torch.inference_mode()
-    def predict(batch, phases=None):
-        return _predict_one(cfg, model, packed, dev, batch, phases)
+    def predict(batch):
+        return _predict_one(cfg, model, packed, dev, batch, 1)
 
     return predict
 
@@ -125,8 +131,9 @@ def make_batch_predict_fn(cfg: Config, model: Optional[SparseRCNN] = None,
     model = _model_on(cfg, model, dev)
 
     @torch.inference_mode()
-    def predict(stacked, phases=None):
-        return _predict_one(cfg, model, packed, dev, stacked, phases)
+    def predict(stacked):
+        buildings = len(next(iter(stacked.values())))
+        return _predict_one(cfg, model, packed, dev, stacked, buildings)
 
     return predict
 
@@ -183,12 +190,13 @@ def _serve_pipelined(cfg, model, scenes, dev, predict_fn, pack_workers,
     copies = _DeviceCopies(dev)
 
     def pack_and_put(unit):
-        packs = [pack_fn(cfg, scenes[j]) for j in unit]
-        if B == 1:
-            return copies.put(packs[0])
-        packs += [packs[-1]] * (B - len(packs))   # pad the tail unit
-        return copies.put({k: np.stack([p[k] for p in packs])
-                           for k in packs[0]})
+        with span("serve.pack"):
+            packs = [pack_fn(cfg, scenes[j]) for j in unit]
+            if B == 1:
+                return copies.put(packs[0])
+            packs += [packs[-1]] * (B - len(packs))   # pad the tail unit
+            return copies.put({k: np.stack([p[k] for p in packs])
+                               for k in packs[0]})
 
     def record_unit(unit, out):
         packed_out = out[0].cpu().numpy()
@@ -207,18 +215,23 @@ def _serve_pipelined(cfg, model, scenes, dev, predict_fn, pack_workers,
             q.append(pool.submit(pack_and_put, units[j]))
         pending = None      # (unit, out) dispatched but not yet fetched
         for i, unit in enumerate(units):
-            if i + pack_workers < len(units):
-                q.append(pool.submit(pack_and_put, units[i + pack_workers]))
-            t0 = time.perf_counter()
-            batch = copies.take(q.popleft().result())
-            t1 = time.perf_counter()
-            out = predict(batch)
-            t2 = time.perf_counter()
-            # double buffer: fetch unit i-1 while the card runs unit i
-            if pending is not None:
-                record_unit(*pending)
-            pending = (unit, out)
-            t3 = time.perf_counter()
+            with span("serve.unit", buildings=len(unit)):
+                if i + pack_workers < len(units):
+                    q.append(pool.submit(pack_and_put,
+                                         units[i + pack_workers]))
+                t0 = time.perf_counter()
+                with span("serve.wait_pack"):
+                    batch = copies.take(q.popleft().result())
+                t1 = time.perf_counter()
+                with span("serve.dispatch"):
+                    out = predict(batch)
+                t2 = time.perf_counter()
+                # double buffer: fetch unit i-1 while the card runs unit i
+                with span("serve.fetch"):
+                    if pending is not None:
+                        record_unit(*pending)
+                    pending = (unit, out)
+                t3 = time.perf_counter()
             tm["wait_pack"] += t1 - t0
             tm["dispatch"] += t2 - t1
             tm["drain_fetch"] += t3 - t2
@@ -227,7 +240,8 @@ def _serve_pipelined(cfg, model, scenes, dev, predict_fn, pack_workers,
                 n_timed += len(unit)
         if pending is not None:
             t0 = time.perf_counter()
-            record_unit(*pending)
+            with span("serve.fetch"):
+                record_unit(*pending)
             dt = time.perf_counter() - t0
             tm["drain_fetch"] += dt
             if len(units) > 1:
@@ -274,7 +288,11 @@ def run_inference(cfg: Config, model: Optional[SparseRCNN],
     one unit) the time is NaN and a warning is logged. ``timings``, when given, receives the
     summed seconds of ``wait_pack`` (pack and copy not hidden),
     ``dispatch`` (the predict call) and ``drain_fetch`` (the previous
-    unit's detections to the host).
+    unit's detections to the host). Each unit runs in the span
+    ``serve.unit`` around ``serve.wait_pack``, ``serve.dispatch`` and
+    ``serve.fetch``, on the brackets ``timings`` sums (the last fetch
+    after the loop in a ``serve.fetch`` of its own), and each pack in
+    ``serve.pack`` on its worker's thread (utils/profiling.span).
     """
     if pack_mode not in PACK_FNS:
         raise ValueError(

@@ -63,6 +63,7 @@ from detection_3d_tpu_torch.parallel.mesh import (
 from detection_3d_tpu_torch.utils.checkpoint import Checkpointer
 from detection_3d_tpu_torch.utils.device import resolve_device
 from detection_3d_tpu_torch.utils.metric_logger import MetricLogger
+from detection_3d_tpu_torch.utils.profiling import span
 
 _LOG = logging.getLogger(__name__)
 
@@ -70,36 +71,37 @@ _LOG = logging.getLogger(__name__)
 def pad_scene(cfg: Config, scene: Dict) -> Dict[str, np.ndarray]:
     """Host-side: pad a scene dict to the static capacities, warning when
     points or gt boxes exceed them (silent loss of input is never
-    acceptable)."""
-    n = cfg.caps.max_points
-    pts = np.zeros((n, 3), np.float32)
-    fts = np.zeros((n, cfg.in_channels), np.float32)
-    m = min(scene["points"].shape[0], n)
-    if scene["points"].shape[0] > n:
-        _LOG.warning(
-            "pad_scene: %d points exceed caps.max_points=%d — dropping "
-            "%.1f%% of the input (raise caps.max_points)",
-            scene["points"].shape[0], n,
-            100.0 * (1 - n / scene["points"].shape[0]))
-    pts[:m] = scene["points"][:m]
-    fts[:m] = scene["feats"][:m, :cfg.in_channels]
-    pvalid = np.arange(n) < m
+    acceptable). Runs in the span ``data.pad_scene``."""
+    with span("data.pad_scene"):
+        n = cfg.caps.max_points
+        pts = np.zeros((n, 3), np.float32)
+        fts = np.zeros((n, cfg.in_channels), np.float32)
+        m = min(scene["points"].shape[0], n)
+        if scene["points"].shape[0] > n:
+            _LOG.warning(
+                "pad_scene: %d points exceed caps.max_points=%d — dropping "
+                "%.1f%% of the input (raise caps.max_points)",
+                scene["points"].shape[0], n,
+                100.0 * (1 - n / scene["points"].shape[0]))
+        pts[:m] = scene["points"][:m]
+        fts[:m] = scene["feats"][:m, :cfg.in_channels]
+        pvalid = np.arange(n) < m
 
-    g = cfg.caps.max_gt
-    gtb = np.zeros((g, 7), np.float32)
-    gtb[:, 3:6] = 0.1  # harmless nonzero sizes on padding rows
-    gtl = np.zeros((g,), np.int32)
-    mg = min(scene["gt_boxes"].shape[0], g)
-    gtb[:mg] = scene["gt_boxes"][:mg]
-    gtl[:mg] = scene["gt_labels"][:mg]
-    gvalid = np.arange(g) < mg
-    if scene["gt_boxes"].shape[0] > g:
-        _LOG.warning(
-            "pad_scene: %d gt boxes exceed caps.max_gt=%d — dropping %d "
-            "targets (raise caps.max_gt)",
-            scene["gt_boxes"].shape[0], g, scene["gt_boxes"].shape[0] - g)
-    return {"points": pts, "feats": fts, "points_valid": pvalid,
-            "gt_boxes": gtb, "gt_labels": gtl, "gt_valid": gvalid}
+        g = cfg.caps.max_gt
+        gtb = np.zeros((g, 7), np.float32)
+        gtb[:, 3:6] = 0.1  # harmless nonzero sizes on padding rows
+        gtl = np.zeros((g,), np.int32)
+        mg = min(scene["gt_boxes"].shape[0], g)
+        gtb[:mg] = scene["gt_boxes"][:mg]
+        gtl[:mg] = scene["gt_labels"][:mg]
+        gvalid = np.arange(g) < mg
+        if scene["gt_boxes"].shape[0] > g:
+            _LOG.warning(
+                "pad_scene: %d gt boxes exceed caps.max_gt=%d — dropping %d "
+                "targets (raise caps.max_gt)",
+                scene["gt_boxes"].shape[0], g, scene["gt_boxes"].shape[0] - g)
+        return {"points": pts, "feats": fts, "points_valid": pvalid,
+                "gt_boxes": gtb, "gt_labels": gtl, "gt_valid": gvalid}
 
 
 def batch_to_device(batch: Dict[str, np.ndarray], dev):
@@ -294,15 +296,19 @@ class Trainer:
         """One gated step with no host fetch: ((total, losses, ok,
         true_num) as tensors on the device, the step's train-time
         detections on the device with ``cfg.eval_in_train``, else
-        None)."""
+        None), in the spans ``train.forward``, ``train.backward`` and
+        ``train.update``."""
         state.solver.zero_grad()
-        losses, dets, true_num = training_forward(
-            self.cfg, state.model, batch, self.device, generator,
-            priorities, packed)
-        total = total_loss(losses)
-        total.backward()
-        ok = grads_finite(total, state.solver.params)
-        state.solver.apply(ok)
+        with span("train.forward"):
+            losses, dets, true_num = training_forward(
+                self.cfg, state.model, batch, self.device, generator,
+                priorities, packed)
+            total = total_loss(losses)
+        with span("train.backward"):
+            total.backward()
+        with span("train.update"):
+            ok = grads_finite(total, state.solver.params)
+            state.solver.apply(ok)
         state.step += 1
         return (total.detach(), {k: v.detach() for k, v in losses.items()},
                 ok, true_num), dets
@@ -328,13 +334,18 @@ class Trainer:
         ok, true_num) as host numbers; the update is applied only when
         ``ok`` (finite loss and gradients). With ``cfg.eval_in_train``,
         ``self.last_detections`` holds the step's train-time detections
-        ({boxes, scores, labels} of the valid rows, numpy)."""
-        out, dets = self._device_step(state, batch, generator, priorities,
-                                      packed)
-        if dets is not None:
-            self.last_detections = unpack_detections(
-                pack_detections(dets).cpu().numpy())
-        return self._fetch([out])[0]
+        ({boxes, scores, labels} of the valid rows, numpy). Runs in the
+        span ``train.step`` around ``train.forward``, ``train.backward``,
+        ``train.update`` (the isfinite and the SGD update) and
+        ``train.fetch``."""
+        with span("train.step"):
+            out, dets = self._device_step(state, batch, generator,
+                                          priorities, packed)
+            with span("train.fetch"):
+                if dets is not None:
+                    self.last_detections = unpack_detections(
+                        pack_detections(dets).cpu().numpy())
+                return self._fetch([out])[0]
 
     def scan(self, state: TrainState, batches, generator=None,
              packed=False):

@@ -12,7 +12,6 @@ model has no ROI head and the RPN's proposals are its detections.
 
 from __future__ import annotations
 
-import contextlib
 import os
 from typing import Dict, Optional
 
@@ -33,6 +32,7 @@ from detection_3d_tpu_torch.models.structures import Boxes3D
 from detection_3d_tpu_torch.ops.sparse import SparseTensor, build_sparse_tensor
 from detection_3d_tpu_torch.utils.checkpoint import load_jax_checkpoint
 from detection_3d_tpu_torch.utils.convert import convert_jax_params
+from detection_3d_tpu_torch.utils.profiling import span
 
 
 def voxelize_points(cfg: Config, points_xyz, feats, valid,
@@ -111,7 +111,7 @@ class SparseRCNN(nn.Module):
 
     def forward(self, table: SparseTensor, gt: Optional[Boxes3D] = None,
                 gt_labels=None, *, generator=None, priorities=None,
-                phases=None, pyramid=None):
+                pyramid=None):
         """One voxel table -> detections (fields scores, labels) without
         ``gt``; with ``gt`` (Boxes3D of max_gt rows) and ``gt_labels``,
         the loss dict, and with ``cfg.eval_in_train`` too, ``(losses,
@@ -129,8 +129,10 @@ class SparseRCNN(nn.Module):
         The samplers draw uniform priorities from ``generator`` (a
         torch.Generator on the table's device) in the order of
         :meth:`priority_shapes`, unless ``priorities`` hands them in as
-        a dict of tensors of those keys and lengths. ``phases``, when
-        given, is a PhaseTimer (utils/timing.py) that times each stage.
+        a dict of tensors of those keys and lengths. Each stage runs in a
+        span (utils/profiling.span): ``model.pyramid``,
+        ``model.backbone``, ``model.rpn``, ``model.roi_head`` and
+        ``model.postprocess`` (one of each last two a group).
 
         ``pyramid``, when given, is a host-built pyramid of ``table``
         (data/pyramid_packing.unpack_pyramid): the forward reads it
@@ -139,8 +141,6 @@ class SparseRCNN(nn.Module):
         gradient needs its backward books (``unpack_pyramid(...,
         backward=True)``) and raises without them."""
         cfg = self.cfg
-        timed = phases.phase if phases is not None else \
-            (lambda name: contextlib.nullcontext())
         # feature compute in cfg.compute_dtype; geometry and box math f32
         table = table.with_feats(
             table.feats.to(getattr(torch, cfg.compute_dtype)))
@@ -151,7 +151,7 @@ class SparseRCNN(nn.Module):
         # the backward books only where a gradient will be taken
         wants_grad = gt is not None and torch.is_grad_enabled()
         if pyramid is None:
-            with timed("pyramid"):
+            with span("model.pyramid"):
                 pyramid = build_pyramid(table, cfg, backward=wants_grad)
         elif wants_grad and "subm_bwd" not in pyramid:
             raise NotImplementedError(
@@ -160,21 +160,19 @@ class SparseRCNN(nn.Module):
                 "backward=True) from a pack made with backward=True")
         else:
             pyramid = dict(pyramid, tables=[table, *pyramid["tables"][1:]])
-        with timed("backbone"):
+        with span("model.backbone"):
             rpn_maps, roi_maps = self.backbone(table, pyramid)
         return self.heads(rpn_maps, roi_maps, gt, gt_labels,
-                          priorities=priorities, phases=phases)
+                          priorities=priorities)
 
     def heads(self, rpn_maps, roi_maps, gt: Optional[Boxes3D] = None,
-              gt_labels=None, *, priorities=None, phases=None):
+              gt_labels=None, *, priorities=None):
         """Everything of :meth:`forward` after the backbone: the RPN and
         ROI stages on the backbone's maps, with :meth:`forward`'s
         results. Spatial sharding runs them replicated on the gathered
         global maps (parallel/spatial.py). With ``gt``, ``priorities``
         is the dict of the samplers' draws (:meth:`priority_shapes`)."""
         cfg = self.cfg
-        timed = phases.phase if phases is not None else \
-            (lambda name: contextlib.nullcontext())
         # group-wise gt (one group takes the gt as it is)
         if gt is None:
             gt_groups = None
@@ -182,7 +180,7 @@ class SparseRCNN(nn.Module):
             gt_groups = separate_targets(cfg, gt, gt_labels)
         else:
             gt_groups = [(gt, gt_labels)]
-        with timed("rpn"):
+        with span("model.rpn"):
             proposals_g, losses = self.rpn(
                 rpn_maps, None if gt is None else [b for b, _ in gt_groups],
                 None if gt is None else
@@ -200,7 +198,7 @@ class SparseRCNN(nn.Module):
             roi_pri = [priorities[k] for k in self._draw_keys("roi")]
             for gi, proposals in enumerate(proposals_g):
                 gt_gi, labels_gi = gt_groups[gi]
-                with timed("roi_head"):
+                with span("model.roi_head"):
                     sampled = subsample_proposals(cfg, roi_pri[gi], proposals,
                                                   gt_gi, labels_gi)
                     cls_logits, box_reg = self._head(roi_maps, sampled, gi)
@@ -210,7 +208,7 @@ class SparseRCNN(nn.Module):
                 losses[f"loss_box_reg_roi{sfx}"] = bl
                 if not cfg.eval_in_train:
                     continue
-                with torch.no_grad(), timed("postprocess"):
+                with torch.no_grad(), span("model.postprocess"):
                     nogt = Boxes3D(
                         sampled.boxes.detach(),
                         sampled.valid & (sampled.fields["is_gt"] < 0.5))
@@ -222,9 +220,9 @@ class SparseRCNN(nn.Module):
             with torch.no_grad():
                 return losses, self._merge(results)
         for gi, proposals in enumerate(proposals_g):
-            with timed("roi_head"):
+            with span("model.roi_head"):
                 cls_logits, box_reg = self._head(roi_maps, proposals, gi)
-            with timed("postprocess"):
+            with span("model.postprocess"):
                 results.append(postprocess(cfg, proposals, cls_logits,
                                            box_reg, nc[gi],
                                            cfg.roi_detections_per_img))

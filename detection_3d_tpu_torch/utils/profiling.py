@@ -2,62 +2,231 @@
 
 Counterpart of detection_3d_tpu/utils/profiling.py (the reference has
 per-iteration timing and max-memory logging only, trainer_sparse3d.py:
-74,119-143): a profiler trace of a block, named regions that show in it,
-a step timer that waits for the device, the device's memory
-statistics, and :func:`device_activity`: the device's busy time, idle
-share and time by kernel over one call, from a profiler trace.
+74,119-143): a profiler trace of a block, the port's spans and their
+host-sync counts, the device's memory statistics, and
+:func:`device_activity`: the device's busy time, idle share and time by
+kernel over one call, from a profiler trace.
+
+Spans. :func:`span` names a stage of the port where its work happens
+(``engine/trainer.pad_scene``, ``engine/inference``'s predict and serving
+loop, ``models/detector``'s stages, ``Trainer.step``'s parts). With no
+profiler running it returns one shared null context after one
+process-wide check. While a profiler runs (any thread's: torch's flag is
+the process's) a span is a ``record_function`` range in the profiler's
+trace, on the clock of the device's activities, and a
+:class:`SpanRecord` in a bounded in-memory log that
+:func:`recorded_spans` returns and clears. A span is logged only when a
+profiler ran both when it opened and when it closed, so the log holds
+whole spans alone.
+
+Host syncs. While a profiler runs, torch's sync detector is on
+(``torch.cuda.set_sync_debug_mode("warn")``): each ``.item()``,
+``.cpu()``, ``nonzero``, pageable copy or stream synchronize warns, and
+every such warning (an ``always`` filter: a site that syncs twice counts
+2) is counted to the innermost span open on the thread that synced and
+kept off stderr. The detector's previous mode, the warning filters and
+``warnings.showwarning`` come back once the profiler has stopped: at the
+first span that finds no profiler running, or at
+:func:`recorded_spans`. With no profiler the detector is off, so an
+untraced run pays nothing for it.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import itertools
 import os
+import re
+import threading
 import time
-from typing import Dict, Optional
+import warnings
+from typing import Dict, List, NamedTuple, Optional
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
+from torch._C._profiler import _ExperimentalConfig
 from torch.profiler import ProfilerActivity, profile, record_function
 
 from detection_3d_tpu_torch.ops.cuda_lib import LABELS, SYMBOLS
 from detection_3d_tpu_torch.utils.device import resolve_device
 
+# what torch's sync detector says at a host sync (c10/cuda/CUDAFunctions.h)
+SYNC_MESSAGE = "called a synchronizing CUDA operation"
+# spans the log keeps before it drops its oldest
+SPAN_LOG_SIZE = 1 << 16
+
 
 @contextlib.contextmanager
 def trace(log_dir: str):
     """Profile the enclosed block (host and, with a card, device
-    activity) and write its Chrome trace to ``log_dir``/trace.json;
+    activity; the host events of every thread, the pack workers' spans
+    among them) and write its Chrome trace to ``log_dir``/trace.json;
     yields the profiler, whose ``key_averages()`` sums by kernel."""
     os.makedirs(log_dir, exist_ok=True)
     acts = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(ProfilerActivity.CUDA)
-    with profile(activities=acts) as prof:
+    every_thread = _ExperimentalConfig(profile_all_threads=True)
+    with profile(activities=acts, experimental_config=every_thread) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
-def named_scope(name: str):
-    """A region named ``name`` in the profiler's trace
-    (torch.profiler.record_function)."""
-    return record_function(name)
+class SpanRecord(NamedTuple):
+    """One whole span of the log.
+
+      name          the span's name (``data.pad_scene``, ``model.rpn``, ...);
+      thread        ``threading.get_ident()`` of the thread that ran it;
+      start_ns, end_ns  ``time.perf_counter_ns()`` at its ends;
+      id, parent    its id, and the id of the span open around it on its
+                    thread (None at the top; that span may be missing
+                    from the log when it was not whole);
+      buildings     the buildings it served, where the caller says;
+      syncs         host syncs counted to it: made on its thread while
+                    it was the innermost span open there;
+      syncs_within  its syncs and those of every span inside it.
+    """
+    name: str
+    thread: int
+    start_ns: int
+    end_ns: int
+    id: int
+    parent: Optional[int]
+    buildings: Optional[int]
+    syncs: int
+    syncs_within: int
+
+    @property
+    def seconds(self) -> float:
+        return (self.end_ns - self.start_ns) / 1e9
 
 
-class StepTimer:
-    """Host clock of a step that ends when the device has finished: stop
-    synchronises the card of every CUDA tensor it is given."""
+class _SyncCounter:
+    """torch's sync detector and the warning hook that counts its
+    reports to the innermost open span (module docstring)."""
 
     def __init__(self):
-        self.t0: Optional[float] = None
+        self.on = False
+        self._lock = threading.Lock()
+        self._hook = self._show      # one bound method, compared by identity
+        self._shown = None
+        self._filter = None
+        self._mode = None
+
+    def _show(self, message, category, filename, lineno, file=None,
+              line=None):
+        if SYNC_MESSAGE in str(message):
+            stack = _open_spans()
+            if stack:
+                stack[-1].syncs += 1
+            return
+        self._shown(message, category, filename, lineno, file, line)
 
     def start(self):
-        self.t0 = time.perf_counter()
+        with self._lock:
+            if self.on:
+                return
+            self._shown = warnings.showwarning
+            warnings.showwarning = self._hook
+            warnings.filterwarnings("always", message=re.escape(SYNC_MESSAGE))
+            self._filter = warnings.filters[0]
+            if torch.cuda.is_available():
+                self._mode = torch.cuda.get_sync_debug_mode()
+                torch.cuda.set_sync_debug_mode("warn")
+            self.on = True
 
-    def stop(self, *tensors) -> float:
-        for dev in {t.device for t in tensors if t.is_cuda}:
-            torch.cuda.synchronize(dev)
-        dt = time.perf_counter() - self.t0
-        self.t0 = None
-        return dt
+    def stop(self):
+        with self._lock:
+            if not self.on:
+                return
+            if self._mode is not None:
+                torch.cuda.set_sync_debug_mode(self._mode)
+                self._mode = None
+            # a warnings.catch_warnings that closed meanwhile restored both
+            if warnings.showwarning is self._hook:
+                warnings.showwarning = self._shown
+            if self._filter in warnings.filters:
+                warnings.filters.remove(self._filter)
+            self._shown = self._filter = None
+            self.on = False
+
+
+_counter = _SyncCounter()
+_log: collections.deque = collections.deque(maxlen=SPAN_LOG_SIZE)
+_ids = itertools.count()
+_local = threading.local()
+_NULL = contextlib.nullcontext()
+
+
+def _open_spans() -> list:
+    """This thread's open spans, innermost last."""
+    stack = getattr(_local, "stack", None)
+    if stack is None:
+        stack = _local.stack = []
+    return stack
+
+
+class _Span:
+    """A span while a profiler runs (:func:`span`)."""
+
+    __slots__ = ("name", "buildings", "id", "parent", "syncs",
+                 "syncs_within", "start_ns", "_range")
+
+    def __init__(self, name: str, buildings: Optional[int]):
+        self.name, self.buildings = name, buildings
+
+    def __enter__(self):
+        if not _counter.on:
+            _counter.start()
+        stack = _open_spans()
+        self.parent = stack[-1].id if stack else None
+        self.id = next(_ids)
+        self.syncs = self.syncs_within = 0
+        self._range = record_function(self.name)
+        self._range.__enter__()
+        stack.append(self)
+        self.start_ns = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        end_ns = time.perf_counter_ns()
+        stack = _open_spans()
+        stack.pop()
+        self._range.__exit__(*exc)
+        self.syncs_within += self.syncs
+        if stack:
+            stack[-1].syncs_within += self.syncs_within
+        if _autograd_profiler._is_profiler_enabled:
+            _log.append(SpanRecord(
+                self.name, threading.get_ident(), self.start_ns, end_ns,
+                self.id, self.parent, self.buildings, self.syncs,
+                self.syncs_within))
+        return False
+
+
+def span(name: str, buildings: Optional[int] = None):
+    """A context naming a stage of the port ``name`` (module docstring);
+    ``buildings`` says how many buildings it serves. With no profiler
+    running: a shared null context, and the sync detector switched back
+    off if a profiler left it on."""
+    if not _autograd_profiler._is_profiler_enabled:
+        if _counter.on:
+            _counter.stop()
+        return _NULL
+    return _Span(name, buildings)
+
+
+def recorded_spans() -> List[SpanRecord]:
+    """The whole spans logged since the last call, by start time, and
+    the log cleared; with no profiler running any more, the sync
+    detector is switched off."""
+    if not _autograd_profiler._is_profiler_enabled:
+        _counter.stop()
+    out = []
+    while _log:
+        out.append(_log.popleft())
+    return sorted(out, key=lambda r: r.start_ns)
 
 
 def device_memory_stats(device="cuda") -> Dict[str, Dict]:
