@@ -1760,13 +1760,19 @@ def groups_3g6c_path(cfg, scenes, dev, tcfg=None, rcfg=None):
     n_fg = cfg.num_classes - 1
 
     model = SparseRCNN(cfg, seed=0)
+    predict = make_predict_fn(cfg, model, device=dev)
     torch.cuda.reset_peak_memory_stats()
     cuda_lib.reset_launches()
     t0 = time.perf_counter()
     preds, _, sec = run_inference(cfg, model, scenes[:G3_BUILDINGS],
-                                  device=dev)
+                                  device=dev, predict_fn=predict)
     wall = time.perf_counter() - t0
     serve = dict(cuda_lib.launches)
+    # a replayed building calls no wrapper: count over the others
+    replays = predict.graphed.replays if predict.graphed else 0
+    check(predict.graphed is None or replays == len(preds) - 1,
+          f"3g6c serving: {replays} replays of {len(preds)} buildings")
+    wrapped = len(preds) - replays
     serve_peak = torch.cuda.max_memory_allocated() / 2 ** 30
     for i, p in enumerate(preds):
         check(p["true_num"] > 0 and p["boxes"].shape[0] > 0,
@@ -1784,8 +1790,9 @@ def groups_3g6c_path(cfg, scenes, dev, tcfg=None, rcfg=None):
           f"memory {serve_peak:.2f} GiB, {g} groups x "
           f"{cfg.roi_detections_per_img} rows, labels "
           f"{labels.tolist()}, detections "
-          f"{[int(p['boxes'].shape[0]) for p in preds]}, C launches per "
-          f"building {serve['rotated_iou'] / len(preds):.2f}, launches "
+          f"{[int(p['boxes'].shape[0]) for p in preds]}, graph replays "
+          f"{replays}, C launches per eager or capturing building "
+          f"{serve['rotated_iou'] / wrapped:.2f}, launches (wrapper calls) "
           f"{json.dumps(serve)}")
     del preds
 
@@ -1837,7 +1844,7 @@ def groups_3g6c_path(cfg, scenes, dev, tcfg=None, rcfg=None):
            "report": {"s_per_building": sec, "s_per_step": step_s,
                       "serve_peak_gib": serve_peak,
                       "train_peak_gib": train_peak,
-                      "c_per_building": serve["rotated_iou"] / G3_BUILDINGS,
+                      "c_per_building": serve["rotated_iou"] / wrapped,
                       "c_per_step": train["rotated_iou"] / G3_STEPS}}
     if tcfg is not None:
         scene = tiny_scene(tcfg)
@@ -1850,9 +1857,23 @@ def groups_3g6c_path(cfg, scenes, dev, tcfg=None, rcfg=None):
     if rcfg is not None:
         scene = tiny_scene(rcfg)
         rmodel = SparseRCNN(rcfg, seed=0)
+        rpredict = make_predict_fn(rcfg, rmodel, device=dev)
+        rbatch = pad_scene(rcfg, scene)
         cuda_lib.reset_launches()
-        packed_out, _ = make_predict_fn(rcfg, rmodel, device=dev)(
-            pad_scene(rcfg, scene))
+        # eager, the capture, a replay: each bit equal to the first (the
+        # voxels' atomic feature sums under deterministic algorithms)
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            served = [rpredict(rbatch) for _ in range(3)]
+        finally:
+            torch.use_deterministic_algorithms(False)
+        packed_out, true_num = served[0]
+        check(all(torch.equal(o, packed_out) and torch.equal(t, true_num)
+                  for o, t in served[1:]),
+              "rpn_only serve: a captured or replayed forward differs from "
+              "the eager one")
+        rreplays = rpredict.graphed.replays if rpredict.graphed else None
+        check(rreplays in (None, 2), f"rpn_only serve: {rreplays} replays")
         a = packed_out.cpu().numpy()
         v = a[:, 9] > 0.5
         check(v.any() and bool(np.isfinite(a[v, :8]).all())
@@ -1873,9 +1894,10 @@ def groups_3g6c_path(cfg, scenes, dev, tcfg=None, rcfg=None):
         check(ok and np.isfinite(total) and sorted(losses) == [
             "loss_objectness", "loss_rpn_box_reg"],
             f"rpn_only training step: {total} {losses} ok={ok}")
-        print(f"rpn_only (small config): {int(v.sum())} proposals served, "
-              f"one training step {json.dumps(losses)}, launches "
-              f"{json.dumps(rpn)}")
+        print(f"rpn_only (small config): {int(v.sum())} proposals served "
+              f"3 times (graph replays {rreplays}, bit equal), one "
+              f"training step {json.dumps(losses)}, launches (wrapper "
+              f"calls) {json.dumps(rpn)}")
         shutil.rmtree(rdir, ignore_errors=True)
         out["rpn_only"] = rpn
     return out
@@ -4255,13 +4277,18 @@ def batched_path(cfg, scenes, dev, gen):
     """Batched serving at full width: make_batch_predict_fn (table mode)
     over BATCH_BUILDINGS buildings at each of BATCH_SIZES, one forward a
     unit. Each unit within UNIT_SET_TOL (as sets) of the per-building
-    predict on the card, its launches exactly UNIT_LAUNCHES (counts set
-    to 0 before the unit and read after), no host sync (torch's sync
-    debug mode), busy ms and idle share (utils/profiling.device_activity)
-    and the peak memory; the pipelined stream's s/building and
-    buildings/s at each B (run_inference(pipelined=True)); kernels A, B,
-    C and E held at the B = 4 unit's shapes. Returns ({path: launches},
-    {kernel: report})."""
+    predict on the card, and the graphed predict's unit (eager, the
+    capture, then replays) bit equal to an eager twin's, whose wrapper
+    launches are exactly UNIT_LAUNCHES (counts set to 0 before the unit
+    and read after: a replay calls no wrapper); no host sync in a
+    replayed unit (torch's sync debug mode), its busy ms and idle share
+    (utils/profiling.device_activity) and the peak memory; the pipelined
+    stream's s/building and buildings/s at each B
+    (run_inference(pipelined=True)); kernels A, B, C and E held at the
+    B = 4 unit's shapes. Returns ({path: launches}, {kernel: report});
+    ``batched_unit_B<B>`` holds one eager unit's launches,
+    ``batched_B<B>`` the stream's wrapper calls (its eager and capturing
+    units only)."""
     from detection_3d_tpu_torch.data.native_packer import pack_table_native
     from detection_3d_tpu_torch.data.packing import to_device, unpack_table
     from detection_3d_tpu_torch.engine.inference import (
@@ -4280,6 +4307,8 @@ def batched_path(cfg, scenes, dev, gen):
     launches, lines = {}, []
     for bs in BATCH_SIZES:
         predict = make_batch_predict_fn(cfg, model, dev, packed="table")
+        eager = make_batch_predict_fn(cfg, model, dev, packed="table",
+                                      graph=False)
         units = [list(range(i, i + bs)) for i in range(0, len(packs), bs)]
         torch.cuda.reset_peak_memory_stats()
         err = 0.0
@@ -4288,12 +4317,17 @@ def batched_path(cfg, scenes, dev, gen):
                                for k in packs[0]}, dev)
             torch.cuda.synchronize()
             cuda_lib.reset_launches()
-            out, true_num = predict(batch)
+            want = eager(batch)
             ln = dict(cuda_lib.launches)
-            out, true_num = out.cpu().numpy(), true_num.cpu().numpy()
             for name, n in UNIT_LAUNCHES.items():
                 check(ln[name] == n, f"batched B={bs} unit {ui}: kernel "
                       f"{name} launched {ln[name]} times, not {n}")
+            out, true_num = predict(batch)
+            check(torch.equal(out, want[0]) and torch.equal(true_num,
+                                                            want[1]),
+                  f"batched B={bs} unit {ui}: the graphed predict differs "
+                  "from the eager one")
+            out, true_num = out.cpu().numpy(), true_num.cpu().numpy()
             for b, i in enumerate(unit):
                 check(int(true_num[b]) == int(singles[i][1]),
                       f"batched B={bs}: building {i} true_num differs")
@@ -4302,10 +4336,14 @@ def batched_path(cfg, scenes, dev, gen):
                       f"differs from its own predict by {e}")
                 err = max(err, e)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        launches[f"batched_unit_B{bs}"] = ln
         syncs = _unit_syncs(lambda: predict(batch))
         check(not syncs, f"batched B={bs}: a unit waits for the card at "
               f"{syncs}")
         act = device_activity(lambda: predict(batch)[0].cpu(), dev)
+        replays = predict.graphed.replays if predict.graphed else None
+        check(replays in (None, len(units) + 1),      # None on the CPU
+              f"batched B={bs}: {replays} replays")
         cuda_lib.reset_launches()
         preds, _, sec = run_inference(
             cfg, model, scenes, device=dev, pipelined=True, pack_workers=2,
@@ -4322,6 +4360,7 @@ def batched_path(cfg, scenes, dev, gen):
                 "unit_span_ms": act["span_ms"],
                 "unit_idle_share": act["idle_share"],
                 "launches_per_unit": {k: ln[k] for k in UNIT_LAUNCHES},
+                "replays": replays,
                 "syncs_per_unit": len(syncs), "syncs": sorted(set(syncs)),
                 "peak_gib": peak, "max_abs_err_vs_own_predict": err,
                 "tolerance": UNIT_SET_TOL}
@@ -4336,7 +4375,9 @@ def batched_path(cfg, scenes, dev, gen):
     bs = BATCH_SIZES[-1]
     batch = to_device({k: np.stack([packs[i][k] for i in range(bs)])
                        for k in packs[0]}, dev)
-    predict = make_batch_predict_fn(cfg, model, dev, packed="table")
+    # eager: the wrappers' recorded inputs must be this call's own
+    predict = make_batch_predict_fn(cfg, model, dev, packed="table",
+                                    graph=False)
     reports = {}
     with torch.inference_mode():
         iou_calls = capture_iou_calls(lambda: predict(batch))
@@ -4433,7 +4474,9 @@ def main():
 
     # ---- the serving path at full width ---------------------------------
     model = SparseRCNN(cfg, seed=0)
-    predict = make_predict_fn(cfg, model, device="cuda")
+    # eager: the stage spans, the device profile and kernel A's recorded
+    # shapes read the forward's own calls
+    predict = make_predict_fn(cfg, model, device="cuda", graph=False)
     main_scenes = scenes[:BUILDINGS]
     torch.cuda.reset_peak_memory_stats()
     cuda_lib.reset_launches()
@@ -4566,7 +4609,8 @@ def main():
             ("multi_match", "multi_match.cu", pg + "match_kernel.py:399",
              rep_d, par_launches["sp_serve_rank0"]),
             ("greedy_nms", "greedy_nms.cu", "detection_3d_tpu/ops/nms.py:39",
-             rep_unit["greedy_nms"][0], batched[f"batched_B{BATCH_SIZES[-1]}"])]
+             rep_unit["greedy_nms"][0],
+             batched[f"batched_unit_B{BATCH_SIZES[-1]}"])]
     kernels = []
     for name, src, replaces, rep, path in spec:
         kernels.append({
@@ -4628,7 +4672,12 @@ def main():
                     rep_bwd[f"{part}_{key}_per_step"]
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card_line())
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels, "launches_count": (
+        "wrapper calls (ops/cuda_lib.launches); a replayed CUDA graph calls "
+        "no wrapper, so a graphed serving path (serve_points, serve_table, "
+        "serve_pyramid, pipelined_*, serve_3g6c, rpn_only, bench_*, "
+        "batched_B*) counts its eager and capturing forwards only; "
+        "batched_unit_B* is one eager unit's")}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

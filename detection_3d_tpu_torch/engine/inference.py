@@ -19,6 +19,14 @@ stacked over B gives stacked tables and flat books (ops/sparse.py), each
 kernel launches once a unit, and building b's detections are what it
 gives alone. :func:`make_predict_fn` runs the same code on one building.
 
+On the card both predicts replay CUDA graphs (:class:`GraphedForward`):
+the first call of an input signature (:func:`graph_signature`) runs
+eagerly, the second captures the forward from the inputs on the device
+to the packed detections, and every later call copies its inputs into
+the graph's own buffers and replays it. The same kernels run in the same
+order on the same data; only the host's launches go. On the CPU, or with
+``graph=False``, every call runs eagerly.
+
 :func:`run_inference` answers a list of buildings one after another
 (raw form), or pipelined: worker threads pack and copy unit i+1.. to
 the card while it runs unit i (see :func:`run_inference`).
@@ -28,10 +36,12 @@ evaluation/detection_eval.py.
 
 from __future__ import annotations
 
+import itertools
 import logging
 import threading
 import time
 from collections import deque
+from contextlib import contextmanager
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Iterable, Optional
 
@@ -60,39 +70,205 @@ _LOG = logging.getLogger(__name__)
 PACK_FNS = {"pyramid": pack_pyramid_native, "table": pack_table_native}
 
 
+RAW_KEYS = ("points", "feats", "points_valid")
+
+
+def _inputs(packed, batch) -> Dict[str, torch.Tensor]:
+    """The arrays of ``batch`` the forward reads, as tensors where they
+    are (numpy arrays on the host, without a copy)."""
+    keys = RAW_KEYS if not packed else batch
+    return {k: torch.as_tensor(batch[k]) for k in keys}
+
+
+def _input_layer(cfg, packed, inputs):
+    """The scale-0 table (and the host-built pyramid, or None) from the
+    inputs on the device: unpack or voxelize."""
+    if not packed:
+        return voxelize_points(cfg, *(inputs[k] for k in RAW_KEYS)), None
+    if packed == "pyramid":
+        pyramid = unpack_pyramid(cfg, inputs)
+        return pyramid["tables"][0], pyramid
+    if packed == "table":
+        return unpack_table(cfg, inputs), None
+    b = unpack_batch(cfg, inputs)
+    return voxelize_points(cfg, *(b[k] for k in RAW_KEYS)), None
+
+
+def _forward(model, table, pyramid):
+    """The model on the input layer: (packed detections, true_num)."""
+    det = model(table, pyramid=pyramid)
+    return pack_detections(det), table.true_num
+
+
 def _predict_one(cfg, model, packed, dev, batch, buildings):
     """One forward over ``batch`` (``buildings`` buildings) in the
     spans ``model.predict`` > ``model.input`` (to the device, unpack or
     voxelize), then the forward's stages."""
     with span("model.predict", buildings=buildings):
         with span("model.input"):
-            pyramid = None
-            if not packed:
-                pts, fts, valid = (torch.as_tensor(batch[k]).to(dev)
-                                   for k in ("points", "feats",
-                                             "points_valid"))
-                table = voxelize_points(cfg, pts, fts, valid)
+            inputs = {k: v.to(dev) for k, v in _inputs(packed, batch).items()}
+            table, pyramid = _input_layer(cfg, packed, inputs)
+        return _forward(model, table, pyramid)
+
+
+def graph_signature(packed, inputs: Dict[str, torch.Tensor], model) -> tuple:
+    """The key of a captured forward: the input form, each input's name,
+    shape and dtype, and the storage of each of the model's parameters
+    and buffers. A graph reads its tensors at the addresses it was
+    captured with, so a weight updated in place needs no new capture and
+    a weight rebound to new storage does."""
+    return (packed,
+            tuple((k, tuple(v.shape), v.dtype)
+                  for k, v in sorted(inputs.items())),
+            tuple(t.data_ptr() for t in itertools.chain(model.parameters(),
+                                                        model.buffers())))
+
+
+class _CaptureGate:
+    """Keeps the pack workers' host->device copies (:class:`_DeviceCopies`)
+    and a graph's capture apart in time: torch refuses a copy from
+    pageable host memory while a CUDA graph captures, on any thread.
+    Copies pass together; a capture waits for those under way, and a
+    copy that comes while a capture waits or runs waits for its end."""
+
+    def __init__(self):
+        self._cond = threading.Condition()
+        self._copies = 0
+        self._captures = 0      # waiting or running
+
+    @contextmanager
+    def copy(self):
+        with self._cond:
+            self._cond.wait_for(lambda: not self._captures)
+            self._copies += 1
+        try:
+            yield
+        finally:
+            with self._cond:
+                self._copies -= 1
+                self._cond.notify_all()
+
+    @contextmanager
+    def capture(self):
+        with self._cond:
+            self._captures += 1
+            self._cond.wait_for(lambda: not self._copies)
+        try:
+            yield
+        finally:
+            with self._cond:
+                self._captures -= 1
+                self._cond.notify_all()
+
+
+_GATE = _CaptureGate()
+
+
+class _Captured:
+    """One input signature's forward as a CUDA graph: the static input
+    buffers it reads and the static outputs it writes."""
+
+    def __init__(self, cfg, model, packed, inputs, dev, pool):
+        self.inputs = {k: torch.empty(v.shape, dtype=v.dtype, device=dev)
+                       for k, v in inputs.items()}
+        self.load(inputs)
+        self.graph = torch.cuda.CUDAGraph()
+        # thread_local: the pack workers go on packing on their threads
+        with _GATE.capture(), \
+                torch.cuda.graph(self.graph, pool=pool,
+                                 capture_error_mode="thread_local"):
+            self.out, self.true_num = _forward(
+                model, *_input_layer(cfg, packed, self.inputs))
+
+    def load(self, inputs):
+        """Copy a call's inputs into the static buffers, on the current
+        stream (host arrays as the eager path copies them)."""
+        for k, v in inputs.items():
+            self.inputs[k].copy_(v)
+
+    def replay(self):
+        """Run the graph; its outputs cloned, so that they outlive the
+        next replay."""
+        self.graph.replay()
+        return self.out.clone(), self.true_num.clone()
+
+
+class GraphedForward:
+    """A predict's forward on the card as a CUDA graph (module
+    docstring), of the last :func:`graph_signature` it was called with.
+    The first call of an input form and shapes runs eagerly (it builds
+    the kernel libraries and fills utils/device.device_constant's
+    cache); a later call whose signature is not the graph's captures a
+    new graph in its place (the second call, or the first after a weight
+    was rebound) and replays it, and the calls after replay. A replayed
+    call runs in ``model.predict`` > ``model.input`` (the copies into the
+    graph's buffers), ``model.replay``; a capturing call in
+    ``model.predict`` > ``model.capture`` (the copies and the capture,
+    whose stage spans log no device work), ``model.replay``; the
+    forward's stage spans show its work on eager calls only. A capture
+    calls the kernel wrappers (ops/cuda_lib.launches counts it), a
+    replay calls none: ``replays`` counts them. Every graph draws on one
+    memory pool. A capture that fails raises."""
+
+    def __init__(self, cfg, model, packed, dev):
+        self.cfg, self.model, self.packed, self.dev = cfg, model, packed, dev
+        self.pool = torch.cuda.graph_pool_handle()
+        self.key: Optional[tuple] = None
+        self.captured: Optional[_Captured] = None
+        self.replays = 0
+        self.warm = set()       # input parts of the signatures run eagerly
+
+    def __call__(self, batch, buildings):
+        inputs = _inputs(self.packed, batch)
+        key = graph_signature(self.packed, inputs, self.model)
+        fresh = key != self.key
+        if fresh and key[:2] not in self.warm:
+            self.warm.add(key[:2])
+            return _predict_one(self.cfg, self.model, self.packed, self.dev,
+                                batch, buildings)
+        # a graph captures and replays on the current device's streams
+        with torch.cuda.device(self.dev), \
+                span("model.predict", buildings=buildings):
+            if fresh:
+                with span("model.capture"):
+                    self.key, self.captured = None, None    # frees the old
+                    self.captured = _Captured(
+                        self.cfg, self.model, self.packed, inputs, self.dev,
+                        self.pool)
+                    self.key = key
             else:
-                batch = to_device(batch, dev)
-                if packed == "pyramid":
-                    pyramid = unpack_pyramid(cfg, batch)
-                    table = pyramid["tables"][0]
-                elif packed == "table":
-                    table = unpack_table(cfg, batch)
-                else:
-                    b = unpack_batch(cfg, batch)
-                    table = voxelize_points(cfg, b["points"], b["feats"],
-                                            b["points_valid"])
-        det = model(table, pyramid=pyramid)
-        return pack_detections(det), table.true_num
+                with span("model.input"):
+                    self.captured.load(inputs)
+            with span("model.replay", buildings=buildings):
+                self.replays += 1
+                return self.captured.replay()
 
 
 def _model_on(cfg, model, dev):
     return (model if model is not None else SparseRCNN(cfg)).to(dev).eval()
 
 
+def _make(cfg, model, device, packed, graph, count):
+    """predict(batch), counting ``count(batch)`` buildings a call; on the
+    card with ``graph`` through a :class:`GraphedForward`, kept as
+    ``predict.graphed`` (None otherwise)."""
+    dev = resolve_device(device)
+    model = _model_on(cfg, model, dev)
+    graphed = GraphedForward(cfg, model, packed, dev) \
+        if graph and dev.type == "cuda" else None
+
+    @torch.inference_mode()
+    def predict(batch):
+        if graphed is not None:
+            return graphed(batch, count(batch))
+        return _predict_one(cfg, model, packed, dev, batch, count(batch))
+
+    predict.graphed = graphed
+    return predict
+
+
 def make_predict_fn(cfg: Config, model: Optional[SparseRCNN] = None,
-                    device="cuda", packed=False):
+                    device="cuda", packed=False, graph: bool = True):
     """Per-building predict on ``device`` (the card unless the caller
     asks for the CPU; raises when CUDA is asked for and absent).
 
@@ -101,47 +277,37 @@ def make_predict_fn(cfg: Config, model: Optional[SparseRCNN] = None,
     as numpy arrays or as tensors already on ``device``; ``packed_out``
     is a (K, 10) f32 tensor ``[boxes7 | score | label | valid]`` and
     ``true_num`` the pre-truncation voxel count, both on ``device``.
+    On the card, ``graph`` replays the forward as CUDA graphs
+    (:class:`GraphedForward`); ``False`` runs every call eagerly, in the
+    forward's stage spans.
     """
     if packed not in (False, True, "table", "pyramid"):
         raise ValueError(
             f"packed={packed!r}: expected False, True, 'table' or "
             "'pyramid'")
-    dev = resolve_device(device)
-    model = _model_on(cfg, model, dev)
-
-    @torch.inference_mode()
-    def predict(batch):
-        return _predict_one(cfg, model, packed, dev, batch, 1)
-
-    return predict
+    return _make(cfg, model, device, packed, graph, lambda batch: 1)
 
 
 def make_batch_predict_fn(cfg: Config, model: Optional[SparseRCNN] = None,
-                          device="cuda", packed="table"):
+                          device="cuda", packed="table", graph: bool = True):
     """Multi-building predict: ``predict(stacked) -> ((B, K, 10), (B,))``
     over a packed dict whose every array is stacked on a leading axis B
     (``np.stack`` per key over pack_table / pack_pyramid / pack_scene
     outputs): one forward over the unit (the JAX package's vmap), whose
     building b gives what it gives alone. Nothing waits for the card
-    before the outputs are fetched."""
+    before the outputs are fetched. ``graph`` as in
+    :func:`make_predict_fn`."""
     if packed not in (True, "table", "pyramid"):
         raise ValueError(
             f"packed={packed!r}: expected True, 'table' or 'pyramid'")
-    dev = resolve_device(device)
-    model = _model_on(cfg, model, dev)
-
-    @torch.inference_mode()
-    def predict(stacked):
-        buildings = len(next(iter(stacked.values())))
-        return _predict_one(cfg, model, packed, dev, stacked, buildings)
-
-    return predict
+    return _make(cfg, model, device, packed, graph,
+                 lambda stacked: len(next(iter(stacked.values()))))
 
 
 class _DeviceCopies:
     """Host->device copies made on the pack workers' threads. On the card
-    each worker thread copies on a CUDA stream of its own and records an
-    event; :meth:`take` makes the serving stream wait on that event and
+    each worker thread copies on a CUDA stream of its own, never while a
+    graph captures (:class:`_CaptureGate`), and records an event; :meth:`take` makes the serving stream wait on that event and
     marks every tensor as used by it (``record_stream``), so the caching
     allocator cannot hand a block back to the copy stream while the
     serving stream still reads it. On the CPU the arrays become tensors
@@ -157,7 +323,7 @@ class _DeviceCopies:
         stream = getattr(self._local, "stream", None)
         if stream is None:
             stream = self._local.stream = torch.cuda.Stream(self.dev)
-        with torch.cuda.stream(stream):
+        with _GATE.copy(), torch.cuda.stream(stream):
             batch = to_device(host, self.dev)
             done = torch.cuda.Event()
             done.record(stream)

@@ -14,7 +14,10 @@ each, all started together).
 forward and dFeats entries of csrc/gather_conv.cu count apart, and dW
 (csrc/gather_conv_bwd.cu) and the greedy NMS pass (csrc/greedy_nms.cu,
 a pack and a walk) count once per call. A wrapper adds one exactly where it launches its kernel; a
-run can then show that a path went through every kernel.
+run can then show that a path went through every kernel. A launch made
+while a CUDA graph captures counts like any other; a replay of that
+graph calls no wrapper and counts nothing (engine/inference's
+``GraphedForward.replays`` counts the replays).
 """
 
 from __future__ import annotations

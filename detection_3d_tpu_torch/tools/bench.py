@@ -27,7 +27,9 @@ Prints ONE JSON line with the keys of bench.py's line under the same
 names (:data:`LINE_KEYS`, metric "e2e_sec_per_building_fullscale_stream")
 and beside them ``device`` (the card's name), ``power_limit_w``,
 ``idle_share``, ``peak_gib`` (peak device memory), ``n_buildings`` and
-``launches`` (each streamed run's kernel launches). ``vs_baseline`` is
+``launches`` (each streamed run's kernel wrapper calls,
+ops/cuda_lib.launches: on the card a replayed CUDA graph calls none, so
+a timed run counts the unit that captured its graph). ``vs_baseline`` is
 4.75 s / value: 4.75 s a building is the reference's published GPU
 figure (BASELINE.md), not a measurement on this card.
 
@@ -125,7 +127,7 @@ def device_time(cfg, model, scene, device="cuda", iters=DEVICE_ITERS):
 
 def _timed_stream(cfg, model, scenes, warm, dev, mode, batch_size, predict):
     """One warm-up run on ``warm`` and one timed run over ``scenes``:
-    (wall s, timings, predictions, launches of the timed run)."""
+    (wall s, timings, predictions, wrapper calls of the timed run)."""
     from detection_3d_tpu_torch.engine.inference import run_inference
     from detection_3d_tpu_torch.ops import cuda_lib
     kw = dict(device=dev, pipelined=True, pack_workers=PACK_WORKERS,
@@ -150,7 +152,7 @@ def stream(cfg, model, scenes, warm, device="cuda",
     warm-up on ``warm``. Returns {"s_per_building": {mode: s},
     "timings": {mode: {wait_pack, dispatch, drain_fetch} per building},
     "bps": {batch size: buildings/s}, "preds": {run: predictions},
-    "launches": {run: kernel launches}}, the runs named "table",
+    "launches": {run: kernel wrapper calls}}, the runs named "table",
     "pyramid" and "batch_{B}"."""
     from detection_3d_tpu_torch.engine.inference import (
         make_batch_predict_fn, make_predict_fn)
