@@ -1,4 +1,6 @@
-"""How a served building's detections are held against the reference's.
+"""How a served building's detections are held against the reference's
+(the detector family's ``serving_numbers``, families/sparse_rcnn.py),
+and how a cell's numbers are judged by its limits (:func:`judge`).
 
 Each detection of the program (box, score, label) is looked for among
 the reference's detections of the same label whose 7 box numbers all

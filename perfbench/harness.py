@@ -8,7 +8,10 @@ inside it is profiled and the cell's per-layer metrics are read from it
 (metrics/); otherwise its end-to-end metrics are reported. Once the
 window has closed and the peak memory is read, the program is freed and
 its answers are held against the plain reference (reference/, float32,
-TF32 off) under the cell's limits (limits/<cell>.json).
+TF32 off) under the cell's limits (limits/<cell>.json). The model, its
+reference, its weights' scales, the comparison of its answers and the
+count of its work come from the family that the cell's configuration
+names (families/<family>.py).
 """
 
 from __future__ import annotations
@@ -23,9 +26,8 @@ from typing import Dict, List, Optional
 import torch
 
 from perfbench import compare, counts, guard, spec, train
-from perfbench.inputs import load, make_weights, meta_model
-from perfbench.reference.train import pad_scene
-from perfbench.serve import reference_detections, sample_answers
+from perfbench.inputs import load, make_weights
+from perfbench.serve import sample_answers
 from perfbench.traffic.pool import PendingPool
 
 _T_IMPORT = time.perf_counter()
@@ -88,19 +90,16 @@ def card(cell, require_card: bool = True) -> torch.device:
 
 def prepare(cell, seed: int, seconds: float, trace: bool,
             device: torch.device, pool: PendingPool = None) -> Run:
-    """Set-up before the window: the two configurations, the kernels,
-    the pool of buildings (``pool``, when its generation was started
-    before this process loaded torch), the weights and the program's
-    model."""
-    from detection_3d_tpu_torch.config.defaults import Config
-    from detection_3d_tpu_torch.models.detector import SparseRCNN
-    from perfbench.reference.config import Config as RefConfig
+    """Set-up before the window: the cell's family, the two
+    configurations, the kernels, the pool of buildings (``pool``, when
+    its generation was started before this process loaded torch), the
+    weights and the program's model."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     run = Run(cell, seed, seconds, trace, device)
-    run.cfg = spec.build_config(Config, cell.config)
-    run.ref_cfg = spec.build_config(RefConfig, cell.config,
-                                    {"compute_dtype": "float32"})
+    run.family = fam = cell.family()
+    run.cfg = fam.program_config(cell.config)
+    run.ref_cfg = fam.reference_config(cell.config)
     if device.type == "cuda":
         from detection_3d_tpu_torch.ops import cuda_lib
         _stamp("imports")
@@ -109,11 +108,13 @@ def prepare(cell, seed: int, seconds: float, trace: bool,
         torch.zeros((), device=device)
         _stamp("CUDA context")
     if pool is None:
-        pool = PendingPool(seed, cell.traffic["buildings"], run.cfg.classes,
+        pool = PendingPool(seed, cell.traffic["buildings"],
+                           cell.config["model"]["classes"],
                            workers=0 if device.type == "cuda" else 1)
-    meta = meta_model(SparseRCNN, run.cfg)
+    meta = fam.program_model(run.cfg)
     run.weights = make_weights({k: tuple(v.shape) for k, v in
-                                meta.state_dict().items()}, seed, device)
+                                meta.state_dict().items()}, seed, device,
+                               fam.init_std)
     run.model = load(meta, run.weights, device)
     _stamp("weights and the program's model")
     run.pool = pool.get()
@@ -152,19 +153,29 @@ def close_window(run: Run):
 
 def reference_model(run: Run, control=None):
     """The reference's own model on the run's weights, in float32;
-    ``control`` (control.fp8) makes it the control."""
-    from perfbench.reference.detector import SparseRCNN as RefRCNN
-    ref = load(meta_model(RefRCNN, run.ref_cfg), run.weights, run.device)
+    ``control`` (the family's) makes it the control."""
+    ref = load(run.family.reference_model(run.ref_cfg), run.weights,
+               run.device)
     return control(ref) if control is not None else ref
 
 
+def trained(answers) -> bool:
+    """Whether a window's answers are a training window's record of its
+    first steps (a dict), and not served answers, a list of (pool
+    building, answer)."""
+    return isinstance(answers, dict)
+
+
 def check(run: Run, answers, ref) -> List[Dict[str, float]]:
-    """The numbers of each checked answer against the reference ``ref``:
-    a training window's first steps (train.numbers), or each sampled
-    served building's detections (compare.py); prints one line each."""
-    if run.traffic["window"] == "train":
+    """The numbers of each checked answer against the reference ``ref``,
+    as the family gives them: a training window's first steps against
+    the family's ``reference_steps`` (train.numbers), or each sampled
+    served answer (the family's ``serving_numbers``); prints one line
+    each."""
+    fam = run.family
+    if trained(answers):
         run.draws = answers["draws"]
-        want = train.reference_steps(run, ref, len(answers["totals"]))
+        want = fam.reference_steps(run, ref, len(answers["totals"]))
         out = [train.numbers(answers, want, run.weights)]
         print("compared steps: " + ", ".join(
             f"{k} {v!r}" for k, v in out[0].items()), file=sys.stderr)
@@ -173,10 +184,7 @@ def check(run: Run, answers, ref) -> List[Dict[str, float]]:
                             run.seed)
     out = []
     for b, got in picked:
-        want = reference_detections(
-            run.ref_cfg, ref, pad_scene(run.ref_cfg, run.pool[b]),
-            run.device)
-        out.append(compare.building_numbers(got, want))
+        out.append(fam.serving_numbers(run, got, ref, b))
         print(f"compared building {b}: " + ", ".join(
             f"{k} {v!r}" for k, v in out[-1].items()), file=sys.stderr)
     return out
@@ -201,9 +209,10 @@ def run_cell(args, require_card: bool = True, root: Path = spec.ROOT,
                             if not compare.judge(pb, limits)[0])}
     if args.trace:
         run.peaks = counts.peaks(run.kind)
-        run.work = [counts.building_work(
-            run.ref_cfg, pad_scene(run.ref_cfg, b), device,
-            train=cell.traffic["window"] == "train") for b in run.pool]
+        fam = run.family
+        run.work = [fam.building_work(
+            run.ref_cfg, fam.reference_pad(run.ref_cfg, b), device,
+            train=trained(answers)) for b in run.pool]
         metrics = {}
         for m in cell.per_layer:
             v = spec.metric_reader(cell.root, m["name"])(run)

@@ -1,7 +1,7 @@
 """The check of the serving windows (windows/stream.py, windows/single.py):
 once the window has closed, a sample of its answers, drawn from the
-seed, is held against the reference's detections of the same buildings
-(harness.check, compare.py).
+seed, is held against the reference's answers to the same buildings
+(harness.check, the family's ``serving_numbers``).
 """
 
 from __future__ import annotations
@@ -9,21 +9,6 @@ from __future__ import annotations
 from typing import Dict, List
 
 import numpy as np
-import torch
-
-
-@torch.no_grad()
-def reference_detections(cfg, model, padded: Dict, device) -> Dict:
-    """The reference's detections of one padded building
-    (reference/train.pad_scene), numpy, valid rows only."""
-    from perfbench.reference.detector import voxelize_points
-    pts, fts, valid = (torch.as_tensor(padded[k]).to(device)
-                       for k in ("points", "feats", "points_valid"))
-    det = model(voxelize_points(cfg, pts, fts, valid))
-    v = det.valid.cpu().numpy()
-    return {"boxes": det.boxes.cpu().numpy()[v],
-            "scores": det.fields["scores"].cpu().numpy()[v],
-            "labels": det.fields["labels"].cpu().numpy()[v]}
 
 
 def sample_answers(answers: List, n: int, seed: int) -> List:

@@ -5,9 +5,11 @@ traffic mix (``traffic/<name>.json``), one file a kind of window that
 traffic mixes name (``windows/<window>.py``), one file of limits a cell
 (``limits/<cell>.json``) and one reader a per-layer metric
 (``metrics/<name>.py``, or ``metrics/<stem>.py`` shared by every metric
-``<stem>.<part>``). A cell is an entry of ``workloads`` that names a
-configuration and a traffic mix; adding one takes files and entries and
-no edit of this code.
+``<stem>.<part>``) and one file a model family (``families/<family>.py``,
+named by a configuration's ``family``). A cell is an entry of
+``workloads`` that names a configuration and a traffic mix; adding one,
+or a model of another family, takes files and entries and no edit of
+this code.
 """
 
 from __future__ import annotations
@@ -35,6 +37,10 @@ class Cell:
     per_layer: List[Dict[str, Any]]
     run_seconds: int
     root: Path                    # the checkout the files were read from
+
+    def family(self):
+        """The family module its configuration names (:func:`family`)."""
+        return family(self.root, self.config["family"])
 
     def limits(self) -> Dict[str, float]:
         """The limits of the numbers the cell's check compares
@@ -98,6 +104,16 @@ def window(root: Path, name: str) -> Callable:
     (windows/stream.py says what it returns)."""
     return _module(root / "perfbench" / "windows" / f"{name}.py",
                    "perfbench_window").window
+
+
+def family(root: Path, name: str):
+    """``perfbench/families/<name>.py`` under ``root``, loaded as a module
+    of its own: the model family's plug-in (families/sparse_rcnn.py states
+    what one gives). run.py loads none: it starts the pool's workers
+    before torch loads, and takes the pool's classes from the
+    configuration's file, the ``classes`` of its ``model``."""
+    return _module(root / "perfbench" / "families" / f"{name}.py",
+                   "perfbench_family")
 
 
 def _build(cls, values: Dict[str, Any]):

@@ -13,33 +13,58 @@ import sys
 import pytest
 import torch
 
-from perfbench import control, guard, harness as run, spec
+from perfbench import guard, harness as run, spec
 from perfbench.tests import tiny
 
 torch.set_num_threads(2)
 BENCH = json.loads((spec.ROOT / "BENCHMARK.json").read_text())
+DETECTOR = spec.family(spec.ROOT, "sparse_rcnn")
+# the repo's own benchmark, and a copy of it with a model of a second
+# family added as files and entries (tiny.add_second_family)
+CELLS = [("repo", w["name"]) for w in BENCH["workloads"]] + \
+    [("added", w["name"]) for w in BENCH["workloads"]] + \
+    [("added", tiny.SECOND_CELL)]
+METRICS = [("repo", m["name"]) for m in BENCH["per_layer"]] + \
+    [("added", "mfu.seg")]
 
 
-@pytest.mark.parametrize("cell", [w["name"] for w in BENCH["workloads"]])
-def test_every_cell_loads_by_name(cell):
-    from detection_3d_tpu_torch.config.defaults import Config
-    from perfbench.reference.config import Config as RefConfig
-    c = spec.load_cell(cell)
-    assert callable(spec.window(spec.ROOT, c.traffic["window"]))
-    assert spec.build_config(Config, c.config) == \
-        spec.build_config(Config, c.config)
-    ref = spec.build_config(RefConfig, c.config)
-    assert ref.sparse3d.nplanes_front == \
-        tuple(c.config["model"]["sparse3d"]["nplanes_front"])
-    assert set(c.limits()) <= {"unmatched", "score_gap_median", "loss",
-                               "grad", "change", "change_q90"}
+@pytest.fixture(scope="module")
+def roots(tmp_path_factory):
+    added = tiny.copy_repo_root(tmp_path_factory.mktemp("added"))
+    return {"repo": spec.ROOT, "added": tiny.add_second_family(added)}
+
+
+def _json(v):
+    """``v`` with every tuple a list, as a configuration file holds it."""
+    return json.loads(json.dumps(v))
+
+
+@pytest.mark.parametrize("kind,cell", CELLS)
+def test_every_cell_loads_by_name(roots, kind, cell):
+    """Each cell's window and family load by name, the family builds
+    both of its configurations, each with the file's widths, and the
+    cell's limits are numbers the family compares."""
+    c = spec.load_cell(cell, roots[kind])
+    assert callable(spec.window(c.root, c.traffic["window"]))
+    fam = c.family()
+    assert fam.program_config(c.config) == fam.program_config(c.config)
+    ref = fam.reference_config(c.config)
+    assert ref.compute_dtype == "float32"
+    assert fam.WIDTHS
+    for side in (fam.program_config(c.config), ref):
+        for key in fam.WIDTHS:
+            want, got = c.config["model"], side
+            for part in key.split("."):
+                want, got = want[part], getattr(got, part)
+            assert _json(got) == want, key
+    assert set(c.limits()) <= fam.LIMIT_NAMES
     assert any(m["name"] == "setup_s" for m in c.end_to_end)
     assert len(c.end_to_end) >= 2 and c.per_layer
 
 
-@pytest.mark.parametrize("metric", [m["name"] for m in BENCH["per_layer"]])
-def test_every_metric_has_a_reader(metric):
-    assert callable(spec.metric_reader(spec.ROOT, metric))
+@pytest.mark.parametrize("kind,metric", METRICS)
+def test_every_metric_has_a_reader(roots, kind, metric):
+    assert callable(spec.metric_reader(roots[kind], metric))
 
 
 def test_every_metric_stem_shares_one_reader():
@@ -67,12 +92,19 @@ def test_size_mix_gives_every_seed_the_same_sizes():
         building_params(1, dict(mix, pool=4))
 
 
-def test_configuration_files_match_the_program():
-    from detection_3d_tpu_torch.config.defaults import (
-        Config, full_scale_config)
+@pytest.mark.parametrize("kind", ["repo", "added"])
+def test_configuration_files_match_the_program(roots, kind):
+    """6c_fpn4321 is the program's full-scale configuration, and every
+    configuration names a family file of its checkout."""
+    from detection_3d_tpu_torch.config.defaults import full_scale_config
     six = json.loads((spec.HERE / "configs/6c_fpn4321.json").read_text())
-    assert spec.build_config(Config, six) == full_scale_config()
+    assert DETECTOR.program_config(six) == full_scale_config()
     assert six["reduced"] == []
+    root = roots[kind]
+    bench = json.loads((root / "BENCHMARK.json").read_text())
+    for c in bench["configs"]:
+        cfg = json.loads((root / c["file"]).read_text())
+        assert spec.family(root, cfg["family"]).LIMIT_NAMES
 
 
 @pytest.fixture(scope="module")
@@ -140,28 +172,26 @@ def test_planted_fault_is_not_correct(root, monkeypatch, cell, fault):
 
 
 def test_fp8_control_is_not_correct(root):
-    """The reference in float8 put in the program's place fails the
-    check on three seeds."""
+    """The reference in float8 (the family's control) put in the
+    program's place fails the check on three seeds."""
     from perfbench import compare
-    from perfbench.control import fp8
     cell = spec.load_cell("tiny.stream", root)
     dev = torch.device("cpu")
     for seed in (5, 6, 7):
         r = run.prepare(cell, seed, 0.1, False, dev)
         ref = run.reference_model(r)
-        ctl = run.reference_model(r, fp8)
-        answers = [(b, run.reference_detections(
-            r.ref_cfg, ctl, run.pad_scene(r.ref_cfg, r.pool[b]), dev))
-            for b in range(len(r.pool))]
+        ctl = run.reference_model(r, r.family.control)
+        answers = [(b, r.family.reference_answer(r, ctl, b))
+                   for b in range(len(r.pool))]
         numbers = compare.worst(run.check(r, answers, ref))
         assert not compare.judge(numbers, cell.limits())[0], numbers
 
 
 @pytest.mark.parametrize("cell", ["tiny.train", "tiny3g.train"])
-@pytest.mark.parametrize("fault", sorted(control.FAULTS))
+@pytest.mark.parametrize("fault", sorted(DETECTOR.FAULTS))
 def test_planted_training_fault_is_not_correct(root, monkeypatch, cell,
                                                fault):
-    control.FAULTS[fault](monkeypatch.setattr)
+    spec.load_cell(cell, root).family().FAULTS[fault](monkeypatch.setattr)
     r = run.run_cell(tiny.args(cell), require_card=False, root=root)
     assert r["correct"] is False and r["failed"] == 1
 
@@ -173,8 +203,9 @@ def test_fp8_control_fails_the_training_check(root, cell):
     r = run.prepare(c, 5, 0.1, False, torch.device("cpu"))
     run.drive(r)
     r.draws = run.close_window(r)["draws"]
-    want = train.reference_steps(r, run.reference_model(r), 3)
-    got = train.reference_steps(r, run.reference_model(r, control.fp8), 3)
+    fam = r.family
+    want = fam.reference_steps(r, run.reference_model(r), 3)
+    got = fam.reference_steps(r, run.reference_model(r, fam.control), 3)
     numbers = train.numbers(got, want, r.weights)
     assert not compare.judge(numbers, c.limits())[0], numbers
 

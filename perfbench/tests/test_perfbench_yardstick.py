@@ -5,6 +5,8 @@ so the two compute the same arithmetic there)."""
 
 from __future__ import annotations
 
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
@@ -16,6 +18,7 @@ from perfbench.tests import tiny
 from perfbench.traffic.pool import make_pool
 
 torch.set_num_threads(2)
+DETECTOR = spec.family(spec.ROOT, "sparse_rcnn")
 
 
 def _cfg(cls, **kw):
@@ -40,9 +43,8 @@ def _plane_building(n: int):
 
 def test_counts_match_a_hand_count():
     cfg = _cfg(RefConfig)
-    from perfbench.reference.train import pad_scene
-    work = counts.building_work(cfg, pad_scene(cfg, _plane_building(3)),
-                                "cpu")
+    work = DETECTOR.building_work(
+        cfg, DETECTOR.reference_pad(cfg, _plane_building(3)), "cpu")
     convs = {c.name: c for c in work["a_convs"]}
     c_in = convs["conv_in"]
     # a 3 x 3 plane: 4 corners see 4 voxels, 4 edges 6, the centre 9
@@ -68,19 +70,19 @@ def test_reference_serves_as_the_port_does():
     from detection_3d_tpu_torch.engine.trainer import (
         pad_scene, unpack_detections)
     from detection_3d_tpu_torch.models.detector import SparseRCNN
-    from perfbench.reference.train import pad_scene as ref_pad
     from perfbench.reference.detector import SparseRCNN as RefRCNN
-    from perfbench.serve import reference_detections
     cfg, ref_cfg = _cfg(Config), _cfg(RefConfig)
-    weights = make_weights(_shapes(SparseRCNN, cfg), 11, "cpu")
+    weights = make_weights(_shapes(SparseRCNN, cfg), 11, "cpu",
+                           DETECTOR.init_std)
     port = load(meta_model(SparseRCNN, cfg), weights, "cpu")
     ref = load(meta_model(RefRCNN, ref_cfg), weights, "cpu")
     predict = make_predict_fn(cfg, port, "cpu")
-    for b in make_pool(12, tiny.BUILDINGS, cfg.classes, workers=1)[:2]:
+    pool = make_pool(12, tiny.BUILDINGS, cfg.classes, workers=1)[:2]
+    run = SimpleNamespace(ref_cfg=ref_cfg, pool=pool, device="cpu")
+    for i, b in enumerate(pool):
         out, _ = predict(pad_scene(cfg, b))
         got = unpack_detections(out.numpy())
-        want = reference_detections(ref_cfg, ref, ref_pad(ref_cfg, b),
-                                    "cpu")
+        want = DETECTOR.reference_answer(run, ref, i)
         assert len(got["scores"]) > 0
         for k in ("boxes", "scores", "labels"):
             np.testing.assert_array_equal(got[k], want[k])
@@ -98,7 +100,8 @@ def test_reference_trains_as_the_port_does(groups, tmp_path):
     sc = [list(g) for g in groups]
     cfg = _cfg(Config, separate_classes=sc)
     ref_cfg = _cfg(RefConfig, separate_classes=sc)
-    weights = make_weights(_shapes(SparseRCNN, cfg), 13, "cpu")
+    weights = make_weights(_shapes(SparseRCNN, cfg), 13, "cpu",
+                           DETECTOR.init_std)
     trainer = Trainer(cfg, output_dir=str(tmp_path), device="cpu")
     state = trainer.init_state(model=load(meta_model(SparseRCNN, cfg),
                                           weights, "cpu"))

@@ -4,7 +4,9 @@ mixes of small buildings and their limits, added as files and entries
 beside copies of the real per-layer readers. The limits were read from
 these cells' own runs on the CPU (program and fp8 control, compare.py's
 numbers): program at most 0.03 unmatched and 7.4e-4 score gap, the
-control 0.28 and 3.4e-3."""
+control 0.28 and 3.4e-3. A second model family (second_family/) is
+added to such a root, or to a copy of the repo's own benchmark, as
+files and entries alone."""
 
 from __future__ import annotations
 
@@ -14,6 +16,8 @@ import shutil
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[2]
+HERE = Path(__file__).resolve().parent
+SECOND_CELL = "tinyunet.seg"
 LIMITS = {"unmatched": 0.12}
 TRAIN_LIMITS = {"loss": 1e-3, "grad": 1e-3, "change": 1e-3,
                 "change_q90": 1e-3}
@@ -47,16 +51,16 @@ def make_root(root: Path) -> Path:
     ``tiny.single``, ``tiny.mixed`` (a window file and a mix of sizes
     added as files), ``tiny.train`` and ``tiny3g.train``; returns it."""
     pb = root / "perfbench"
-    for d in ("metrics", "windows"):
+    for d in ("metrics", "windows", "families"):
         shutil.copytree(REPO / "perfbench" / d, pb / d)
     for d in ("configs", "traffic", "limits"):
         (pb / d).mkdir(parents=True)
     (pb / "configs/tiny.json").write_text(json.dumps(
-        {"name": "tiny", "source": "test", "reduced": [],
-         "model": tiny_model()}))
+        {"name": "tiny", "family": "sparse_rcnn", "source": "test",
+         "reduced": [], "model": tiny_model()}))
     (pb / "configs/tiny3g.json").write_text(json.dumps(
-        {"name": "tiny3g", "source": "test", "reduced": [],
-         "model": dict(tiny_model(),
+        {"name": "tiny3g", "family": "sparse_rcnn", "source": "test",
+         "reduced": [], "model": dict(tiny_model(),
                        separate_classes=[["wall"], ["ceiling", "floor"]])}))
     (pb / "traffic/tiny_stream.json").write_text(json.dumps(
         {"window": "stream", "buildings": BUILDINGS, "batch_size": 2,
@@ -105,6 +109,59 @@ def make_root(root: Path) -> Path:
         if "workloads" in m:
             m["workloads"] = sorted({c for w in m["workloads"]
                                      for c in tiny[kinds[w]]})
+    (root / "BENCHMARK.json").write_text(json.dumps(bench))
+    return root
+
+
+def copy_repo_root(root: Path) -> Path:
+    """A checkout root under ``root`` holding the repo's own
+    BENCHMARK.json and the benchmark's files that it names; returns
+    it."""
+    for d in ("configs", "traffic", "limits", "windows", "families",
+              "metrics"):
+        shutil.copytree(REPO / "perfbench" / d, root / "perfbench" / d)
+    shutil.copy(REPO / "BENCHMARK.json", root / "BENCHMARK.json")
+    return root
+
+
+def add_second_family(root: Path) -> Path:
+    """The segmenting family (second_family/tiny_unet.py), its
+    configuration, a mix with its window, limits and their entries,
+    added to the checkout ``root`` (make_root or copy_repo_root) as the
+    cell SECOND_CELL; returns ``root``."""
+    pb = root / "perfbench"
+    shutil.copy(HERE / "second_family/tiny_unet.py",
+                pb / "families/tiny_unet.py")
+    shutil.copy(HERE / "second_family/segment.py", pb / "windows/segment.py")
+    (pb / "configs/tinyunet.json").write_text(json.dumps(
+        {"name": "tinyunet", "family": "tiny_unet", "source": "test",
+         "reduced": [], "model": {
+             "classes": tiny_model()["classes"], "num_classes": 5,
+             "in_channels": 6, "nplanes": [8, 8], "caps": [8192, 4096],
+             "max_points": 8192, "voxel_full_scale": [512, 512, 256],
+             "compute_dtype": "float32"}}))
+    (pb / "traffic/tiny_seg.json").write_text(json.dumps(
+        {"window": "segment", "buildings": BUILDINGS,
+         "warm_buildings": 1, "profile_after": 1, "profile_buildings": 2,
+         "check_answers": 3}))
+    # on the CPU the program reads 0 (seeds 1-3, 3000000017: the same
+    # arithmetic), the planted faults 0.010-1.0, the control 0.10-0.16
+    (pb / f"limits/{SECOND_CELL}.json").write_text(json.dumps(
+        {"limits": {"logit_gap": 1e-4}}))
+    bench = json.loads((root / "BENCHMARK.json").read_text())
+    bench["configs"].append({"name": "tinyunet", "source": "test",
+                             "file": "perfbench/configs/tinyunet.json",
+                             "reduced": [], "why": "test"})
+    bench["workloads"].append({"name": SECOND_CELL, "config": "tinyunet",
+                               "traffic": "tiny_seg", "chips": 1,
+                               "why": "test"})
+    for m in bench["end_to_end"]:
+        if m["name"] == "latency_p95_s":
+            m["workloads"].append(SECOND_CELL)
+    bench["per_layer"].append(
+        {"name": "mfu.seg", "unit": "%", "better": "higher",
+         "source": "host_clock", "layer": "device",
+         "moves": "latency_p95_s", "workloads": [SECOND_CELL]})
     (root / "BENCHMARK.json").write_text(json.dumps(bench))
     return root
 

@@ -1,7 +1,8 @@
 """The check of the training window (windows/train.py): once the window
 has closed, the reference (float32, its own model and solver on the same
-weights) takes the same first steps on the same buildings and draws, and
-each of the program's first steps is held against it (:func:`numbers`).
+weights; the family's ``reference_steps``) takes the same first steps on
+the same buildings and draws, and each of the program's first steps is
+held against it (:func:`numbers`).
 """
 
 from __future__ import annotations
@@ -17,34 +18,6 @@ def draws(shapes: Dict[str, int], gen, device) -> Dict[str, torch.Tensor]:
     """One step's sampler draws, in the order the forward takes them."""
     return {k: torch.rand((n,), generator=gen, device=device)
             for k, n in shapes.items()}
-
-
-def reference_steps(run, ref, steps: int) -> Dict:
-    """The reference's first ``steps`` steps on the program's buildings
-    and draws: its losses, its first update's buffers and gradients, and
-    its parameters after them."""
-    from perfbench.reference import train as ref_train
-    from perfbench.reference.solver import Solver
-    ref.train()
-    solver = Solver(run.ref_cfg, ref, 1)
-    out = {"totals": []}
-    names = [n for n, _ in ref.named_parameters()]
-    for s in range(steps):
-        pri = {k: v.to(run.device) for k, v in run.draws[s].items()}
-        losses = ref_train.step(
-            run.ref_cfg, ref, solver, ref_train.pad_scene(run.ref_cfg,
-                                                          run.pool[s]),
-            pri, run.device)
-        out["totals"].append(sum(losses[k] for k in sorted(losses)))
-        if s == 0:
-            bufs = solver.optimizer.state
-            out["first"] = {n: bufs[p]["momentum_buffer"].cpu().clone()
-                            for n, p in ref.named_parameters()}
-            out["grad"] = {n: p.grad.detach().cpu().clone()
-                           for n, p in ref.named_parameters()}
-    out["after"] = {n: p.detach().cpu().clone()
-                    for n, p in zip(names, ref.parameters())}
-    return out
 
 
 def leaf_gaps(got: Dict, want: Dict, start: Dict[str, torch.Tensor]):
