@@ -13,6 +13,7 @@
                                          # 3G6c groups (4000 steps)
     python3 chip_smoke.py --parallel     # only the multi-device phase (7b)
     python3 chip_smoke.py --batched      # only the batched-serving phase
+    python3 chip_smoke.py --minkunet     # only MinkUNet34C's phase (4d)
 
 1. Prints the card's name and power limit (nvidia-smi).
 2. Builds the port's six CUDA sources from detection_3d_tpu_torch/csrc
@@ -81,6 +82,13 @@
    matrix, and one 20000^2 matrix for the walk above N = 8192), each
    timed beside its plain version and bound; E also beside
    the torch compare it absorbs and its walk's serial floor.
+4d. MinkUNet34C at its published widths on one dense room (one 8 m room
+   of 500k points, the segmentation cell's shape): kernel B's 5x5x5 form
+   bit exact against its plain column twin, kernel A over the stem's
+   125-offset book (two-word row masks) in f32 and bf16 and the stem's
+   dW over its entries-only book against their plain versions, each
+   timed; then one Trainer.step's launches after a warm-up step: B 6,
+   A 55, dFeats 54, dW 55.
 5. Training path at full width: a Trainer on the card takes 6 steps over
    6 such buildings (bf16 compute, SparseRCNN(cfg, seed=0)); checks
    finite losses, applied steps, moved parameters and that A, both A'
@@ -215,7 +223,8 @@ serve_table, serve_pyramid, pipelined_table, pipelined_pyramid, train,
 train_loader, train_list, train_packed, train_resident, train_scan,
 eval, serve_3g6c, train_3g6c, rpn_only, zoo, zoo_vgg, zoo_fcn,
 dataprep, api_nms, api_books, bench_table, bench_pyramid, bench_batch,
-bench_parity, train_bench, profile_inference, diag, match, and in each
+bench_parity, train_bench, profile_inference, diag, match, seg_train
+(one MinkUNet34C step), and in each
 rank dp_train,
 sp_serve, sp_train, dpsp_train) and read just after;
 launches made to compare a kernel with its plain version do not count.
@@ -4397,6 +4406,139 @@ def batched_path(cfg, scenes, dev, gen):
     return launches, reports, lines
 
 
+SEG_ROOM_POINTS = 500_000   # one dense 8 m room: the seg_train shape
+
+
+def minkunet_path(dev, seed=7):
+    """MinkUNet34C at its published widths on one dense room (one 8 m room
+    of 500k points, about 413k level-0 voxels), the segmentation cell's
+    shape. On the room's level-0 table: kernel B's 5x5x5 form
+    (subm_match_cuda at radius 2) bit equal to the plain column twin and
+    to itself on a second call, one launch each; kernel A over the stem's
+    125-offset book (two-word row masks, the ``_w2`` entries) against the
+    plain A, 3 -> 32 in f32 and bf16; dW over the stem's entries-only
+    book (weights_book) against the plain dW. A tolerance holds only if
+    it is below what the plain A gives over the first 64 offsets alone.
+    Then a Trainer of the model takes a warm-up step and one more with
+    the launch counts set to 0 just before it: B 6 (five 3^3 books and
+    the 5^3 one), A 55 (the stem, 4 stride-2 convs, 4 transposes, 46
+    3^3 convs), dFeats 54 (none for the stem), dW 55. Returns (the
+    step's launches, the kernel lines)."""
+    import tempfile
+    from detection_3d_tpu_torch.config.defaults import CapacityConfig
+    from detection_3d_tpu_torch.data.synthetic import synthetic_multiroom
+    from detection_3d_tpu_torch.engine.trainer import Trainer, pad_scene
+    from detection_3d_tpu_torch.models.minkunet import (
+        MinkUNet34C, MinkUNetConfig)
+    from detection_3d_tpu_torch.ops import cuda_lib, sparse
+    from detection_3d_tpu_torch.ops.sparse_conv import (
+        gather_conv, gather_conv_cuda, gather_conv_dw, gather_conv_dw_cuda,
+        masks_row_order, weights_book)
+    cfg = MinkUNetConfig(caps=CapacityConfig(
+        max_points=SEG_ROOM_POINTS,
+        voxel_caps=(524288, 524288, 524288, 262144, 65536),
+        max_gt=512)).validate()
+    scene = synthetic_multiroom(seed=seed, num_points=SEG_ROOM_POINTS,
+                                rooms_xy=(1, 1), room=8.0, voxel_scale=50,
+                                classes=cfg.classes)
+    # a label a height band of 0.5 m: the points of a voxel share one
+    scene["point_labels"] = (scene["points"][:, 2] // 25).astype(
+        np.int32) % cfg.out_channels
+    model = MinkUNet34C.from_config(cfg, seed=0).to(dev)
+    padded = pad_scene(cfg, scene)
+    b = {k: torch.as_tensor(v).to(dev) for k, v in padded.items()}
+    table, labels = model.voxelize(cfg, b["points"], b["feats"],
+                                   b["points_valid"], b["point_labels"])
+    v, num = table.rows, int(table.num)
+    lines = {"voxels": num, "labelled": int((labels >= 0).sum())}
+
+    before = cuda_lib.launches["subm_match"]
+    idx, masks = sparse.subm_match_cuda(table, radius=2)
+    again, masks_again = sparse.subm_match_cuda(table, radius=2)
+    check(cuda_lib.launches["subm_match"] == before + 2,
+          "MinkUNet: B's 5x5x5 form is not one launch a call")
+    want, want_m = sparse.neighbor_match_columns(table, radius=2)
+    check(idx.shape == (125, v) and masks.shape == (v, 2)
+          and torch.equal(idx, want) and torch.equal(masks, want_m)
+          and torch.equal(idx, again) and torch.equal(masks, masks_again),
+          "MinkUNet: B's 5x5x5 book or masks differ from the column twin")
+    pairs = int((idx < v).sum())
+    lines["B5"] = {"V": v, "pairs": pairs, "pairs_per_voxel": pairs / num,
+                   "ms": time_ms(lambda: sparse.subm_match_cuda(
+                       table, radius=2)),
+                   "device_ms": device_ms(lambda: sparse.subm_match_cuda(
+                       table, radius=2), ("subm_match_",)),
+                   "plain_ms": time_ms(lambda: sparse.neighbor_match_columns(
+                       table, radius=2), 2),
+                   "tolerance": "bit exact"}
+
+    order = masks_row_order(masks)
+    valid = table.row_valid.reshape(-1)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x32 = table.feats.to(torch.float32)
+    w32 = torch.randn((125, x32.shape[1], 32), generator=gen, device=dev)
+    g32 = torch.randn((v, 32), generator=gen, device=dev)
+    book = weights_book(idx, v, valid)
+    check(book.t_idx is None and book.t_order is None
+          and int(book.starts[-1]) == pairs,
+          "MinkUNet: the stem's weights book is not entries alone")
+    plain = gather_conv(x32, idx, w32, valid)
+    scale = float(plain.abs().max())
+    first_word = float((gather_conv(x32, idx[:64], w32[:64], valid) - plain)
+                       .abs().max()) / scale
+    for dtype, tol_a, tol_dw in ((torch.float32, 1e-5, 1e-4),
+                                 (torch.bfloat16, 1e-2, 1e-2)):
+        check(tol_a < first_word,
+              f"MinkUNet: A's {dtype} tolerance {tol_a} would pass the "
+              f"first 64 offsets alone ({first_word:.3g})")
+        x, w, g = x32.to(dtype), w32.to(dtype), g32.to(dtype)
+        got = gather_conv_cuda(x, idx, w, valid, order)
+        ref = gather_conv(x, idx, w, valid)
+        err_a = float((got.float() - ref.float()).abs().max()) / max(
+            float(ref.float().abs().max()), 1e-30)
+        check(err_a <= tol_a, f"MinkUNet: A at 125 offsets, {dtype}: "
+              f"{err_a:.3g} of the largest > {tol_a}")
+        dw = gather_conv_dw_cuda(x, g, book)
+        dw_ref = gather_conv_dw(x, g, book)
+        err_dw = float((dw.float() - dw_ref.float()).abs().max()) / max(
+            float(dw_ref.float().abs().max()), 1e-30)
+        check(err_dw <= tol_dw, f"MinkUNet: the stem's dW, {dtype}: "
+              f"{err_dw:.3g} of the largest > {tol_dw}")
+        lines[f"A125_{str(dtype)[6:]}"] = {
+            "rel_err": err_a, "tolerance": tol_a,
+            "first_64_offsets_alone": first_word,
+            "ms": time_ms(lambda: gather_conv_cuda(x, idx, w, valid, order)),
+            "plain_ms": time_ms(lambda: gather_conv(x, idx, w, valid), 2)}
+        lines[f"dW125_{str(dtype)[6:]}"] = {
+            "rel_err": err_dw, "tolerance": tol_dw,
+            "ms": time_ms(lambda: gather_conv_dw_cuda(x, g, book)),
+            "plain_ms": time_ms(lambda: gather_conv_dw(x, g, book), 2)}
+    del plain, got, ref, dw, dw_ref, book, idx, masks, again, want
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as out:
+        trainer = Trainer(cfg, output_dir=out, device=dev)
+        state = trainer.init_state(model=model)
+        total, _, ok, _ = trainer.step(state, padded, priorities={})
+        check(ok and np.isfinite(total), "MinkUNet: the warm-up step failed")
+        torch.cuda.synchronize()
+        cuda_lib.reset_launches()
+        t0 = time.perf_counter()
+        total, _, ok, _ = trainer.step(state, padded, priorities={})
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = dict(cuda_lib.launches)
+    want_l = {"subm_match": 6, "gather_conv": 55, "gather_conv_dfeats": 54,
+              "gather_conv_dw": 55}
+    check(ok and np.isfinite(total)
+          and all(launches[k] == n for k, n in want_l.items()),
+          f"MinkUNet: a step's launches {launches}, expected {want_l}")
+    lines["step"] = {"loss": total, "s": seconds, "launches": launches,
+                     "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+    print("MinkUNet34C seg_train shape", json.dumps(lines))
+    return launches, lines
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4525,6 +4667,12 @@ def main():
     batched, rep_unit, _ = batched_path(cfg, scenes, dev, gen)
     print(f"batched serving phase: {time.perf_counter() - t0:.1f} s")
 
+    # ---- MinkUNet34C's kernels and one training step, one dense room ----
+    t0 = time.perf_counter()
+    seg_train, _ = minkunet_path(dev)
+    torch.cuda.empty_cache()
+    print(f"MinkUNet34C phase: {time.perf_counter() - t0:.1f} s")
+
     # ---- the training path at full width --------------------------------
     train, rep_train, rep_bwd, iou_calls = train_path(cfg, scenes, dev)
     torch.cuda.empty_cache()
@@ -4637,7 +4785,8 @@ def main():
                                  **{path: counts[name] for path, counts
                                     in tools.items()},
                                  **{path: counts[name] for path, counts
-                                    in batched.items()}},
+                                    in batched.items()},
+                                 "seg_train": seg_train[name]},
             "max_abs_err": rep["max_abs_err"], "ms": rep["ms"],
             "plain_ms": rep["plain_ms"], "bound_ms": rep["bound_ms"],
             "bound_by": rep["bound_by"],
@@ -4910,10 +5059,35 @@ def batched_main():
     return 0
 
 
+def minkunet_main():
+    """``--minkunet``: only MinkUNet34C's phase (:func:`minkunet_path`)
+    after building the kernels; prints the card line and the ok line as
+    the whole run does."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    from detection_3d_tpu_torch.ops import cuda_lib
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"card: {card_line()}")
+    t0 = time.perf_counter()
+    cuda_lib.build()
+    print(f"build: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launches, _ = minkunet_path(torch.device("cuda"))
+    print(f"MinkUNet34C phase: {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"launches_by_path": {"seg_train": launches}}))
+    print(card_line())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 MODES = {"--bwd-shapes": bwd_shapes_main, "--compare": compare_main,
          "--d-forms": d_forms_main,
          "--overfit": overfit_main, "--parallel": parallel_main,
-         "--batched": batched_main}
+         "--batched": batched_main, "--minkunet": minkunet_main}
 
 if __name__ == "__main__":
     if len(sys.argv) > 2 or sys.argv[1:] and sys.argv[1] not in MODES:

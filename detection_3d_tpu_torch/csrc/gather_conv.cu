@@ -17,9 +17,13 @@
 // The kernel takes out_valid through the rulebook's row order
 // (ops/sparse_conv.py:rulebook_row_order), which the wrapper always
 // passes: perm (V_out,) int32, a permutation of the output rows, and
-// masks (V_out,) uint64, masks[p] holding bit k when row perm[p] is
-// valid and has a real entry at offset k (K <= 64). A row whose mask is
-// 0 (out_valid false) runs no offset and is written as zero.
+// masks (V_out, MW) uint64, masks[p] holding bit k when row perm[p] is
+// valid and has a real entry at offset k, in word k / 64: MW = 1 for
+// K <= 64, MW = 2 for K <= 128 (the 5^3 stem of a segmentation network).
+// Each mask width is its own instantiation (the *_w2 entries take two
+// words), so a book of at most 64 offsets runs the one-word code. A row
+// whose mask is 0 (out_valid false) runs no offset and is written as
+// zero.
 //
 // What bounds it on an H100: bytes at most shapes of the main path (the
 // random row reads and the output write at scale 0, ~1.1 real entries
@@ -66,35 +70,82 @@ struct ConvDFeats {};
 
 // ---- row order and tile mask, shared by both kernels ---------------------
 
+// A set of offsets, MW words of 64 bits (offset k: word k / 64).
+template <int MW>
+struct Bits {
+  uint64_t w[MW];
+
+  __device__ __forceinline__ bool has(int k) const {
+    if constexpr (MW == 1) {
+      return (w[0] >> k) & 1ull;
+    } else {
+      return (w[k >> 6] >> (k & 63)) & 1ull;
+    }
+  }
+  // the lowest offset in the set, or -1
+  __device__ __forceinline__ int lowest() const {
+#pragma unroll
+    for (int i = 0; i < MW; ++i)
+      if (w[i]) return 64 * i + __ffsll(static_cast<long long>(w[i])) - 1;
+    return -1;
+  }
+  __device__ __forceinline__ void drop_lowest() {
+#pragma unroll
+    for (int i = 0; i < MW; ++i)
+      if (w[i]) {
+        w[i] &= w[i] - 1;
+        return;
+      }
+  }
+  __device__ __forceinline__ int count() const {
+    int n = 0;
+#pragma unroll
+    for (int i = 0; i < MW; ++i) n += __popcll(w[i]);
+    return n;
+  }
+};
+
 // rows_s[r]: the output row at tile position r (-1 past V_out);
 // masks_s[r]: its real offsets. Returns the OR of the tile's masks
 // (after a barrier).
-template <int BM, int THREADS>
-__device__ __forceinline__ uint64_t tile_rows(
+template <int BM, int THREADS, int MW>
+__device__ __forceinline__ Bits<MW> tile_rows(
     const int* __restrict__ perm, const uint64_t* __restrict__ masks,
-    int v_out, int m0, int* rows_s, uint64_t* masks_s, uint64_t* or_s) {
-  if (threadIdx.x == 0) *or_s = 0;
+    int v_out, int m0, int* rows_s, Bits<MW>* masks_s, uint64_t* or_s) {
+  if (threadIdx.x < MW) or_s[threadIdx.x] = 0;
   __syncthreads();
-  uint64_t mine = 0;
+  Bits<MW> mine;
+#pragma unroll
+  for (int i = 0; i < MW; ++i) mine.w[i] = 0;
   for (int r = threadIdx.x; r < BM; r += THREADS) {
     const int p = m0 + r;
-    const int row = p < v_out ? perm[p] : -1;
-    const uint64_t m = p < v_out ? masks[p] : 0;
-    rows_s[r] = row;
+    rows_s[r] = p < v_out ? perm[p] : -1;
+    Bits<MW> m;
+#pragma unroll
+    for (int i = 0; i < MW; ++i) {
+      m.w[i] = p < v_out ? masks[(size_t)p * MW + i] : 0;
+      mine.w[i] |= m.w[i];
+    }
     masks_s[r] = m;
-    mine |= m;
   }
-  if (mine) atomicOr(reinterpret_cast<unsigned long long*>(or_s),
-                     static_cast<unsigned long long>(mine));
+#pragma unroll
+  for (int i = 0; i < MW; ++i)
+    if (mine.w[i])
+      atomicOr(reinterpret_cast<unsigned long long*>(or_s + i),
+               static_cast<unsigned long long>(mine.w[i]));
   __syncthreads();
-  return *or_s;
+  Bits<MW> out;
+#pragma unroll
+  for (int i = 0; i < MW; ++i) out.w[i] = or_s[i];
+  return out;
 }
 
 // The feature row that tile row (row, mask) reads at offset k, or -1.
+template <int MW>
 __device__ __forceinline__ int source_row(const int* __restrict__ idx,
-                                          int row, uint64_t mask, int k,
-                                          int v_in, int v_out) {
-  if (row < 0 || !((mask >> k) & 1ull)) return -1;
+                                          int row, const Bits<MW>& mask,
+                                          int k, int v_in, int v_out) {
+  if (row < 0 || !mask.has(k)) return -1;
   const int s = idx[(size_t)k * v_out + row];
   return (s >= 0 && s < v_in) ? s : -1;
 }
@@ -156,7 +207,7 @@ struct Tile {
   static constexpr int B_STRIDE = BN + 8;
 };
 
-template <int WM, int WN>
+template <int WM, int WN, int MW>
 struct Loader {
   using T = Tile<WM, WN>;
   // A's 16-byte chunks per thread: each thread copies fixed tile rows
@@ -165,7 +216,7 @@ struct Loader {
 
   // the source rows of this thread's A chunks at offset k (-1: zero row)
   __device__ __forceinline__ static void sources(
-      int* src, const int* idx, const int* rows_s, const uint64_t* masks_s,
+      int* src, const int* idx, const int* rows_s, const Bits<MW>* masks_s,
       int k, int v_in, int v_out) {
 #pragma unroll
     for (int i = 0; i < A_ITERS; ++i) {
@@ -202,11 +253,7 @@ struct Loader {
   }
 };
 
-__device__ __forceinline__ int lowest_bit(uint64_t bits) {
-  return bits ? __ffsll(static_cast<long long>(bits)) - 1 : -1;
-}
-
-template <int WM, int WN, typename Role>
+template <int WM, int WN, int MW, typename Role>
 __global__ void __launch_bounds__(Tile<WM, WN>::THREADS)
 gather_conv_bf16_kernel(const __nv_bfloat16* __restrict__ feats,
                         const int* __restrict__ idx,
@@ -219,8 +266,8 @@ gather_conv_bf16_kernel(const __nv_bfloat16* __restrict__ feats,
   __shared__ __align__(16) __nv_bfloat16 as[kStages][T::BM * A_STRIDE];
   __shared__ __align__(16) __nv_bfloat16 bs[kStages][BK * T::B_STRIDE];
   __shared__ int rows_s[T::BM];
-  __shared__ uint64_t masks_s[T::BM];
-  __shared__ uint64_t or_s;
+  __shared__ Bits<MW> masks_s[T::BM];
+  __shared__ uint64_t or_s[MW];
 
   const int m0 = blockIdx.x * T::BM;
   const int n0 = blockIdx.y * T::BN;
@@ -229,8 +276,8 @@ gather_conv_bf16_kernel(const __nv_bfloat16* __restrict__ feats,
   const int wm = warp / WN;
   const int wn = warp % WN;
 
-  const uint64_t tile_or = tile_rows<T::BM, T::THREADS>(
-      perm, masks, v_out, m0, rows_s, masks_s, &or_s);
+  const Bits<MW> tile_or = tile_rows<T::BM, T::THREADS, MW>(
+      perm, masks, v_out, m0, rows_s, masks_s, or_s);
 
   float acc[2][4][4];
 #pragma unroll
@@ -241,16 +288,16 @@ gather_conv_bf16_kernel(const __nv_bfloat16* __restrict__ feats,
       for (int t = 0; t < 4; ++t) acc[i][j][t] = 0.f;
 
   const int n_chunks = (cin + BK - 1) / BK;
-  const int steps = __popcll(tile_or) * n_chunks;
+  const int steps = tile_or.count() * n_chunks;
   // the (offset, chunk) of the next step to load; loads run kStages - 1
   // steps ahead of the products. The rulebook entries of this thread's
   // rows are read once per offset, and those of the offset after it are
   // read one offset ahead, so no copy waits on an idx load.
-  using L = Loader<WM, WN>;
-  uint64_t bits = tile_or;
-  int lk = lowest_bit(bits);
-  bits &= bits - 1;
-  int nk = lowest_bit(bits);
+  using L = Loader<WM, WN, MW>;
+  Bits<MW> bits = tile_or;
+  int lk = bits.lowest();
+  bits.drop_lowest();
+  int nk = bits.lowest();
   int lc = 0;
   int src[L::A_ITERS], nsrc[L::A_ITERS];
   L::sources(src, idx, rows_s, masks_s, lk, v_in, v_out);
@@ -264,8 +311,8 @@ gather_conv_bf16_kernel(const __nv_bfloat16* __restrict__ feats,
         lk = nk;
 #pragma unroll
         for (int i = 0; i < L::A_ITERS; ++i) src[i] = nsrc[i];
-        bits &= bits - 1;
-        nk = lowest_bit(bits);
+        bits.drop_lowest();
+        nk = bits.lowest();
         L::sources(nsrc, idx, rows_s, masks_s, nk, v_in, v_out);
       }
     }
@@ -325,13 +372,13 @@ gather_conv_bf16_kernel(const __nv_bfloat16* __restrict__ feats,
   }
 }
 
-template <int WM, int WN, typename Role>
+template <int WM, int WN, int MW, typename Role>
 void launch_bf16(const void* feats, const void* idx, const void* w,
                  const void* perm, const void* masks, void* out, int v_in,
                  int v_out, int cin, int cout, cudaStream_t stream) {
   using T = Tile<WM, WN>;
   dim3 grid((v_out + T::BM - 1) / T::BM, (cout + T::BN - 1) / T::BN);
-  gather_conv_bf16_kernel<WM, WN, Role><<<grid, T::THREADS, 0, stream>>>(
+  gather_conv_bf16_kernel<WM, WN, MW, Role><<<grid, T::THREADS, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(feats), static_cast<const int*>(idx),
       static_cast<const __nv_bfloat16*>(w), static_cast<const int*>(perm),
       static_cast<const uint64_t*>(masks), static_cast<__nv_bfloat16*>(out),
@@ -344,7 +391,7 @@ constexpr int kF32Threads = 256;
 constexpr int BK32 = 16;
 
 // 16 x 16 threads; thread (tx, ty) owns tile rows ty*TM.. and cols tx*TN..
-template <int TM, int TN, typename Role>
+template <int TM, int TN, int MW, typename Role>
 __global__ void __launch_bounds__(kF32Threads)
 gather_conv_f32_kernel(const float* __restrict__ feats,
                        const int* __restrict__ idx,
@@ -358,9 +405,9 @@ gather_conv_f32_kernel(const float* __restrict__ feats,
   __shared__ float a_s[BK32][BM + 1];  // gathered rows, channel-major
   __shared__ float b_s[BK32][BN];      // W[k] chunk
   __shared__ int rows_s[BM];
-  __shared__ uint64_t masks_s[BM];
+  __shared__ Bits<MW> masks_s[BM];
   __shared__ int src_s[BM];
-  __shared__ uint64_t or_s;
+  __shared__ uint64_t or_s[MW];
 
   const int tid = threadIdx.x;
   const int tx = tid % 16;
@@ -368,8 +415,8 @@ gather_conv_f32_kernel(const float* __restrict__ feats,
   const int m0 = blockIdx.x * BM;
   const int n0 = blockIdx.y * BN;
 
-  uint64_t bits = tile_rows<BM, kF32Threads>(perm, masks, v_out, m0,
-                                             rows_s, masks_s, &or_s);
+  Bits<MW> bits = tile_rows<BM, kF32Threads, MW>(perm, masks, v_out, m0,
+                                                 rows_s, masks_s, or_s);
 
   float acc[TM][TN];
 #pragma unroll
@@ -377,8 +424,7 @@ gather_conv_f32_kernel(const float* __restrict__ feats,
 #pragma unroll
     for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
 
-  for (; bits; bits &= bits - 1) {
-    const int k = __ffsll(static_cast<long long>(bits)) - 1;
+  for (int k = bits.lowest(); k >= 0; bits.drop_lowest(), k = bits.lowest()) {
     for (int r = tid; r < BM; r += kF32Threads)
       src_s[r] = source_row(idx, rows_s[r], masks_s[r], k, v_in, v_out);
     __syncthreads();
@@ -425,66 +471,71 @@ gather_conv_f32_kernel(const float* __restrict__ feats,
   }
 }
 
-template <int TM, int TN, typename Role>
+template <int TM, int TN, int MW, typename Role>
 void launch_f32(const void* feats, const void* idx, const void* w,
                 const void* perm, const void* masks, void* out, int v_in,
                 int v_out, int cin, int cout, cudaStream_t stream) {
   dim3 grid((v_out + 16 * TM - 1) / (16 * TM),
             (cout + 16 * TN - 1) / (16 * TN));
-  gather_conv_f32_kernel<TM, TN, Role><<<grid, kF32Threads, 0, stream>>>(
+  gather_conv_f32_kernel<TM, TN, MW, Role><<<grid, kF32Threads, 0, stream>>>(
       static_cast<const float*>(feats), static_cast<const int*>(idx),
       static_cast<const float*>(w), static_cast<const int*>(perm),
       static_cast<const uint64_t*>(masks), static_cast<float*>(out), v_in,
       v_out, cin, cout);
 }
 
-template <typename Role>
+template <int MW, typename Role>
 int run_f32(const void* feats, const void* idx, const void* w,
             const void* perm, const void* masks, void* out, int v_in,
             int v_out, int cin, int cout, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (cout <= 32)
-    launch_f32<8, 2, Role>(feats, idx, w, perm, masks, out, v_in, v_out, cin,
+    launch_f32<8, 2, MW, Role>(feats, idx, w, perm, masks, out, v_in, v_out, cin,
                            cout, s);
   else
-    launch_f32<4, 4, Role>(feats, idx, w, perm, masks, out, v_in, v_out, cin,
+    launch_f32<4, 4, MW, Role>(feats, idx, w, perm, masks, out, v_in, v_out, cin,
                            cout, s);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename Role>
+template <int MW, typename Role>
 int run_bf16(const void* feats, const void* idx, const void* w,
              const void* perm, const void* masks, void* out, int v_in,
              int v_out, int cin, int cout, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (cout <= 32)
-    launch_bf16<4, 1, Role>(feats, idx, w, perm, masks, out, v_in, v_out,
+    launch_bf16<4, 1, MW, Role>(feats, idx, w, perm, masks, out, v_in, v_out,
                             cin, cout, s);
   else if (cout <= 64)
-    launch_bf16<2, 2, Role>(feats, idx, w, perm, masks, out, v_in, v_out,
+    launch_bf16<2, 2, MW, Role>(feats, idx, w, perm, masks, out, v_in, v_out,
                             cin, cout, s);
   else
-    launch_bf16<2, 4, Role>(feats, idx, w, perm, masks, out, v_in, v_out,
+    launch_bf16<2, 4, MW, Role>(feats, idx, w, perm, masks, out, v_in, v_out,
                             cin, cout, s);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// bf16 needs cin % 16 == 0 and cout % 8 == 0 (the wrapper pads).
-#define GATHER_CONV_ENTRY(name, run, Role)                                  \
+// bf16 needs cin % 16 == 0 and cout % 8 == 0 (the wrapper pads). The
+// *_w2 entries take masks of two words a row (64 < K <= 128).
+#define GATHER_CONV_ENTRY(name, run, MW, Role)                              \
   extern "C" int name(const void* feats, const void* idx, const void* w,    \
                       const void* perm, const void* masks, void* out,       \
                       int v_in, int v_out, int cin, int cout,               \
                       void* stream) {                                       \
-    return run<Role>(feats, idx, w, perm, masks, out, v_in, v_out, cin,     \
-                     cout, stream);                                         \
+    return run<MW, Role>(feats, idx, w, perm, masks, out, v_in, v_out, cin, \
+                         cout, stream);                                     \
   }
 
-GATHER_CONV_ENTRY(gather_conv_f32, run_f32, ConvForward)
-GATHER_CONV_ENTRY(gather_conv_bf16, run_bf16, ConvForward)
-GATHER_CONV_ENTRY(gather_conv_dfeats_f32, run_f32, ConvDFeats)
-GATHER_CONV_ENTRY(gather_conv_dfeats_bf16, run_bf16, ConvDFeats)
+GATHER_CONV_ENTRY(gather_conv_f32, run_f32, 1, ConvForward)
+GATHER_CONV_ENTRY(gather_conv_bf16, run_bf16, 1, ConvForward)
+GATHER_CONV_ENTRY(gather_conv_dfeats_f32, run_f32, 1, ConvDFeats)
+GATHER_CONV_ENTRY(gather_conv_dfeats_bf16, run_bf16, 1, ConvDFeats)
+GATHER_CONV_ENTRY(gather_conv_f32_w2, run_f32, 2, ConvForward)
+GATHER_CONV_ENTRY(gather_conv_bf16_w2, run_bf16, 2, ConvForward)
+GATHER_CONV_ENTRY(gather_conv_dfeats_f32_w2, run_f32, 2, ConvDFeats)
+GATHER_CONV_ENTRY(gather_conv_dfeats_bf16_w2, run_bf16, 2, ConvDFeats)
 
 extern "C" const char* gather_conv_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

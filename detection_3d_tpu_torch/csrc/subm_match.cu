@@ -58,6 +58,19 @@
 // The TPU kernel's 128-lane window sweep, scatter inversion of the
 // mirror offsets and (V, 32) lane layout are ways around the TPU's lack
 // of fast random loads and are not carried over.
+//
+// The 5x5x5 form (subm_match_5x5x5, the 5^3 stem of a segmentation
+// network): out (125, B * V) int32 with the same pad, offset k = 25 *
+// (dx + 2) + 5 * (dy + 2) + (dz + 2), and masks (B * V, 2) int64, bit k
+// in word k / 64 (ops/sparse_conv.row_masks of a 125-offset book). Its
+// plain twin is ops/sparse.py:neighbor_match_columns(radius=2). Each of
+// the 25 columns (dx, dy) in [-2, 2]^2 takes one lower-bound search for
+// the key of dz = -2, and its five dz neighbours sit among the next five
+// rows; the centre column is searched like the others. It is the table
+// form (subm_match_table5): 32 sites a block, warp g holds columns g,
+// g + 8, g + 16 (and warp 0 also 24) of each site and searches the
+// table's real rows in lockstep; a site's two mask words are the OR of
+// its 8 threads' bits.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -314,7 +327,111 @@ subm_match_table(const long long* __restrict__ keys,
   }
 }
 
+// 32 sites a block; warp g holds columns g, g + 8, g + 16 and, in warp
+// 0, 24 of each site (column (dx + 2) * 5 + dy + 2) and searches the
+// table's real rows.
+__global__ void __launch_bounds__(kThreads)
+subm_match_table5(const long long* __restrict__ keys,
+                  const int4* __restrict__ coords,
+                  const int* __restrict__ num_ptr, int v, int X, int Y,
+                  int Z, int* __restrict__ out,
+                  unsigned long long* __restrict__ masks) {
+  constexpr int kCols = 25, kWarps = kThreads / 32, kMax = 4;
+  __shared__ unsigned long long bits[2][kThreads];
+  const int b = blockIdx.y;
+  const size_t stride = (size_t)gridDim.y * v;
+  const int row0 = b * v, pad = (int)stride;
+  keys += row0;
+  coords += row0;
+  num_ptr += b;
+  out += row0;
+  masks += 2 * (size_t)row0;
+  const int s = threadIdx.x & 31, g = threadIdx.x >> 5;
+  const int i = blockIdx.x * kTableSites + s;
+  const int4 c = i < v ? coords[i] : make_int4(0, 0, 0, -1);
+  const int num = min(*num_ptr, v);
+  const bool valid = i < num;
+  const long long key = valid ? site_key(c, X, Z) : 0;
+  bool zok[5];
+#pragma unroll
+  for (int dz = 0; dz < 5; ++dz) zok[dz] = c.z + dz - 2 >= 0 && c.z + dz - 2 < Z;
+  long long t[kMax];
+  bool on[kMax];
+  int base[kMax];
+#pragma unroll
+  for (int m = 0; m < kMax; ++m) {
+    const int col = g + kWarps * m;
+    const int dx = col / 5 - 2, dy = col % 5 - 2;
+    on[m] = valid && col < kCols && column_in_grid(c, dx, dy, X, Y);
+    t[m] = key + ((long long)dx << 32) + (long long)dy * Z - 2;
+    base[m] = 0;
+  }
+  // branchless lower bounds over the table's num real rows, in lockstep
+  for (int len = num; len > 1;) {
+    const int half = len >> 1;
+#pragma unroll
+    for (int m = 0; m < kMax; ++m)
+      if (on[m] && keys[base[m] + half] < t[m]) base[m] += half;
+    len -= half;
+  }
+  unsigned long long word[2] = {0ull, 0ull};
+  if (i < v) {
+#pragma unroll
+    for (int m = 0; m < kMax; ++m) {
+      const int col = g + kWarps * m;
+      if (col >= kCols) continue;
+      int r[5] = {v, v, v, v, v};
+      if (on[m]) {
+        // key t + dz sits at p + j with j <= dz, since the keys rise
+        const int p = base[m] + (keys[base[m]] < t[m]);
+        long long k5[5];
+#pragma unroll
+        for (int j = 0; j < 5; ++j) k5[j] = p + j < num ? keys[p + j] : kPastEnd;
+#pragma unroll
+        for (int dz = 0; dz < 5; ++dz)
+#pragma unroll
+          for (int j = 0; j <= dz; ++j)
+            if (zok[dz] && k5[j] == t[m] + dz) r[dz] = p + j;
+      }
+#pragma unroll
+      for (int dz = 0; dz < 5; ++dz) {
+        const int k = 5 * col + dz;
+        out[k * stride + i] = r[dz] < v ? r[dz] + row0 : pad;
+        if (r[dz] < v) word[k >> 6] |= 1ull << (k & 63);
+      }
+    }
+  }
+  bits[0][threadIdx.x] = word[0];
+  bits[1][threadIdx.x] = word[1];
+  __syncthreads();
+  if (g == 0 && i < v) {
+    unsigned long long m0 = 0, m1 = 0;
+#pragma unroll
+    for (int h = 0; h < kWarps; ++h) {
+      m0 |= bits[0][h * kTableSites + s];
+      m1 |= bits[1][h * kTableSites + s];
+    }
+    masks[2 * (size_t)i] = m0;
+    masks[2 * (size_t)i + 1] = m1;
+  }
+}
+
 }  // namespace
+
+// nb stacked tables of v rows (grid axis y): the 5x5x5 book (125,
+// nb * v) and its two-word masks (nb * v, 2) in one launch.
+extern "C" int subm_match_5x5x5(const void* keys, const void* coords,
+                                const void* num, int nb, int v, int X, int Y,
+                                int Z, void* out, void* masks, void* stream) {
+  if (v < 1 || nb < 1 || nb > 65535 || 125LL * nb * v > 0x7FFFFFFFLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((v + kTableSites - 1) / kTableSites, nb);
+  subm_match_table5<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const long long*>(keys), static_cast<const int4*>(coords),
+      static_cast<const int*>(num), v, X, Y, Z, static_cast<int*>(out),
+      static_cast<unsigned long long*>(masks));
+  return static_cast<int>(cudaGetLastError());
+}
 
 // nb stacked tables of v rows (grid axis y). budget >= 1:
 // subm_match_windows with windows of budget rows (3 * budget * 8 bytes of

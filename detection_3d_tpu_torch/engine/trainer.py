@@ -71,7 +71,9 @@ _LOG = logging.getLogger(__name__)
 def pad_scene(cfg: Config, scene: Dict) -> Dict[str, np.ndarray]:
     """Host-side: pad a scene dict to the static capacities, warning when
     points or gt boxes exceed them (silent loss of input is never
-    acceptable). Runs in the span ``data.pad_scene``."""
+    acceptable). A scene with per-point ``point_labels`` (a segmentation
+    model's) gives them padded with -1. Runs in the span
+    ``data.pad_scene``."""
     with span("data.pad_scene"):
         n = cfg.caps.max_points
         pts = np.zeros((n, 3), np.float32)
@@ -100,8 +102,12 @@ def pad_scene(cfg: Config, scene: Dict) -> Dict[str, np.ndarray]:
                 "pad_scene: %d gt boxes exceed caps.max_gt=%d — dropping %d "
                 "targets (raise caps.max_gt)",
                 scene["gt_boxes"].shape[0], g, scene["gt_boxes"].shape[0] - g)
-        return {"points": pts, "feats": fts, "points_valid": pvalid,
-                "gt_boxes": gtb, "gt_labels": gtl, "gt_valid": gvalid}
+        out = {"points": pts, "feats": fts, "points_valid": pvalid,
+               "gt_boxes": gtb, "gt_labels": gtl, "gt_valid": gvalid}
+        if "point_labels" in scene:
+            out["point_labels"] = np.full((n,), -1, np.int32)
+            out["point_labels"][:m] = scene["point_labels"][:m]
+        return out
 
 
 def batch_to_device(batch: Dict[str, np.ndarray], dev):
@@ -162,7 +168,7 @@ def cycle_pad(order: list, k: int) -> list:
 class TrainState:
     """The model (its parameters), the solver (momentum and schedule
     clock) and the number of steps taken, applied or skipped."""
-    model: SparseRCNN
+    model: torch.nn.Module
     solver: Solver
     step: int = 0
 
@@ -197,7 +203,12 @@ def training_forward(cfg: Config, model, batch, device, generator=None,
     """The training forward of one building, a padded batch
     (``packed=False``) or a pack_pyramid(..., backward=True) dict
     (``packed="pyramid"``): (losses, the train-time detections with
-    ``cfg.eval_in_train`` else None, true_num), on the device."""
+    ``cfg.eval_in_train`` else None, true_num), on the device. A model
+    with a loss method of its own (``training_losses``, taking these
+    arguments; models/minkunet.MinkUNet34C) gives them through it."""
+    own = getattr(model, "training_losses", None)
+    if own is not None:
+        return own(cfg, batch, device, generator, priorities, packed)
     # imported here: both modules import this one (pad_scene)
     from detection_3d_tpu_torch.data.packing import to_device
     from detection_3d_tpu_torch.data.pyramid_packing import unpack_pyramid
@@ -268,9 +279,10 @@ class Trainer:
 
     def init_state(self, example_scene: Optional[Dict] = None,
                    seed: int = 0, iters_per_epoch: int = 1,
-                   model: Optional[SparseRCNN] = None) -> TrainState:
-        """A fresh state: ``model`` (moved to the device) or a
-        SparseRCNN drawn from ``seed``; the example scene is not needed
+                   model: Optional[torch.nn.Module] = None) -> TrainState:
+        """A fresh state: ``model`` (moved to the device; a SparseRCNN or
+        a model with its own ``training_losses``) or a SparseRCNN drawn
+        from ``seed``; the example scene is not needed
         (the port's modules know their shapes) and is accepted for the
         JAX trainer's signature."""
         model = (model if model is not None

@@ -182,11 +182,12 @@ def build_pyramid(table0: SparseTensor, cfg: Config,
 
 
 class SubmConv(nn.Module):
-    """3^3 submanifold conv, bias-free (BN supplies the shift)."""
+    """3^3 submanifold conv (``kernel_volume`` 125: 5^3), bias-free (BN
+    supplies the shift)."""
 
-    def __init__(self, cin: int, cout: int):
+    def __init__(self, cin: int, cout: int, kernel_volume: int = 27):
         super().__init__()
-        self.w = nn.Parameter(torch.empty(27, cin, cout))
+        self.w = nn.Parameter(torch.empty(kernel_volume, cin, cout))
 
     def reset_parameters(self, gen):
         he_normal_(self.w, gen)
@@ -210,12 +211,13 @@ class NiN(nn.Module):
 
 class BNLeakyReLU(nn.Module):
     """Masked batch-statistics BN + leaky ReLU of slope ``leakiness`` (0,
-    a plain ReLU, in every detector config); statistics summed over
-    ``group``'s ranks when one is given (JAX's ``sp_axis``)."""
+    a plain ReLU, in every detector config; 1, BN alone) at ``eps``;
+    statistics summed over ``group``'s ranks when one is given (JAX's
+    ``sp_axis``)."""
 
-    def __init__(self, c: int, leakiness: float = 0.0):
+    def __init__(self, c: int, leakiness: float = 0.0, eps: float = 1e-4):
         super().__init__()
-        self.leakiness = leakiness
+        self.leakiness, self.eps = leakiness, eps
         self.scale = nn.Parameter(torch.ones(c))
         self.bias = nn.Parameter(torch.zeros(c))
 
@@ -226,7 +228,8 @@ class BNLeakyReLU(nn.Module):
 
     def forward(self, feats, valid, group=None):
         return batch_norm_leaky_relu(feats, valid, self.scale, self.bias,
-                                     self.leakiness, process_group=group)
+                                     self.leakiness, self.eps,
+                                     process_group=group)
 
 
 class ResidualBlock(nn.Module):

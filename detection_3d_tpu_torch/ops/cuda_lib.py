@@ -73,12 +73,13 @@ _EXTRA_FLAGS = {"rotated_iou": ["--fmad=false"]}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ENTRY_POINTS = {
     "gather_conv": {name: [_P] * 6 + [_I] * 4 + [_P]
-                    for name in ("gather_conv_f32", "gather_conv_bf16",
-                                 "gather_conv_dfeats_f32",
-                                 "gather_conv_dfeats_bf16")},
+                    for role in ("gather_conv", "gather_conv_dfeats")
+                    for tag in ("f32", "bf16")
+                    for name in (f"{role}_{tag}", f"{role}_{tag}_w2")},
     "gather_conv_bwd": {"gather_conv_dw_f32": [_P] * 6 + [_I] * 5 + [_P],
                         "gather_conv_dw_bf16": [_P] * 6 + [_I] * 5 + [_P]},
-    "subm_match": {"subm_match_3x3x3": [_P] * 3 + [_I] * 6 + [_P] * 3},
+    "subm_match": {"subm_match_3x3x3": [_P] * 3 + [_I] * 6 + [_P] * 3,
+                   "subm_match_5x5x5": [_P] * 3 + [_I] * 5 + [_P] * 3},
     "rotated_iou": {"rotated_iou_matrix": [_P] * 2 + [_I] * 5 + [_P] * 2},
     "multi_match": {"multi_match": [_P] * 3 + [_I] * 3 + [_P]},
     "greedy_nms": {"greedy_nms": [_P] * 2 + [_F] + [_I] * 3 + [_P] * 4,

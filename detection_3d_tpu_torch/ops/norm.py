@@ -61,7 +61,8 @@ def batch_norm_leaky_relu(feats, valid, scale, bias, leakiness: float = 0.0,
     var = torch.maximum(var, torch.zeros_like(var))
     inv = torch.reciprocal(torch.sqrt(var + eps))
     out = (f32 - mean[..., None, :]) * (inv * scale)[..., None, :] + bias
-    out = torch.where(out > 0, out, out * leakiness)
+    if leakiness != 1.0:    # slope 1: BN alone
+        out = torch.where(out > 0, out, out * leakiness)
     out = torch.where(valid[..., None], out, 0.0)
     return out.to(feats.dtype)
 

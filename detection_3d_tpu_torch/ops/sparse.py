@@ -42,7 +42,11 @@ from which the pyramid takes the book's row order.
 kernel B for a table on the card and takes the plain
 :func:`neighbor_match_columns` (the same algorithm) for a table on the
 CPU; :func:`neighbor_indices` (one search per offset) stays the
-reference.
+reference. B's 5x5x5 form (:func:`neighbor_match` at radius 2, a
+segmentation network's 5^3 stem) searches the 25 columns of a 5 x 5
+window the same way, each for its five dz neighbours among five
+consecutive rows, and writes the 125-offset book and its two-word row
+masks in one launch.
 """
 
 from __future__ import annotations
@@ -282,21 +286,23 @@ def neighbor_indices(table: SparseTensor, offsets):
     return out
 
 
-def neighbor_match_columns(table: SparseTensor):
-    """Kernel B's algorithm in plain PyTorch: ((27, V) int32 rulebook,
-    (V,) int64 row masks), the book equal bit for bit to
-    :func:`neighbor_indices` over the 3x3x3 offsets and bit k of mask i set
-    where ``idx[k, i] < V`` (ops/sparse_conv.row_masks of the book). A
-    unit's book is flat, (27, B * V) with the pad B * V, and its masks
-    (B * V,): each building searched in its own table.
+def neighbor_match_columns(table: SparseTensor, radius: int = 1):
+    """Kernel B's algorithm in plain PyTorch: (rulebook, row masks) of the
+    (2r+1)^3 submanifold offsets, r = ``radius`` (1 or 2), the book equal
+    bit for bit to :func:`neighbor_indices` over
+    ``submanifold_offsets((2r+1,) * 3)`` and bit k of mask i set where
+    ``idx[k, i] < V`` (ops/sparse_conv.row_masks of the book: (V,) int64
+    for 27 offsets, (V, 2) for 125). A unit's book is flat, ((2r+1)^3, B
+    * V) with the pad B * V, and its masks (B * V, ...): each building
+    searched in its own table.
 
-    Per column (dx, dy) != (0, 0), one lower-bound search for the key t
-    of (x+dx, y+dy, z-1) gives row p; the neighbour at dz is the row among
-    p, p+1, p+2 whose key is t + 1 + dz. The centre column is the site
+    Per column (dx, dy), one lower-bound search for the key t of (x+dx,
+    y+dy, z-r) gives row p; the neighbour at dz is the row among p ..
+    p+2r whose key is t + r + dz. For r = 1 the centre column is the site
     (dz = 0) and the rows before and after it where their keys are the
-    site's key -1 / +1. Out-of-grid columns, and dz = -1 / +1 at z = 0 /
-    Z-1, are masked from the coords: a shifted key there is another
-    voxel's key."""
+    site's key -1 / +1; for r = 2 it is searched like the others.
+    Out-of-grid columns, and dz with z + dz outside [0, Z), are masked
+    from the coords: a shifted key there is another voxel's key."""
     t = table.stacked()
     nb, v = t.units, t.capacity
     X, Y, Z = t.spatial_size
@@ -306,15 +312,18 @@ def neighbor_match_columns(table: SparseTensor):
     rv = t.row_valid & (b >= 0)
     key = ((b * X + x) << 32) | (y * Z + z)
     rows = torch.arange(v, device=dev)
-    z_ok = (z >= 1, torch.ones_like(rv), z + 1 < Z)
-    out = torch.full((27, nb, v), v, dtype=torch.int64, device=dev)
-    masks = torch.zeros((nb, v), dtype=torch.int64, device=dev)
-    for dx in (-1, 0, 1):
-        for dy in (-1, 0, 1):
-            k0 = 9 * (dx + 1) + 3 * (dy + 1)
+    side = 2 * radius + 1
+    n_off = side ** 3
+    z_ok = [(z + dz >= 0) & (z + dz < Z) for dz in range(-radius, radius + 1)]
+    out = torch.full((n_off, nb, v), v, dtype=torch.int64, device=dev)
+    words = 1 if n_off <= 64 else 2
+    masks = torch.zeros((words, nb, v), dtype=torch.int64, device=dev)
+    for dx in range(-radius, radius + 1):
+        for dy in range(-radius, radius + 1):
+            k0 = side * side * (dx + radius) + side * (dy + radius)
             col_ok = (rv & (x + dx >= 0) & (x + dx < X) & (y + dy >= 0)
                       & (y + dy < Y))
-            if dx == 0 and dy == 0:
+            if dx == 0 and dy == 0 and radius == 1:
                 near = (torch.cat([keys[:, :1] - 2, keys[:, :-1]], 1)
                         == key - 1,
                         torch.ones_like(rv),
@@ -323,23 +332,26 @@ def neighbor_match_columns(table: SparseTensor):
                 cand = (rows - 1, rows, rows + 1)
                 pos = [torch.where(near[dz], cand[dz], v) for dz in range(3)]
             else:
-                q = key + (dx << 32) + dy * Z - 1
+                q = key + (dx << 32) + dy * Z - radius
                 p = torch.searchsorted(keys, q)
-                pos = [torch.full_like(p, v) for _ in range(3)]
-                for j in range(3):
+                pos = [torch.full_like(p, v) for _ in range(side)]
+                for j in range(side):
                     inside = p + j < v
                     kj = keys.gather(1, (p + j).clamp(max=v - 1))
-                    for dz in range(j, 3):    # keys rise: q + dz at <= p + dz
+                    for dz in range(j, side):  # keys rise: q + dz at <= p + dz
                         pos[dz] = torch.where(inside & (kj == q + dz), p + j,
                                               pos[dz])
-            for dz in range(3):
+            for dz in range(side):
+                k = k0 + dz
                 idx = torch.where(col_ok & z_ok[dz], pos[dz], v)
-                out[k0 + dz] = idx
-                masks |= (idx < v).to(torch.int64) << (k0 + dz)
+                out[k] = idx
+                masks[k // 64] |= (idx < v).to(torch.int64) << (k % 64)
     # building b's rows are flat rows b * V ..; the pad is B * V
     base = torch.arange(nb, device=dev)[:, None] * v
     book = torch.where(out < v, out + base, nb * v)
-    return book.to(torch.int32).reshape(27, nb * v), masks.reshape(-1)
+    masks = masks.reshape(words, nb * v)
+    return (book.to(torch.int32).reshape(n_off, nb * v),
+            masks[0] if words == 1 else masks.T.contiguous())
 
 
 # kernel B's windows: rows of each of a block's three shared-memory
@@ -349,51 +361,70 @@ SUBM_WINDOW = 1024
 SUBM_WINDOW_MIN_ROWS = 65536
 
 
-def subm_match_cuda(table: SparseTensor, window: int = None):
-    """Kernel B on the card: the contract of :func:`neighbor_match_columns`,
-    a unit's B tables in one launch (block (tile, b) searches table b and
-    writes global rows). ``window`` >= 1 is the rows of each of a block's
-    three shared-memory windows (3 * 8 * window bytes; a longer window is
-    searched in global memory between its ends, with the same answers); 0
-    searches the whole table, 8 threads a site. None: SUBM_WINDOW from
-    SUBM_WINDOW_MIN_ROWS rows, else 0."""
+def subm_match_cuda(table: SparseTensor, window: int = None,
+                    radius: int = 1):
+    """Kernel B on the card: the contract of :func:`neighbor_match_columns`
+    at ``radius`` 1 (27 offsets, entry ``subm_match_3x3x3``) or 2 (125,
+    ``subm_match_5x5x5``), a unit's B tables in one launch (block (tile,
+    b) searches table b and writes global rows). For radius 1,
+    ``window`` >= 1 is the rows of each of a block's three shared-memory
+    windows (3 * 8 * window bytes; a longer window is searched in global
+    memory between its ends, with the same answers); 0 searches the
+    whole table, 8 threads a site. None: SUBM_WINDOW from
+    SUBM_WINDOW_MIN_ROWS rows, else 0. Radius 2 takes no window."""
     t = table.stacked()
     nb, v = t.units, t.capacity
     if window is None:
-        window = SUBM_WINDOW if v >= SUBM_WINDOW_MIN_ROWS else 0
+        window = SUBM_WINDOW if v >= SUBM_WINDOW_MIN_ROWS and radius == 1 \
+            else 0
+    n_off = (2 * radius + 1) ** 3
     X, Y, Z = t.spatial_size
     coords, keys, num = t.coords, t.keys, t.num
-    if not (coords.dtype == torch.int32 and coords.shape == (nb, v, 4)
+    if not (radius in (1, 2) and (radius == 1 or window == 0)
+            and coords.dtype == torch.int32 and coords.shape == (nb, v, 4)
             and keys.dtype == torch.int64 and keys.shape == (nb, v)
             and num.dtype == torch.int32 and num.shape == (nb,)
             and coords.is_contiguous() and keys.is_contiguous()
             and num.is_contiguous() and keys.device == coords.device
             and num.device == coords.device and coords.is_cuda
             and 0 <= window and 3 * 8 * window <= cuda_lib.SHARED_BYTES
-            and nb <= 65535 and 27 * nb * v < 2 ** 31):
-        raise ValueError("subm_match_cuda: expected contiguous int32 coords "
-                         "(B, V, 4), int64 keys (B, V) and int32 num (B,) "
-                         "on one card, at most 65535 tables, a book under "
-                         "2^31 entries, and three windows that fit shared "
-                         "memory")
-    out = torch.empty((27, nb * v), dtype=torch.int32, device=coords.device)
-    masks = torch.empty((nb * v,), dtype=torch.int64, device=coords.device)
-    status = cuda_lib.library("subm_match").subm_match_3x3x3(
-        keys.data_ptr(), coords.data_ptr(), num.data_ptr(), nb, v, X, Y, Z,
-        window, out.data_ptr(), masks.data_ptr(),
-        cuda_lib.stream_ptr(coords.device))
+            and nb <= 65535 and n_off * nb * v < 2 ** 31):
+        raise ValueError("subm_match_cuda: expected radius 1 or 2 (a window "
+                         "at radius 1 only), contiguous int32 coords (B, V, "
+                         "4), int64 keys (B, V) and int32 num (B,) on one "
+                         "card, at most 65535 tables, a book under 2^31 "
+                         "entries, and three windows that fit shared memory")
+    dev = coords.device
+    out = torch.empty((n_off, nb * v), dtype=torch.int32, device=dev)
+    masks = torch.empty((nb * v,) if radius == 1 else (nb * v, 2),
+                        dtype=torch.int64, device=dev)
+    lib = cuda_lib.library("subm_match")
+    head = (keys.data_ptr(), coords.data_ptr(), num.data_ptr(), nb, v, X, Y,
+            Z)
+    tail = (out.data_ptr(), masks.data_ptr(), cuda_lib.stream_ptr(dev))
+    if radius == 1:
+        status = lib.subm_match_3x3x3(*head, window, *tail)
+    else:
+        status = lib.subm_match_5x5x5(*head, *tail)
     cuda_lib.check("subm_match", status)
     cuda_lib.launches["subm_match"] += 1
     return out, masks
 
 
-def neighbor_match_3x3x3(table: SparseTensor):
-    """((27, V) submanifold rulebook, its (V,) int64 row masks; a unit's
-    flat (27, B * V) and (B * V,)): kernel B on the card, the plain
+def neighbor_match(table: SparseTensor, radius: int = 1):
+    """(((2r+1)^3, V) submanifold rulebook, its row masks: (V,) int64 for
+    radius 1, (V, 2) for radius 2; a unit's flat ((2r+1)^3, B * V) and (B
+    * V, ...)): kernel B on the card, the plain
     :func:`neighbor_match_columns` on the CPU. Equal bit for bit."""
     if table.coords.is_cuda:
-        return subm_match_cuda(table)
-    return neighbor_match_columns(table)
+        return subm_match_cuda(table, radius=radius)
+    return neighbor_match_columns(table, radius)
+
+
+def neighbor_match_3x3x3(table: SparseTensor):
+    """:func:`neighbor_match` at radius 1: the 27-offset book and (V,)
+    masks that every 3x3x3 submanifold conv reads."""
+    return neighbor_match(table)
 
 
 def _downsample_candidates(table: SparseTensor, kernel, stride):

@@ -17,7 +17,9 @@ Kernel A takes every rulebook with a :class:`RowOrder`
 (:func:`rulebook_row_order`, built once per pyramid): its output rows
 sorted by the mask of offsets at which they have a real entry. It runs
 each tile of rows over the offsets its rows use, not over all K. The
-result does not depend on the order.
+result does not depend on the order. A mask is one int64 word for a
+book of at most 64 offsets and two words for one of 65 to 128 (the 5^3
+stem of models/minkunet.py); the kernel is compiled once for each width.
 
 :func:`sparse_conv` launches the hand-written CUDA kernel
 (csrc/gather_conv.cu) for tensors on the card and takes the plain
@@ -41,14 +43,17 @@ import torch.nn.functional as F
 from detection_3d_tpu_torch.ops import cuda_lib
 from detection_3d_tpu_torch.ops.multi_match import deconv_rulebook_match
 
-MAX_OFFSETS = 64     # one bit per offset in an int64 row mask
+MAX_OFFSETS = 128    # one bit per offset in one or two int64 words a row
+WORD_OFFSETS = 64    # offsets a mask word holds
 
 
 class RowOrder(NamedTuple):
     """A rulebook's output rows grouped by offset mask: ``perm`` (V_out,)
     int32 is a permutation of the rows (stable sort by mask), ``masks``
-    (V_out,) int64 holds at position p the mask of row ``perm[p]``: bit k
-    set when that row is valid and has a real entry at offset k."""
+    holds at position p the mask of row ``perm[p]``: bit k set when that
+    row is valid and has a real entry at offset k. For K <= 64 the masks
+    are (V_out,) int64; for 64 < K <= 128 they are (V_out, 2) int64, bit
+    k in word k // 64 at bit k % 64."""
     perm: torch.Tensor
     masks: torch.Tensor
 
@@ -66,7 +71,9 @@ class BackwardBook(NamedTuple):
     :class:`RowOrder` of ``t_idx`` (every row wanted). ``entries`` (nnz,
     2) int32 holds the real entries as (input row, output row) pairs,
     offset by offset, and ``starts`` (K + 1,) int32 where each offset's
-    entries begin."""
+    entries begin. The book of a conv whose input wants no gradient (a
+    network's first conv) needs dW alone: :func:`weights_book` gives it
+    with ``t_idx`` and ``t_order`` None."""
     t_idx: torch.Tensor
     t_order: RowOrder
     entries: torch.Tensor
@@ -79,26 +86,43 @@ def _real_entries(neighbor_idx, v_in: int, out_valid):
             & out_valid[None, :])
 
 
+def _word_masks(real, dtype):
+    """(V_out,) int64: bit k of row i set where ``real[k, i]``; at most
+    64 offsets."""
+    k = real.shape[0]
+    bit = torch.ones((), dtype=torch.int64, device=real.device)
+    weights = torch.bitwise_left_shift(
+        bit, torch.arange(k, device=real.device)).to(dtype)
+    return (real.to(dtype) * weights[:, None]).sum(0, dtype=torch.int64)
+
+
 def row_masks(neighbor_idx, v_in: int, out_valid):
-    """(V_out,) int64: bit k of row i set when ``out_valid[i]`` and
-    ``neighbor_idx[k, i]`` is a real row (0 <= idx < v_in). K <= 64."""
+    """The row masks of a (K, V_out) book: bit k of row i set when
+    ``out_valid[i]`` and ``neighbor_idx[k, i]`` is a real row (0 <= idx <
+    v_in); (V_out,) int64 for K <= 64, (V_out, 2) int64 for K <= 128
+    (see :class:`RowOrder`)."""
     k = neighbor_idx.shape[0]
     if k > MAX_OFFSETS:
         raise ValueError(f"row masks take at most {MAX_OFFSETS} offsets, "
                          f"got {k}")
-    dtype = torch.int32 if k <= 31 else torch.int64
-    real = _real_entries(neighbor_idx, v_in, out_valid).to(dtype)
-    bit = torch.ones((), dtype=torch.int64, device=neighbor_idx.device)
-    weights = torch.bitwise_left_shift(
-        bit, torch.arange(k, device=neighbor_idx.device)).to(dtype)
-    return (real * weights[:, None]).sum(0, dtype=torch.int64)
+    real = _real_entries(neighbor_idx, v_in, out_valid)
+    if k <= WORD_OFFSETS:
+        return _word_masks(real, torch.int32 if k <= 31 else torch.int64)
+    return torch.stack([_word_masks(real[:WORD_OFFSETS], torch.int64),
+                        _word_masks(real[WORD_OFFSETS:], torch.int64)], 1)
 
 
 def masks_row_order(masks) -> RowOrder:
     """The :class:`RowOrder` of a book whose row masks are known (kernel B
-    writes them beside the submanifold book): one stable sort."""
-    masks, perm = torch.sort(masks, stable=True)
-    return RowOrder(perm.to(torch.int32), masks)
+    writes them beside the submanifold book): one stable sort, or for
+    two-word masks a stable sort on the low word and then on the high
+    one."""
+    if masks.dim() == 1:
+        masks, perm = torch.sort(masks, stable=True)
+        return RowOrder(perm.to(torch.int32), masks)
+    perm = torch.sort(masks[:, 0], stable=True)[1]
+    perm = perm[torch.sort(masks[perm, 1], stable=True)[1]]
+    return RowOrder(perm.to(torch.int32), masks[perm])
 
 
 def rulebook_row_order(neighbor_idx, v_in: int, out_valid) -> RowOrder:
@@ -147,6 +171,13 @@ def backward_book(neighbor_idx, v_in: int, out_valid) -> BackwardBook:
     """The :class:`BackwardBook` of a rulebook, by the scatter and
     :func:`rulebook_entries`."""
     return BackwardBook(*transpose_rulebook(neighbor_idx, v_in, out_valid),
+                        *rulebook_entries(neighbor_idx, v_in, out_valid))
+
+
+def weights_book(neighbor_idx, v_in: int, out_valid) -> BackwardBook:
+    """The :class:`BackwardBook` of a conv whose input wants no gradient:
+    the entry lists dW reads, no transposed book and no row order."""
+    return BackwardBook(None, None,
                         *rulebook_entries(neighbor_idx, v_in, out_valid))
 
 
@@ -262,10 +293,12 @@ def _check_conv_args(name, feats, neighbor_idx, weights, order):
     if n_off > MAX_OFFSETS:
         raise ValueError(f"{name}: at most {MAX_OFFSETS} offsets, got "
                          f"{n_off}")
+    words = () if n_off <= WORD_OFFSETS else (2,)
     if (perm.dtype != torch.int32 or masks.dtype != torch.int64
-            or perm.shape != (v_out,) or masks.shape != (v_out,)):
-        raise ValueError(f"{name}: order must be int32 perm and int64 masks "
-                         "of shape (V_out,)")
+            or perm.shape != (v_out,) or masks.shape != (v_out,) + words):
+        raise ValueError(f"{name}: order must be int32 perm (V_out,) and "
+                         f"int64 masks (V_out,{' 2' if words else ''}) for "
+                         f"{n_off} offsets")
     for t in (neighbor_idx, weights, perm, masks):
         if t.device != feats.device:
             raise ValueError(f"{name}: inputs on different devices")
@@ -303,8 +336,9 @@ def _kernel_a(role, feats, neighbor_idx, weights, order: RowOrder):
     out = torch.empty((v_out, cout_k), dtype=feats.dtype, device=dev)
     if v_out == 0 or cout == 0:
         return out[:, :cout]
+    words = "_w2" if masks.dim() == 2 else ""
     fn = getattr(cuda_lib.library("gather_conv"),
-                 f"{role}_{_DTYPE_TAG[feats.dtype]}")
+                 f"{role}_{_DTYPE_TAG[feats.dtype]}{words}")
     status = fn(feats.data_ptr(), neighbor_idx.data_ptr(),
                 weights.data_ptr(), perm.data_ptr(), masks.data_ptr(),
                 out.data_ptr(), v_in, v_out, cin, cout_k,
@@ -437,6 +471,10 @@ class GatherConv(torch.autograd.Function):
             book = backward_book(idx, feats.shape[0], valid)
         d_feats = d_w = None
         if need_feats:
+            if book.t_idx is None:
+                raise ValueError("GatherConv: the input wants a gradient "
+                                 "but its book has no transpose (a "
+                                 "weights_book)")
             d_feats = (gather_conv_dfeats_cuda if g.is_cuda
                        else gather_conv_dfeats)(g, weights, book)
         if need_w:

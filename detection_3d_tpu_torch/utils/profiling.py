@@ -85,7 +85,13 @@ class SpanRecord(NamedTuple):
       buildings     the buildings it served, where the caller says;
       syncs         host syncs counted to it: made on its thread while
                     it was the innermost span open there;
-      syncs_within  its syncs and those of every span inside it.
+      syncs_within  its syncs and those of every span inside it;
+      attributes    what the code inside set on the open span
+                    (``with span(...) as sp: sp.attributes = {...}``; a
+                    null span is None, so set them only when ``sp`` is
+                    not), each tensor turned into a list or a number
+                    when :func:`recorded_spans` reads the log, so setting
+                    one costs no host sync; None when nothing was set.
     """
     name: str
     thread: int
@@ -96,6 +102,7 @@ class SpanRecord(NamedTuple):
     buildings: Optional[int]
     syncs: int
     syncs_within: int
+    attributes: Optional[Dict] = None
 
     @property
     def seconds(self) -> float:
@@ -171,10 +178,11 @@ class _Span:
     """A span while a profiler runs (:func:`span`)."""
 
     __slots__ = ("name", "buildings", "id", "parent", "syncs",
-                 "syncs_within", "start_ns", "_range")
+                 "syncs_within", "start_ns", "_range", "attributes")
 
     def __init__(self, name: str, buildings: Optional[int]):
         self.name, self.buildings = name, buildings
+        self.attributes = None
 
     def __enter__(self):
         if not _counter.on:
@@ -201,7 +209,7 @@ class _Span:
             _log.append(SpanRecord(
                 self.name, threading.get_ident(), self.start_ns, end_ns,
                 self.id, self.parent, self.buildings, self.syncs,
-                self.syncs_within))
+                self.syncs_within, self.attributes))
         return False
 
 
@@ -225,8 +233,22 @@ def recorded_spans() -> List[SpanRecord]:
         _counter.stop()
     out = []
     while _log:
-        out.append(_log.popleft())
+        r = _log.popleft()
+        if r.attributes:
+            r = r._replace(attributes={k: _host(v) for k, v in
+                                       r.attributes.items()})
+        out.append(r)
     return sorted(out, key=lambda r: r.start_ns)
+
+
+def _host(value):
+    """A span attribute on the host: a tensor as a number or a list, a
+    list or tuple item by item."""
+    if torch.is_tensor(value):
+        return value.tolist()
+    if isinstance(value, (list, tuple)):
+        return [_host(v) for v in value]
+    return value
 
 
 def device_memory_stats(device="cuda") -> Dict[str, Dict]:

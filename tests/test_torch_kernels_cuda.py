@@ -14,6 +14,11 @@ dW kernel) within 1e-4 of the
 largest output in f32 (sum order) and 1e-2 in bf16 (one bf16 rounding
 of the f32 sum). The backward gives the same bits on every call.
 
+B's 5x5x5 form (the 125-offset book and its two-word masks) is bit
+exact against neighbor_indices and its plain column twin, for one table
+and a unit of four; A on that book (two-word masks) within the same
+tolerances as A, and dW on the stem's entries-only book (weights_book).
+
 A unit of B buildings (ops/sparse.py): A on its flat book bit equal in
 f32 to each building's own call (one bf16 step of the largest output in
 bf16), B over its stacked tables bit equal to each table's own launch,
@@ -40,14 +45,14 @@ from detection_3d_tpu_torch.ops.rotated_iou import (
 from detection_3d_tpu_torch.models.backbone import bev_with_rulebook
 from detection_3d_tpu_torch.ops.sparse import (
     SUBM_WINDOW, build_sparse_tensor, downsample_with_rulebooks,
-    neighbor_indices, neighbor_match_3x3x3, neighbor_match_columns,
-    submanifold_offsets, subm_match_cuda,
+    neighbor_indices, neighbor_match, neighbor_match_3x3x3,
+    neighbor_match_columns, submanifold_offsets, subm_match_cuda,
 )
 from detection_3d_tpu_torch.ops.sparse_conv import (
     BackwardBook, RowOrder, backward_book, gather_conv, gather_conv_backward,
     gather_conv_cuda, gather_conv_dfeats, gather_conv_dfeats_cuda,
     gather_conv_dw, gather_conv_dw_cuda, masks_row_order, row_masks,
-    rulebook_entries, rulebook_row_order, sparse_conv,
+    rulebook_entries, rulebook_row_order, sparse_conv, weights_book,
 )
 from torch_iou_cases import adversarial_bev
 from torch_match_cases import D_TABLES, MATCH_CASES, d_queries
@@ -1156,3 +1161,138 @@ def test_batch_predict_on_card_matches_per_building(dev, pack_mode):
             np.testing.assert_array_equal(got[:, 8], want[:, 8])
             np.testing.assert_allclose(got[:, :8], want[:, :8], atol=1e-4,
                                        rtol=0)
+
+
+# -- B's 5x5x5 form and A over more than 64 offsets ------------------------
+
+@pytest.mark.parametrize("case", sorted(MATCH_CASES))
+def test_subm_match_5x5x5_bit_exact(dev, case):
+    """B's 5x5x5 form: the 125-offset book and its (V, 2) masks bit equal
+    to neighbor_indices over the 5x5x5 offsets, to row_masks and to the
+    plain column twin; one launch a call, the same bits twice."""
+    t = _case_table(dev, case)
+    before = cuda_lib.launches["subm_match"]
+    got, masks = neighbor_match(t, radius=2)
+    again, masks_again = neighbor_match(t, radius=2)
+    torch.cuda.synchronize()
+    assert cuda_lib.launches["subm_match"] == before + 2
+    want = neighbor_indices(t, submanifold_offsets((5, 5, 5)))
+    assert got.shape == (125, t.capacity) and masks.shape == (t.capacity, 2)
+    assert torch.equal(got, want)
+    assert torch.equal(masks, row_masks(want, t.capacity, t.row_valid))
+    plain, plain_masks = neighbor_match_columns(t, radius=2)
+    assert torch.equal(got, plain) and torch.equal(masks, plain_masks)
+    assert torch.equal(again, got) and torch.equal(masks_again, masks)
+
+
+def test_subm_match_5x5x5_unit_bit_exact(dev):
+    """B's 5x5x5 form over a unit of four stacked tables in one launch:
+    bit equal to each table's own launch (entries made global) and to the
+    plain twin."""
+    unit = _unit(dev, (1200, 4096, 9, 2500), 4096, spatial=(24, 24, 16))
+    nb, v = unit.units, unit.capacity
+    before = cuda_lib.launches["subm_match"]
+    got, masks = neighbor_match(unit, radius=2)
+    assert cuda_lib.launches["subm_match"] == before + 1
+    assert got.shape == (125, nb * v) and masks.shape == (nb * v, 2)
+    for b in range(nb):
+        one, m = neighbor_match(unit.building(b), radius=2)
+        glob = torch.where(one < v, one + b * v, nb * v)
+        assert torch.equal(got[:, b * v:(b + 1) * v], glob)
+        assert torch.equal(masks[b * v:(b + 1) * v], m)
+    plain, plain_masks = neighbor_match_columns(unit, radius=2)
+    assert torch.equal(got, plain) and torch.equal(masks, plain_masks)
+
+
+class _Entries:
+    """A stand-in for kernel A's library that records the C entries
+    looked up on it."""
+
+    def __init__(self, lib):
+        self.lib, self.names = lib, []
+
+    def __getattr__(self, name):
+        self.names.append(name)
+        return getattr(self.lib, name)
+
+
+def _entries_used(monkeypatch, fn):
+    lib = _Entries(cuda_lib.library("gather_conv"))
+    real = cuda_lib.library
+    monkeypatch.setattr(cuda_lib, "library",
+                        lambda name: lib if name == "gather_conv"
+                        else real(name))
+    out = fn()
+    torch.cuda.synchronize()
+    return out, lib.names
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cin,cout", [(3, 32), (32, 64)])
+def test_gather_conv_125_offsets_matches_plain(dev, monkeypatch, dtype, cin,
+                                               cout):
+    """Kernel A over the 5^3 book with its two-word row order: within A's
+    tolerance of the plain gather_conv, one launch through the two-word
+    entry, and the same bits twice."""
+    t = _table(dev, 6000, 8192, 4, spatial=(24, 24, 16))
+    idx, masks = neighbor_match(t, radius=2)
+    order = masks_row_order(masks)
+    gen = torch.Generator(device=dev).manual_seed(cin)
+    feats = (torch.randn((t.capacity, cin), generator=gen, device=dev)
+             * t.row_valid[:, None]).to(dtype)
+    w = (torch.randn((125, cin, cout), generator=gen, device=dev)
+         * 0.1).to(dtype)
+    before = cuda_lib.launches["gather_conv"]
+    got, names = _entries_used(monkeypatch, lambda: gather_conv_cuda(
+        feats, idx, w, t.row_valid, order))
+    assert cuda_lib.launches["gather_conv"] == before + 1
+    tag = "f32" if dtype == torch.float32 else "bf16"
+    assert names == [f"gather_conv_{tag}_w2"]
+    _close(got, gather_conv(feats, idx, w, t.row_valid), dtype)
+    assert bool((got[~t.row_valid] == 0).all())
+    assert torch.equal(_bits(gather_conv_cuda(feats, idx, w, t.row_valid,
+                                              order)), _bits(got))
+
+
+@pytest.mark.parametrize("kind", ["subm", "down", "up"])
+def test_gather_conv_up_to_64_offsets_keeps_one_word(dev, monkeypatch, kind):
+    """A book of at most 64 offsets keeps one-word masks and the one-word
+    entry, with the plain result."""
+    idx, v_in, valid = _book(dev, kind)
+    order = rulebook_row_order(idx, v_in, valid)
+    assert order.masks.shape == (idx.shape[1],)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    feats = torch.randn((v_in, 32), generator=gen,
+                        device=dev).to(torch.bfloat16)
+    w = (torch.randn((idx.shape[0], 32, 32), generator=gen, device=dev)
+         * 0.2).to(torch.bfloat16)
+    got, names = _entries_used(monkeypatch, lambda: gather_conv_cuda(
+        feats, idx, w, valid, order))
+    assert names == ["gather_conv_bf16"]
+    _close(got, gather_conv(feats, idx, w, valid), torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stem_weights_book_dw(dev, dtype):
+    """The stem's backward: its input wants no gradient, so GatherConv
+    over its entries-only book (weights_book) launches dW alone, within
+    dW's tolerance of gather_conv_backward's."""
+    t = _table(dev, 6000, 8192, 6, spatial=(24, 24, 16))
+    idx, masks = neighbor_match(t, radius=2)
+    book = weights_book(idx, t.capacity, t.row_valid)
+    assert book.t_idx is None and book.t_order is None
+    gen = torch.Generator(device=dev).manual_seed(9)
+    feats = torch.randn((t.capacity, 3), generator=gen, device=dev).to(dtype)
+    w = (torch.randn((125, 3, 32), generator=gen, device=dev)
+         * 0.1).to(dtype).requires_grad_()
+    g = torch.randn((t.capacity, 32), generator=gen, device=dev).to(dtype)
+    before = dict(cuda_lib.launches)
+    out = sparse_conv(feats, idx, w, t.row_valid, masks_row_order(masks),
+                      book)
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert cuda_lib.launches["gather_conv_dw"] == before["gather_conv_dw"] + 1
+    assert cuda_lib.launches["gather_conv_dfeats"] == \
+        before["gather_conv_dfeats"]
+    want = gather_conv_backward(feats, idx, w.detach(), t.row_valid, g)[1]
+    _close(w.grad, want, dtype)

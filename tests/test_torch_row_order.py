@@ -82,7 +82,9 @@ def test_row_order_is_a_stable_permutation_by_mask(pyramid, kind):
 
 
 def test_row_masks_take_at_most_64_offsets():
-    idx = torch.zeros((65, 4), dtype=torch.int32)
+    """One int64 word a row takes at most 64 offsets; 65 to 128 take two
+    words (the 5^3 stem's 125), and more raise."""
+    idx = torch.zeros((129, 4), dtype=torch.int32)
     with pytest.raises(ValueError):
         row_masks(idx, 4, torch.ones(4, dtype=torch.bool))
     # 64 offsets use the sign bit and still come back bit for bit
@@ -90,6 +92,10 @@ def test_row_masks_take_at_most_64_offsets():
     idx[:, 1] = 3
     masks = row_masks(idx, 3, torch.tensor([True, True, False]))
     assert masks.tolist() == [-1, 0, 0]
+    idx = torch.zeros((65, 3), dtype=torch.int32)
+    idx[:, 1] = 3
+    masks = row_masks(idx, 3, torch.tensor([True, True, False]))
+    assert masks.tolist() == [[-1, 1], [0, 0], [0, 0]]
 
 
 def _inputs(v_in, k, cin, cout, seed):
