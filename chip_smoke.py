@@ -14,6 +14,8 @@
     python3 chip_smoke.py --parallel     # only the multi-device phase (7b)
     python3 chip_smoke.py --batched      # only the batched-serving phase
     python3 chip_smoke.py --minkunet     # only MinkUNet34C's phase (4d)
+    python3 chip_smoke.py --bn           # only the masked BN kernels at
+                                         # the main paths' sites
 
 1. Prints the card's name and power limit (nvidia-smi).
 2. Builds the port's six CUDA sources from detection_3d_tpu_torch/csrc
@@ -3247,10 +3249,15 @@ def par_dpsp_rank(cfg, batches, shard_caps, halo_caps, tcfg, tbatches,
 
 # the kernels each rank must launch: serving a shard, training a shard,
 # a data-parallel step (its pyramid takes no book from D)
-PAR_KERNELS = ("gather_conv", "subm_match", "rotated_iou", "multi_match")
-PAR_TRAIN_KERNELS = PAR_KERNELS + ("gather_conv_dfeats", "gather_conv_dw")
+# the masked BN's launch counters: two forward, two backward
+BN_KERNELS = ("masked_bn_stats", "masked_bn_normalise", "masked_bn_dsums",
+              "masked_bn_dx")
+PAR_KERNELS = ("gather_conv", "subm_match", "rotated_iou", "multi_match"
+               ) + BN_KERNELS[:2]
+PAR_TRAIN_KERNELS = PAR_KERNELS + ("gather_conv_dfeats", "gather_conv_dw"
+                                   ) + BN_KERNELS[2:]
 DP_KERNELS = ("gather_conv", "gather_conv_dfeats", "gather_conv_dw",
-              "subm_match", "rotated_iou")
+              "subm_match", "rotated_iou") + BN_KERNELS
 
 
 def parallel_path(cfg, scenes, dev="cuda"):
@@ -4740,6 +4747,27 @@ def main():
     tiny_predict_card_vs_cpu(tcfg, scene)
     tiny_train_card_vs_cpu(tcfg, scene)
 
+    # ---- the masked BN: its sites, and its launches on every path ------
+    t0 = time.perf_counter()
+    rep_bn = bn_report([bn_site(*site, dev) for site in BN_SITES])
+    torch.cuda.empty_cache()
+    print(f"masked BN phase: {time.perf_counter() - t0:.1f} s")
+    # every path that runs a model (eval counts the evaluator's calls
+    # alone); a path that trains launches the backward's two as well
+    bn_paths = {"serve": serve, "train": train, "seg_train": seg_train,
+                "dataprep": dataprep,
+                **{path: g3[path] for path in ("serve_3g6c", "train_3g6c",
+                                               "rpn_only")},
+                **packed_launches, **input_launches, **batched,
+                **par_launches}
+    print("masked BN launches by path: " + json.dumps(
+        {path: [counts[k] for k in BN_KERNELS]
+         for path, counts in bn_paths.items()}))
+    missing = [f"{k} on {path}" for path, counts in bn_paths.items()
+               for k in (BN_KERNELS if "train" in path or path == "dataprep"
+                         else BN_KERNELS[:2]) if counts[k] == 0]
+    check(not missing, "masked BN: not launched: " + ", ".join(missing))
+
     # launches: each kernel's count on the path it serves (training for
     # A, A', B, C; a spatial shard's serving, rank 0's, for D); every
     # path's count beside
@@ -4759,6 +4787,9 @@ def main():
             ("greedy_nms", "greedy_nms.cu", "detection_3d_tpu/ops/nms.py:39",
              rep_unit["greedy_nms"][0],
              batched[f"batched_unit_B{BATCH_SIZES[-1]}"])]
+    spec += [(name, "masked_bn.cu",
+              "detection_3d_tpu/ops/norm.py (XLA's fusion)", rep_bn, train)
+             for name in BN_KERNELS]
     kernels = []
     for name, src, replaces, rep, path in spec:
         kernels.append({
@@ -4797,9 +4828,11 @@ def main():
             if key in rep:
                 kernels[-1][key] = rep[key]
         if rep.get("library_ms") is not None:
-            kernels[-1]["library_computes"] = (
-                "torch.searchsorted over the same composite queries: the "
-                "lower bound only")
+            kernels[-1]["library_computes"] = rep.get(
+                "library_computes", "torch.searchsorted over the same "
+                "composite queries: the lower bound only")
+        if name == BN_KERNELS[0]:  # every site, once
+            kernels[-1]["sites"] = rep_bn["sites"]
         if name == "subm_match":   # the sums over the 9 tables of a building
             kernels[-1].update(rep_b_sum)
         if name in rep_unit:       # at the shapes of a unit of buildings
@@ -5084,10 +5117,232 @@ def minkunet_main():
     return 0
 
 
+# masked BN sites that --bn times: (name, B, rows V, valid rows (a
+# prefix, as a table's), C, eps, leakiness). MinkUNet34C's levels 0, 2
+# and 4 at its caps and the dense one-room mix's voxels (~413k, 73k,
+# 2k), the detector's level 0 (480,752 voxels of a 5 x 5-room building)
+# alone and in a unit of 4, and the ROI head's 1000 rois x 6 x 8 rows.
+BN_SITES = (
+    ("seg_train level 0, 32", 1, 524288, 413000, 32, 1e-5, 0.0),
+    ("seg_train level 0, 96, BN alone", 1, 524288, 413000, 96, 1e-5, 1.0),
+    ("seg_train level 2, 128", 1, 524288, 73000, 128, 1e-5, 0.0),
+    ("seg_train level 4, 256", 1, 65536, 2000, 256, 1e-5, 0.0),
+    ("detector level 0, 32", 1, 524288, 480752, 32, 1e-4, 0.0),
+    ("detector level 0, 32, unit of 4", 4, 524288, 480752, 32, 1e-4, 0.0),
+    ("ROI head, 512", 1, 48000, 48000, 512, 1e-4, 0.0),
+)
+BN_SYMBOLS = ("masked_bn_stats_rows", "masked_bn_stats_fold",
+              "masked_bn_normalise", "masked_bn_dsums_rows",
+              "masked_bn_dsums_fold", "masked_bn_dx")
+
+
+def _bn_err(got, want, parts=1):
+    """The largest error of ``got`` in units of the largest |want|, each
+    of ``parts`` equal slices of the last axis apart (a sums vector's
+    count, sum x and sum x^2)."""
+    got, want = got.double(), want.double()
+    errs = []
+    for g, w in zip(got.chunk(parts, -1), want.chunk(parts, -1)):
+        errs.append(((g - w).abs().max() / w.abs().max().clamp(
+            min=1e-30)).item())
+    return max(errs)
+
+
+def _bn_rel_l2(got, want):
+    got, want = got.double(), want.double()
+    return ((got - want).norm() / want.norm().clamp(min=1e-30)).item()
+
+
+def bn_site(name, b, v, n_valid, c, eps, leak, dev):
+    """One masked BN site in bf16, checked, then timed. The kernels' sums
+    (statistics; the backward's sums and their total over B) within 1e-5
+    of the plain twins' largest, each part apart, the row count exact;
+    given the kernel's sums the output and dx bit equal to the twins'.
+    The whole chain, batch_norm_leaky_relu under autograd (the
+    Function, one launch of each kernel), gives the kernels' bits and
+    the total as the scale's and bias's gradients; against the plain
+    version under autograd, its output and dx within 1e-2 in relative
+    L2 norm (each side takes its own sums, so a row whose y lies within
+    a rounding of 0 may take the other slope: the largest error can be
+    a whole element), the parameters' gradients within 1e-2 of the
+    largest. Then the forward (statistics + normalise) and the backward
+    (sums + dx) are timed by CUDA events and by the profiler, beside the
+    plain version's forward and autograd backward and
+    torch.nn.functional.batch_norm + relu over the valid rows alone
+    (timed only, as a yardstick: the port never calls it). Every loop
+    reruns one site's inputs, so the times are warm in L2 (50 MB) where
+    the site's tensors fit. The bound counts the valid rows' bytes (x
+    read and the output written forward; x and the gradient read and dx
+    written backward), and beside it the padding rows' zeros written
+    each way."""
+    import torch.nn.functional as F
+    from detection_3d_tpu_torch.ops import cuda_lib
+    from detection_3d_tpu_torch.ops.norm import (
+        batch_norm_leaky_relu, batch_norm_leaky_relu_plain,
+        masked_grad_apply, masked_grad_apply_cuda, masked_grad_sums,
+        masked_grad_sums_cuda, masked_sums, masked_sums_cuda,
+        normalise_cuda, normalise_plain)
+    gen = torch.Generator(device=dev).manual_seed(v + c)
+    dt = torch.bfloat16
+    x = (torch.randn((b, v, c), generator=gen, device=dev) * 2 + 1).to(dt)
+    valid = torch.zeros((b, v), dtype=torch.bool, device=dev)
+    valid[:, :n_valid] = True
+    scale = torch.rand((c,), generator=gen, device=dev) + 0.5
+    bias = torch.randn((c,), generator=gen, device=dev)
+    dout = torch.randn((b, v, c), generator=gen, device=dev).to(dt)
+    sums = masked_sums_cuda(x, valid)
+    out = normalise_cuda(x, valid, sums, scale, bias, leak, eps)
+    gsums, total = masked_grad_sums_cuda(x, dout, valid, sums, scale, bias,
+                                         leak, eps)
+    dx = masked_grad_apply_cuda(x, dout, valid, sums, gsums, scale, bias,
+                                leak, eps)
+    want_sums = masked_sums(x, valid)
+    want_gsums = masked_grad_sums(x, dout, valid, sums, scale, bias, leak,
+                                  eps)
+    errs = {"sums": _bn_err(sums[:, 1:], want_sums[:, 1:], 2),
+            "gsums": _bn_err(gsums, want_gsums, 2),
+            "total": _bn_err(total, want_gsums.sum(0), 2)}
+    check(torch.equal(sums[:, 0], want_sums[:, 0]),
+          f"masked BN {name}: the row counts differ from the twin's")
+    for k, e in errs.items():
+        check(e <= 1e-5, f"masked BN {name}: {k} off the twin's by {e:.3g} "
+              "of the largest")
+    check(torch.equal(out, normalise_plain(x, valid, sums, scale, bias,
+                                           leak, eps)),
+          f"masked BN {name}: the output differs from its twin's")
+    check(torch.equal(dx, masked_grad_apply(x, dout, valid, sums, gsums,
+                                            scale, bias, leak, eps)),
+          f"masked BN {name}: dx differs from its twin's")
+
+    xs, ss, bs = (t.clone().requires_grad_() for t in (x, scale, bias))
+    before = dict(cuda_lib.launches)
+    y = batch_norm_leaky_relu(xs, valid, ss, bs, leak, eps)
+    chain = (y,) + torch.autograd.grad(y, (xs, ss, bs), dout)
+    for k in BN_KERNELS:
+        check(cuda_lib.launches[k] == before[k] + 1,
+              f"masked BN {name}: the chain launched {k} "
+              f"{cuda_lib.launches[k] - before[k]} times")
+    check(all(torch.equal(g, w) for g, w in zip(
+        chain, (out, dx, total[c:], total[:c]))),
+          f"masked BN {name}: the chain differs from its kernels")
+    xs, ss, bs = (t.clone().requires_grad_() for t in (x, scale, bias))
+    y = batch_norm_leaky_relu_plain(xs, valid, ss, bs, leak, eps)
+    plain_chain = (y,) + torch.autograd.grad(y, (xs, ss, bs), dout)
+    errs["out_rel_l2"] = _bn_rel_l2(chain[0], plain_chain[0])
+    errs["dx_rel_l2"] = _bn_rel_l2(chain[1], plain_chain[1])
+    errs["d_scale"] = _bn_err(chain[2], plain_chain[2])
+    errs["d_bias"] = _bn_err(chain[3], plain_chain[3])
+    for k in ("out_rel_l2", "dx_rel_l2", "d_scale", "d_bias"):
+        check(errs[k] <= 1e-2, f"masked BN {name}: the chain's {k} off "
+              f"the plain version's by {errs[k]:.3g}")
+    del y, chain, plain_chain, xs, ss, bs
+
+    def fwd():
+        s = masked_sums_cuda(x, valid)
+        return normalise_cuda(x, valid, s, scale, bias, leak, eps)
+
+    def bwd():
+        g, _ = masked_grad_sums_cuda(x, dout, valid, sums, scale, bias,
+                                     leak, eps)
+        return masked_grad_apply_cuda(x, dout, valid, sums, g, scale, bias,
+                                      leak, eps)
+
+    def both():
+        fwd()
+        bwd()
+
+    xs, ss, bs = (t.clone().requires_grad_() for t in (x, scale, bias))
+
+    def plain():
+        y = batch_norm_leaky_relu_plain(xs, valid, ss, bs, leak, eps)
+        torch.autograd.grad(y, (xs, ss, bs), dout)
+
+    xv = x[:, :n_valid].reshape(-1, c).clone().requires_grad_()
+    dv = dout[:, :n_valid].reshape(-1, c)
+
+    def library():
+        y = F.batch_norm(xv, None, None, ss, bs, True, 0.0, eps)
+        torch.autograd.grad(F.relu(y) if leak == 0.0 else y, (xv, ss, bs),
+                            dv)
+
+    esize = 2
+    least = 5 * esize * b * n_valid * c / H100_BYTES_PER_S * 1e3
+    zeros = 2 * esize * b * (v - n_valid) * c / H100_BYTES_PER_S * 1e3
+    dev_ms = {sym: device_ms(both, [sym], iters=20) for sym in BN_SYMBOLS}
+    busy = sum(t for t in dev_ms.values() if t)
+    try:
+        lib_ms = round(time_ms(library, 20), 4)
+    except RuntimeError as e:       # a type the library call refuses
+        lib_ms = f"refused: {str(e)[:60]}"
+    row = {"site": name, "B": b, "V": v, "valid": n_valid, "C": c,
+           "eps": eps, "leakiness": leak,
+           "errors": {k: float(f"{e:.3g}") for k, e in errs.items()},
+           "fwd_ms": round(time_ms(fwd, 20), 4),
+           "bwd_ms": round(time_ms(bwd, 20), 4),
+           "device_ms": {k: round(t, 4) if t else t
+                         for k, t in dev_ms.items()},
+           "bound_ms": round(least, 4), "zeros_ms": round(zeros, 4),
+           "roofline_pct": round(100 * least / busy, 2) if busy else None,
+           "plain_ms": round(time_ms(plain, 5), 4), "library_ms": lib_ms}
+    print("masked BN site " + json.dumps(row))
+    return row
+
+
+def bn_report(rows):
+    """The kernels line's figures for the masked BN: the whole chain
+    (forward + backward, every kernel) at the first site (seg_train's
+    level 0), the largest error over the sites, and every site's row."""
+    first = rows[0]
+    return {"max_abs_err": max(max(r["errors"].values()) for r in rows),
+            "max_abs_err_of": "the largest |twin| or |plain| (sums, "
+                              "gradients of scale and bias); relative L2 "
+                              "(the chain's output and dx)",
+            "ms": round(first["fwd_ms"] + first["bwd_ms"], 4),
+            "device_ms": first["device_ms"], "plain_ms": first["plain_ms"],
+            "bound_ms": first["bound_ms"],
+            "bound_by": "bytes: the valid rows' x and output forward, x, "
+                        "gradient and dx backward",
+            "library_ms": first["library_ms"],
+            "library_computes": "F.batch_norm + relu over the valid rows "
+                                "alone, forward and backward (timed only)",
+            "site": first["site"], "sites": rows}
+
+
+def bn_main():
+    """``--bn``: only the masked BN kernels (csrc/masked_bn.cu) at
+    :data:`BN_SITES`, after building them; prints the compiler's
+    registers and spills, one line a site, the card line and the ok
+    line."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    from detection_3d_tpu_torch.ops import cuda_lib
+    print(f"card: {card_line()}")
+    t0 = time.perf_counter()
+    cuda_lib.build(["masked_bn"])
+    print(f"build: {time.perf_counter() - t0:.1f} s")
+    log = cuda_lib.lib_path("masked_bn").with_suffix(".log")
+    for ln in log.read_text().splitlines():
+        if "registers" in ln or "spill" in ln or "Compiling" in ln:
+            print(f"  ptxas masked_bn: {ln.strip()}")
+    dev = torch.device("cuda")
+    cuda_lib.reset_launches()
+    rows = [bn_site(*site, dev) for site in BN_SITES]
+    check(cuda_lib.launches["masked_bn_dx"] > 0, "masked BN: dx did not "
+          "launch")
+    print(json.dumps({"masked_bn_sites": len(rows)}))
+    print(card_line())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 MODES = {"--bwd-shapes": bwd_shapes_main, "--compare": compare_main,
          "--d-forms": d_forms_main,
          "--overfit": overfit_main, "--parallel": parallel_main,
-         "--batched": batched_main, "--minkunet": minkunet_main}
+         "--batched": batched_main, "--minkunet": minkunet_main,
+         "--bn": bn_main}
 
 if __name__ == "__main__":
     if len(sys.argv) > 2 or sys.argv[1:] and sys.argv[1] not in MODES:

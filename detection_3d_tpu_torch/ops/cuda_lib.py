@@ -13,7 +13,9 @@ each, all started together).
 ``launches`` counts, per kernel, the launches its wrapper made: the
 forward and dFeats entries of csrc/gather_conv.cu count apart, and dW
 (csrc/gather_conv_bwd.cu) and the greedy NMS pass (csrc/greedy_nms.cu,
-a pack and a walk) count once per call. A wrapper adds one exactly where it launches its kernel; a
+a pack and a walk) count once per call, and so do the masked BN's four
+(csrc/masked_bn.cu: statistics and the backward's sums, each a pass and
+its fold; normalise; dx). A wrapper adds one exactly where it launches its kernel; a
 run can then show that a path went through every kernel. A launch made
 while a CUDA graph captures counts like any other; a replay of that
 graph calls no wrapper and counts nothing (engine/inference's
@@ -40,23 +42,31 @@ BUILD_DIR = _PKG / "build"
 
 # one library per source file under csrc/
 KERNELS = ("gather_conv", "gather_conv_bwd", "subm_match", "rotated_iou",
-           "multi_match", "greedy_nms")
+           "multi_match", "greedy_nms", "masked_bn")
 # one launch counter per kernel: kernel A's source runs the forward and
 # the backward's dFeats, the backward source dW
 COUNTERS = ("gather_conv", "gather_conv_dfeats", "gather_conv_dw",
-            "subm_match", "rotated_iou", "multi_match", "greedy_nms")
+            "subm_match", "rotated_iou", "multi_match", "greedy_nms",
+            "masked_bn_stats", "masked_bn_normalise", "masked_bn_dsums",
+            "masked_bn_dx")
 # each counter's kernel symbols in a device trace (kernel A's body runs
 # under the ConvForward and ConvDFeats tags; dW is a partial kernel and
-# its reduction, D one of three forms, E a pack and a walk), and the
-# kernel's short name in the tools' reports
+# its reduction, D one of three forms, E a pack and a walk, BN's sums a
+# pass and a fold), and the kernel's short name in the tools' reports
 SYMBOLS = {"gather_conv": "ConvForward", "gather_conv_dfeats": "ConvDFeats",
            "gather_conv_dw": "gather_dw_", "subm_match": "subm_match_",
            "rotated_iou": "rotated_iou_kernel",
            "multi_match": "multi_match_",
-           "greedy_nms": "greedy_nms_"}
+           "greedy_nms": "greedy_nms_",
+           "masked_bn_stats": "masked_bn_stats_",
+           "masked_bn_normalise": "masked_bn_normalise",
+           "masked_bn_dsums": "masked_bn_dsums_",
+           "masked_bn_dx": "masked_bn_dx"}
 LABELS = {"gather_conv": "A", "gather_conv_dfeats": "dFeats",
           "gather_conv_dw": "dW", "subm_match": "B", "rotated_iou": "C",
-          "multi_match": "D", "greedy_nms": "E"}
+          "multi_match": "D", "greedy_nms": "E",
+          "masked_bn_stats": "BN stats", "masked_bn_normalise": "BN",
+          "masked_bn_dsums": "BN' sums", "masked_bn_dx": "BN' dx"}
 # the dynamic shared memory one block may take on an H100 (227 KB):
 # kernel B's wrapper keeps its windows under it
 SHARED_BYTES = 232448
@@ -84,6 +94,12 @@ _ENTRY_POINTS = {
     "multi_match": {"multi_match": [_P] * 3 + [_I] * 3 + [_P]},
     "greedy_nms": {"greedy_nms": [_P] * 2 + [_F] + [_I] * 3 + [_P] * 4,
                    "greedy_nms_scratch_words": [_I]},
+    "masked_bn": {name: args for tag in ("f32", "bf16") for name, args in (
+        (f"masked_bn_stats_{tag}", [_P] * 4 + [_I] * 6 + [_P]),
+        (f"masked_bn_normalise_{tag}", [_P] * 6 + [_I] * 4 + [_F] * 2
+         + [_P]),
+        (f"masked_bn_dsums_{tag}", [_P] * 9 + [_I] * 6 + [_F] * 2 + [_P]),
+        (f"masked_bn_dx_{tag}", [_P] * 8 + [_I] * 4 + [_F] * 2 + [_P]))},
 }
 
 _RESTYPES = {"greedy_nms_scratch_words": ctypes.c_longlong}

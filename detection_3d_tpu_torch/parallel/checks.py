@@ -234,6 +234,44 @@ def synced_bn_job(feats: Sequence[np.ndarray], valid: Sequence[np.ndarray],
             "d_bias": b.grad}
 
 
+def masked_bn_group_job(feats: Sequence[np.ndarray],
+                        valid: Sequence[np.ndarray], scale: np.ndarray,
+                        bias: np.ndarray, cotangent: Sequence[np.ndarray],
+                        leakiness: float = 0.0, eps: float = 1e-4,
+                        device="cpu") -> Dict:
+    """Masked BN over rank r's rows ``feats[r]`` with the statistics
+    summed over every rank: autograd through the plain version
+    (``plain``), the closed-form backward (``closed``:
+    ops/norm.batch_norm_leaky_relu_backward_plain) and, on the card,
+    :class:`ops.norm.MaskedBatchNorm` (``function``: the kernels, the
+    all-reduce between their passes). Each holds the gradients of
+    sum(output * cotangent[r]) in the rows, scale and bias (this rank's
+    part); the plain version and the kernels the output too."""
+    from detection_3d_tpu_torch.ops.norm import (
+        MaskedBatchNorm, batch_norm_leaky_relu_backward_plain,
+        batch_norm_leaky_relu_plain)
+    mesh = make_mesh(axis="sp", device=device)
+    r, group = mesh.rank, mesh.group("sp")
+    x, s, b, ct = (torch.as_tensor(a).to(mesh.device)
+                   for a in (feats[r], scale, bias, cotangent[r]))
+    v = torch.as_tensor(valid[r]).to(mesh.device)
+    ways = [("plain", batch_norm_leaky_relu_plain)]
+    if x.is_cuda:
+        ways.append(("function", MaskedBatchNorm.apply))
+    out = {}
+    for name, fn in ways:
+        xs, ss, bs = (t.clone().requires_grad_() for t in (x, s, b))
+        y = fn(xs, v, ss, bs, leakiness, eps, group)
+        grads = torch.autograd.grad((y * ct).sum(), (xs, ss, bs))
+        out[name] = dict(zip(("out", "d_feats", "d_scale", "d_bias"),
+                             (y.detach(),) + grads))
+    out["closed"] = dict(zip(
+        ("d_feats", "d_scale", "d_bias"),
+        batch_norm_leaky_relu_backward_plain(ct, x, v, s, b, leakiness, eps,
+                                             group)))
+    return out
+
+
 def _table_fields(t) -> Dict[str, np.ndarray]:
     return {"coords": t.coords, "hi": t.hi, "lo": t.lo, "num": t.num}
 

@@ -26,6 +26,13 @@ C over a batch of matrices bit equal matrix by matrix, and E (the greedy
 NMS pass over float32 IoU matrices, entries at the threshold, beside it
 and NaN among them) with the numpy pass's keep sets, one launch counted
 a call and no host sync.
+
+The masked BN (csrc/masked_bn.cu): its sums within 1e-5 of the plain
+twin's largest (float32 in another order); given the kernel's sums the
+output and dx bit equal to the twins' (the same float32 roundings); a
+unit's buildings bit equal to their own calls; a graph replay bit equal
+to eager; over 2 gloo ranks on one card within 1e-5 of autograd through
+the plain version.
 """
 
 import numpy as np
@@ -1296,3 +1303,201 @@ def test_stem_weights_book_dw(dev, dtype):
         before["gather_conv_dfeats"]
     want = gather_conv_backward(feats, idx, w.detach(), t.row_valid, g)[1]
     _close(w.grad, want, dtype)
+
+
+# ---- masked BN + leaky ReLU (csrc/masked_bn.cu) ----------------------------
+
+def _bn_inputs(dev, dtype, b, v, c, seed, case=None):
+    """Rows (b, v, c) of mean 1 and std 2 (a third of them invalid),
+    scale, bias and the output's gradient. ``case``: "empty" leaves the
+    first building no valid row, "constant" makes channel 0 constant on
+    every valid row (a variance of exactly 0)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = (torch.randn((b, v, c), generator=gen, device=dev) * 2 + 1).to(dtype)
+    valid = torch.rand((b, v), generator=gen, device=dev) < 0.66
+    if case == "empty":
+        valid[0] = False
+    if case == "constant":
+        x[..., 0] = 1.5
+    scale = torch.rand((c,), generator=gen, device=dev) + 0.5
+    bias = torch.randn((c,), generator=gen, device=dev)
+    dout = torch.randn((b, v, c), generator=gen, device=dev).to(dtype)
+    return x, valid, scale, bias, dout
+
+
+def _bn_close(got, want, tol):
+    assert got.dtype == want.dtype and got.shape == want.shape
+    err = (got.double() - want.double()).abs().max().item()
+    assert err <= tol * max(want.double().abs().max().item(), 1e-30), err
+
+
+# (B, V, C, dtype, leakiness, eps, case): the detector's level-0 and
+# deeper sites, MinkUNet's BN alone (slope 1) and eps 1e-5, an odd C in
+# both types (one channel a thread), the ROI head (1000 rois x 6 x 8 rows
+# of rep 512), a unit of 4, a building with no valid row, a constant
+# channel
+BN_CASES = [
+    (1, 20000, 32, torch.bfloat16, 0.0, 1e-4, None),
+    (4, 6000, 64, torch.bfloat16, 0.0, 1e-4, None),
+    (1, 4000, 256, torch.bfloat16, 1.0, 1e-5, None),
+    (1, 5000, 96, torch.bfloat16, 0.0, 1e-5, None),
+    (1, 48000, 512, torch.bfloat16, 0.0, 1e-4, None),
+    (1, 7001, 37, torch.bfloat16, 0.0, 1e-5, None),
+    (4, 3000, 37, torch.float32, 1.0, 1e-4, None),
+    (1, 9000, 128, torch.float32, 0.0, 1e-5, None),
+    (4, 5000, 32, torch.float32, 0.0, 1e-4, "empty"),
+    (4, 5000, 32, torch.bfloat16, 1.0, 1e-5, "empty"),
+    (1, 5000, 64, torch.bfloat16, 0.0, 1e-4, "constant"),
+    (1, 5000, 12, torch.float32, 0.0, 1e-4, "constant"),
+]
+
+
+@pytest.mark.parametrize("b,v,c,dtype,leak,eps,case", BN_CASES)
+def test_masked_bn_matches_plain_twin(dev, b, v, c, dtype, leak, eps, case):
+    """Each kernel against its plain twin on the card (ops/norm.py). The
+    sums within 1e-5 of the largest (f32, another order); given the
+    kernel's sums, the output and dx bit equal to the twins' (the same
+    f32 roundings, so each row takes the same slope), the backward's
+    sums within 1e-5; against the plain version on its own sums, the
+    output within 1e-5 of the largest in f32 and 1e-2 in bf16 (one
+    rounding of the f32 result). Through batch_norm_leaky_relu and
+    autograd: one launch of each kernel, the same bits as the kernels
+    called alone, the scale's and bias's gradients the sums over the
+    unit; invalid rows exactly 0."""
+    from detection_3d_tpu_torch.ops.norm import (
+        batch_norm_leaky_relu, batch_norm_leaky_relu_plain,
+        masked_grad_apply, masked_grad_apply_cuda, masked_grad_sums,
+        masked_grad_sums_cuda, masked_sums, masked_sums_cuda,
+        normalise_cuda, normalise_plain)
+    x, valid, scale, bias, dout = _bn_inputs(dev, dtype, b, v, c, 11, case)
+    sums = masked_sums_cuda(x, valid)
+    _bn_close(sums, masked_sums(x, valid), 1e-5)
+    out = normalise_cuda(x, valid, sums, scale, bias, leak, eps)
+    assert torch.equal(out, normalise_plain(x, valid, sums, scale, bias,
+                                            leak, eps))
+    _bn_close(out, batch_norm_leaky_relu_plain(x, valid, scale, bias, leak,
+                                               eps),
+              1e-2 if dtype == torch.bfloat16 else 1e-5)
+    gsums, total = masked_grad_sums_cuda(x, dout, valid, sums, scale, bias,
+                                         leak, eps)
+    _bn_close(gsums, masked_grad_sums(x, dout, valid, sums, scale, bias,
+                                      leak, eps), 1e-5)
+    _bn_close(total, gsums.sum(0), 1e-6)
+    dx = masked_grad_apply_cuda(x, dout, valid, sums, gsums, scale, bias,
+                                leak, eps)
+    assert torch.equal(dx, masked_grad_apply(x, dout, valid, sums, gsums,
+                                             scale, bias, leak, eps))
+    assert not out[~valid].any() and not dx[~valid].any()
+
+    lead = (lambda t: t) if b > 1 else (lambda t: t[0])
+    xs, ss, bs = (t.clone().requires_grad_() for t in (lead(x), scale,
+                                                      bias))
+    before = dict(cuda_lib.launches)
+    y = batch_norm_leaky_relu(xs, lead(valid), ss, bs, leak, eps)
+    d_x, d_s, d_b = torch.autograd.grad(y, (xs, ss, bs), lead(dout))
+    torch.cuda.synchronize()
+    for k in ("masked_bn_stats", "masked_bn_normalise", "masked_bn_dsums",
+              "masked_bn_dx"):
+        assert cuda_lib.launches[k] == before[k] + 1, k
+    assert torch.equal(y, lead(out)) and torch.equal(d_x, lead(dx))
+    assert torch.equal(d_s, total[c:]) and torch.equal(d_b, total[:c])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [32, 37])
+def test_masked_bn_unit_equals_buildings_alone(dev, dtype, c):
+    """A unit of 4 gives each building the bits it gets alone: the sums,
+    the output and dx (the scale's gradient is the unit's sum)."""
+    from detection_3d_tpu_torch.ops.norm import (
+        masked_grad_apply_cuda, masked_grad_sums_cuda, masked_sums_cuda,
+        normalise_cuda)
+    x, valid, scale, bias, dout = _bn_inputs(dev, dtype, 4, 70001, c, 5)
+    sums = masked_sums_cuda(x, valid)
+    out = normalise_cuda(x, valid, sums, scale, bias, 0.0, 1e-4)
+    gsums, _ = masked_grad_sums_cuda(x, dout, valid, sums, scale, bias, 0.0,
+                                     1e-4)
+    dx = masked_grad_apply_cuda(x, dout, valid, sums, gsums, scale, bias,
+                                0.0, 1e-4)
+    for i in range(4):
+        one = (x[i:i + 1].contiguous(), valid[i:i + 1].contiguous())
+        s1 = masked_sums_cuda(*one)
+        assert torch.equal(s1, sums[i:i + 1])
+        assert torch.equal(normalise_cuda(*one, s1, scale, bias, 0.0, 1e-4),
+                           out[i:i + 1])
+        g1, _ = masked_grad_sums_cuda(one[0], dout[i:i + 1].contiguous(),
+                                      one[1], s1, scale, bias, 0.0, 1e-4)
+        assert torch.equal(g1, gsums[i:i + 1])
+        assert torch.equal(masked_grad_apply_cuda(
+            one[0], dout[i:i + 1].contiguous(), one[1], s1, g1, scale, bias,
+            0.0, 1e-4), dx[i:i + 1])
+
+
+def test_masked_bn_graph_replay_equals_eager(dev):
+    """The four kernels captured in a CUDA graph and replayed on new
+    inputs give the eager bits, and the same bits on every call."""
+    from detection_3d_tpu_torch.ops.norm import (
+        masked_grad_apply_cuda, masked_grad_sums_cuda, masked_sums_cuda,
+        normalise_cuda)
+
+    def run(x, valid, scale, bias, dout):
+        sums = masked_sums_cuda(x, valid)
+        out = normalise_cuda(x, valid, sums, scale, bias, 0.0, 1e-5)
+        gsums, total = masked_grad_sums_cuda(x, dout, valid, sums, scale,
+                                             bias, 0.0, 1e-5)
+        return out, total, masked_grad_apply_cuda(
+            x, dout, valid, sums, gsums, scale, bias, 0.0, 1e-5)
+
+    first = _bn_inputs(dev, torch.bfloat16, 2, 30000, 64, 1)
+    second = _bn_inputs(dev, torch.bfloat16, 2, 30000, 64, 2)
+    static = [t.clone() for t in first]
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        run(*static)                    # builds and loads the library
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = run(*static)
+    for inputs in (second, first, second):
+        for s, t in zip(static, inputs):
+            s.copy_(t)
+        graph.replay()
+        torch.cuda.synchronize()
+        for got, want in zip(outs, run(*inputs)):
+            assert torch.equal(got, want)
+
+
+def test_masked_bn_rejects_other_dtypes(dev):
+    from detection_3d_tpu_torch.ops.norm import batch_norm_leaky_relu
+    x = torch.randn((100, 8), device=dev, dtype=torch.float16)
+    valid = torch.ones(100, dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        batch_norm_leaky_relu(x, valid, torch.ones(8, device=dev),
+                              torch.zeros(8, device=dev))
+
+
+@pytest.mark.parametrize("leak", [0.0, 1.0])
+def test_masked_bn_process_group_on_card(dev, tmp_path, leak):
+    """Statistics summed over 2 gloo ranks sharing the card: the kernels
+    (the all-reduce between their passes) against autograd through the
+    plain version and against the closed form, each on the card: output
+    and gradients within 1e-5 of the largest (f32)."""
+    from detection_3d_tpu_torch.parallel.checks import masked_bn_group_job
+    from detection_3d_tpu_torch.parallel.mesh import launch
+    rng = np.random.RandomState(3)
+    feats = [(rng.randn(n, 40) * 2 + 1).astype(np.float32)
+             for n in (5000, 3000)]
+    valid = [rng.rand(n) < 0.7 for n in (5000, 3000)]
+    cts = [rng.randn(n, 40).astype(np.float32) for n in (5000, 3000)]
+    scale = (rng.rand(40) + 0.5).astype(np.float32)
+    bias = rng.randn(40).astype(np.float32)
+    cuda_lib.build()            # once, before the ranks start
+    res = launch(masked_bn_group_job, 2, "gloo", str(tmp_path / "init"),
+                 args=(feats, valid, scale, bias, cts, leak, 1e-5, "cuda"),
+                 cpu_threads=0)
+    for r in res:
+        for k in ("out", "d_feats", "d_scale", "d_bias"):
+            want = torch.from_numpy(r["plain"][k])
+            _bn_close(torch.from_numpy(r["function"][k]), want, 1e-5)
+            if k != "out":
+                _bn_close(torch.from_numpy(r["closed"][k]), want, 1e-5)
