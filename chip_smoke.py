@@ -946,7 +946,7 @@ def build_pyramid_checked(cfg, table0):
         for backward in (False, True):
             seen.clear()
             pyr = build_pyramid(table0, cfg, backward=backward)
-            subm = {idx.data_ptr() for idx in pyr["subm_idx"]}
+            subm = {b.idx.data_ptr() for b in pyr["subm"]}
             check(not subm & set(seen), "build_pyramid computed row_masks "
                   "of a submanifold book")
             others += len(seen)
@@ -954,14 +954,13 @@ def build_pyramid_checked(cfg, table0):
     finally:
         sc.row_masks = orig
     for pyr in pyrs:
-        for t, idx, order in zip(pyr["tables"], pyr["subm_idx"],
-                                 pyr["subm_order"]):
-            want = sc.rulebook_row_order(idx, t.capacity, t.row_valid)
-            check(torch.equal(order.perm, want.perm)
-                  and torch.equal(order.masks, want.masks),
+        for t, b in zip(pyr["tables"], pyr["subm"]):
+            want = sc.rulebook_row_order(b.idx, t.capacity, t.row_valid)
+            check(torch.equal(b.order.perm, want.perm)
+                  and torch.equal(b.order.masks, want.masks),
                   "build_pyramid: a submanifold row order differs from "
                   "rulebook_row_order of its book")
-    print(f"build_pyramid: {len(pyrs[0]['subm_idx'])} submanifold row orders "
+    print(f"build_pyramid: {len(pyrs[0]['subm'])} submanifold row orders "
           f"from kernel B's masks equal rulebook_row_order of their books "
           f"(serving and training pyramids); row_masks ran on "
           f"{others} other books, on no submanifold book")
@@ -1336,11 +1335,10 @@ def match_path(cfg, scene, dev):
                  for k in range(1, s3d.num_scales)]
         torch.cuda.synchronize()
         launches = dict(cuda_lib.launches)
-        up_by_scale = pyr["up_rb"][::-1]
         for k, (c, d) in enumerate(books):
-            check(torch.equal(c, pyr["down_rb"][k]),
+            check(torch.equal(c, pyr["down"][k].idx),
                   f"kernel D path: conv book {k} differs")
-            check(torch.equal(d, up_by_scale[k]),
+            check(torch.equal(d, pyr["up"][k].idx),
                   f"kernel D path: deconv book {k} differs")
     check(launches["multi_match"] == 2 * (s3d.num_scales - 1),
           "kernel D path: launch count")
@@ -1962,26 +1960,20 @@ def host_pyramid_check(cfg, scene, dev):
             for f in ("coords", "hi", "lo", "keys", "num"):
                 per[f"table{k}.{f}"] = _field_mismatches(getattr(a, f),
                                                          getattr(b, f))
-        for key in ("subm_idx", "down_rb", "up_rb"):
-            for i, (a, b) in enumerate(zip(host[key], card[key],
-                                           strict=True)):
-                per[f"{key}[{i}]"] = _field_mismatches(a, b)
-        for key in ("subm_order", "down_order", "up_order"):
-            for i, (a, b) in enumerate(zip(host[key], card[key],
-                                           strict=True)):
-                per[f"{key}[{i}].perm"] = _field_mismatches(a.perm, b.perm)
-                per[f"{key}[{i}].masks"] = _field_mismatches(a.masks,
-                                                             b.masks)
-        for slot, (t, rb) in card["bev"].items():
-            ht, hrb = host["bev"][slot]
+        books = [(f"{key}[{i}]", a, b) for key in ("subm", "down", "up")
+                 for i, (a, b) in enumerate(zip(host[key], card[key],
+                                                strict=True))]
+        for slot, (t, b) in card["bev"].items():
+            ht, a = host["bev"][slot]
             for f in ("coords", "hi", "lo", "keys", "num"):
                 per[f"bev{slot}.{f}"] = _field_mismatches(getattr(ht, f),
                                                           getattr(t, f))
-            per[f"bev{slot}.rb"] = _field_mismatches(hrb, rb)
+            books.append((f"bev{slot}", a, b))
+        for name, a, b in books:
+            per[f"{name}.idx"] = _field_mismatches(a.idx, b.idx)
             for f in ("perm", "masks"):
-                per[f"bev_order[{slot}].{f}"] = _field_mismatches(
-                    getattr(host["bev_order"][slot], f),
-                    getattr(card["bev_order"][slot], f))
+                per[f"{name}.order.{f}"] = _field_mismatches(
+                    getattr(a.order, f), getattr(b.order, f))
     bad = {k: v for k, v in per.items() if v}
     print("host pyramid against the card's:", json.dumps(
         {"fields": len(per), "fields_differing": len(bad),
@@ -2331,12 +2323,12 @@ def host_training_pyramid_check(cfg, scene, dev, repeats=3):
         packed = to_device(got, dev)
         host = unpack_pyramid(cfg, packed, backward=True)
         card = build_pyramid(unpack_table(cfg, packed), cfg, backward=True)
-        pairs = [(f"{key}[{i}]", a, b)
-                 for key in ("subm_bwd", "down_bwd", "up_bwd")
+        pairs = [(f"{key}[{i}].bwd", a.bwd, b.bwd)
+                 for key in ("subm", "down", "up")
                  for i, (a, b) in enumerate(zip(host[key], card[key],
                                                 strict=True))]
-        pairs += [(f"bev_bwd[{s}]", host["bev_bwd"][s], card["bev_bwd"][s])
-                  for s in card["bev_bwd"]]
+        pairs += [(f"bev{s}.bwd", host["bev"][s][1].bwd, b.bwd)
+                  for s, (_, b) in card["bev"].items()]
         for name, a, b in pairs:
             for f in BWD_BOOK_FIELDS:
                 per[f"{name}.{f}"] = _field_mismatches(getattr(a, f),
@@ -3058,9 +3050,8 @@ def _shard_d_books(cfg, spyr):
         fine, coarse = tables[k - 1], tables[k]
         q, _, qd, _ = multi_match_queries(fine, coarse, s3d.kernels[k - 1],
                                           s3d.strides[k - 1])
-        for keys, qs, book in ((fine.keys, q, spyr["down_rb"][k - 1]),
-                               (coarse.keys, qd,
-                                spyr["up_rb"][s3d.num_scales - 1 - k])):
+        for keys, qs, book in ((fine.keys, q, spyr["down"][k - 1].idx),
+                               (coarse.keys, qd, spyr["up"][k - 1].idx)):
             got = multi_match_cuda(keys, qs)
             check(torch.equal(got, multi_match_plain(keys, qs)),
                   f"kernel D on a shard book of scale {k}: differs from "
@@ -3130,8 +3121,8 @@ def par_sp_rank(cfg, batch, shard_caps, halo_caps, tcfg, tbatch, tpri):
         torch.cuda.synchronize()
     out["bytes_received_per_forward"] = comm.bytes
     out["own_rows"] = [int(o.sum()) for o in spyr["own_valid"]]
-    out["halo_rows"] = [int(h.recv_lo_ok.sum() + h.recv_hi_ok.sum())
-                        for h in spyr["subm_halo"]]
+    out["halo_rows"] = [int(b.halo.recv_lo_ok.sum()
+                            + b.halo.recv_hi_ok.sum()) for b in spyr["subm"]]
     check(not bool(spyr["halo_overflow"]), "spatial: halo overflow")
     # the gathered maps against one card's, in bf16 and in f32, each with
     # two planted halo faults that must fail
@@ -3431,8 +3422,8 @@ def zoo_kernel_shapes(plan, dev, gen):
     for lvl in (0, last):
         c = ZOO_PLANES[lvl]
         t = plan["tables"][lvl]
-        idx, order = plan["subm_idx"][lvl], plan["subm_order"][lvl]
-        book, valid = plan["subm_bwd"][lvl], t.row_valid
+        idx, order, book, _ = plan["subm"][lvl]
+        valid = t.row_valid
         feats = (torch.randn((t.capacity, c), generator=gen, device=dev)
                  * valid[:, None]).to(torch.bfloat16)
         w = (torch.randn((27, c, c), generator=gen, device=dev)
@@ -3509,10 +3500,10 @@ def small_zoo_card_vs_cpu(card="cuda", what="small zoo"):
                            net.named_parameters()})
         res[d] = (plan, outs)
     (p_cpu, o_cpu), (p_gpu, o_gpu) = res["cpu"], res[card]
-    for key in ("subm_idx", "down_rb", "up_rb"):
+    for key in ("subm", "down", "up"):
         for k, (a, b) in enumerate(zip(p_cpu[key], p_gpu[key])):
-            check(torch.equal(a, b.cpu()), f"{what}: {key}[{k}] differs "
-                  "card vs CPU")
+            check(torch.equal(a.idx, b.idx.cpu()), f"{what}: {key}[{k}] "
+                  "differs card vs CPU")
     report = {}
     for name in nets:
         (want, g_want), (got, g_got) = o_cpu[name], o_gpu[name]
@@ -4064,7 +4055,7 @@ def check_kernel_a_unit(dev, table, pyr, gen):
     from detection_3d_tpu_torch.ops.sparse_conv import (
         gather_conv, gather_conv_cuda, masks_row_order)
     nb, v = table.units, table.capacity
-    idx, order = pyr["subm_idx"][0], pyr["subm_order"][0]
+    idx, order = pyr["subm"][0].idx, pyr["subm"][0].order
     valid = table.row_valid.reshape(-1)
     singles = [neighbor_match_3x3x3(table.building(b)) for b in range(nb)]
     line = None
@@ -4607,8 +4598,8 @@ def main():
                                                   "points_valid")))
         pyr = build_pyramid_checked(cfg, table0)
         tables = pyr["tables"]
-        table1, crb, drb = tables[1], pyr["down_rb"][0], pyr["up_rb"][-1]
-        idx0, idx1 = pyr["subm_idx"][:2]
+        table1, crb, drb = tables[1], pyr["down"][0].idx, pyr["up"][0].idx
+        idx0, idx1 = (b.idx for b in pyr["subm"][:2])
         print(f"scale-0 table: {int(table0.num)} of {table0.capacity} rows "
               f"(true_num {int(table0.true_num)}); scale 1: "
               f"{int(table1.num)} of {table1.capacity}")
@@ -4933,8 +4924,8 @@ def compare_main():
                                         for k in ("points", "feats",
                                                   "points_valid")))
         pyr = build_pyramid(table0, cfg)
-        check_multi_match(pyr["tables"], cfg, pyr["down_rb"][0],
-                          pyr["up_rb"][-1])
+        check_multi_match(pyr["tables"], cfg, pyr["down"][0].idx,
+                          pyr["up"][0].idx)
         del pyr, table0
     pyramid_seconds(cfg, scene, dev)
     print(card_line())

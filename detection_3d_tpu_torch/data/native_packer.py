@@ -25,8 +25,8 @@ from typing import Dict
 import numpy as np
 
 from detection_3d_tpu_torch.data import native_build
+from detection_3d_tpu_torch.data.packing import pad_scene
 from detection_3d_tpu_torch.data.pyramid_packing import pyramid_pack_spec
-from detection_3d_tpu_torch.engine.trainer import pad_scene
 
 SOURCE = native_build.PKG / "native" / "pyramid_packer.cpp"
 

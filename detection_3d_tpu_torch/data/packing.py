@@ -1,6 +1,12 @@
-"""Quantized host->device input packing for the serving path.
+"""A building's input on its way to the device: padding and quantized
+packing.
 
-Counterpart of detection_3d_tpu/data/packing.py. A building's padded f32
+:func:`pad_scene` pads a scene dict to the static capacities (numpy,
+on the host) and :func:`batch_to_device` moves such a padded batch to
+the device (the JAX package keeps both in its engine/trainer.py).
+
+The rest is the counterpart of detection_3d_tpu/data/packing.py. A
+building's padded f32
 input is 24.5 MB (points 6 MB, 9-channel features 18 MB, the valid
 mask); the packers ship compact fixed-point arrays instead and the
 device rebuilds floats by elementwise work only:
@@ -26,16 +32,70 @@ plain torch on the device the packed tensors lie on.
 
 from __future__ import annotations
 
+import logging
 from typing import Dict
 
 import numpy as np
 import torch
 
-from detection_3d_tpu_torch.engine.trainer import pad_scene
+from detection_3d_tpu_torch.models.structures import Boxes3D
 from detection_3d_tpu_torch.ops.coords import INVALID, pack_key
 from detection_3d_tpu_torch.ops.sparse import SparseTensor
+from detection_3d_tpu_torch.utils.profiling import span
+
+_LOG = logging.getLogger(__name__)
 
 XYZ_FP = 8  # fixed-point denominator for scaled voxel coords
+
+
+def pad_scene(cfg, scene: Dict) -> Dict[str, np.ndarray]:
+    """Host-side: pad a scene dict to the static capacities, warning when
+    points or gt boxes exceed them (silent loss of input is never
+    acceptable). A scene with per-point ``point_labels`` (a segmentation
+    model's) gives them padded with -1. Runs in the span
+    ``data.pad_scene``."""
+    with span("data.pad_scene"):
+        n = cfg.caps.max_points
+        pts = np.zeros((n, 3), np.float32)
+        fts = np.zeros((n, cfg.in_channels), np.float32)
+        m = min(scene["points"].shape[0], n)
+        if scene["points"].shape[0] > n:
+            _LOG.warning(
+                "pad_scene: %d points exceed caps.max_points=%d — dropping "
+                "%.1f%% of the input (raise caps.max_points)",
+                scene["points"].shape[0], n,
+                100.0 * (1 - n / scene["points"].shape[0]))
+        pts[:m] = scene["points"][:m]
+        fts[:m] = scene["feats"][:m, :cfg.in_channels]
+        pvalid = np.arange(n) < m
+
+        g = cfg.caps.max_gt
+        gtb = np.zeros((g, 7), np.float32)
+        gtb[:, 3:6] = 0.1  # harmless nonzero sizes on padding rows
+        gtl = np.zeros((g,), np.int32)
+        mg = min(scene["gt_boxes"].shape[0], g)
+        gtb[:mg] = scene["gt_boxes"][:mg]
+        gtl[:mg] = scene["gt_labels"][:mg]
+        gvalid = np.arange(g) < mg
+        if scene["gt_boxes"].shape[0] > g:
+            _LOG.warning(
+                "pad_scene: %d gt boxes exceed caps.max_gt=%d — dropping %d "
+                "targets (raise caps.max_gt)",
+                scene["gt_boxes"].shape[0], g, scene["gt_boxes"].shape[0] - g)
+        out = {"points": pts, "feats": fts, "points_valid": pvalid,
+               "gt_boxes": gtb, "gt_labels": gtl, "gt_valid": gvalid}
+        if "point_labels" in scene:
+            out["point_labels"] = np.full((n,), -1, np.int32)
+            out["point_labels"][:m] = scene["point_labels"][:m]
+        return out
+
+
+def batch_to_device(batch: Dict[str, np.ndarray], dev):
+    """((points, feats, points_valid), gt Boxes3D, gt labels) of a padded
+    batch, on ``dev``."""
+    b = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+    return (b["points"], b["feats"], b["points_valid"]), \
+        Boxes3D(b["gt_boxes"], b["gt_valid"]), b["gt_labels"]
 
 
 def pack_scene(cfg, scene: Dict) -> Dict[str, np.ndarray]:

@@ -33,9 +33,10 @@ the books above (models/backbone.build_pyramid):
   * ``bev{slot}_t_idx`` (Z, V_in) int32, the transposed BEV book, with
     its row order ``bev{slot}_t_perm`` / ``bev{slot}_t_masks``.
 
-:func:`unpack_pyramid` rebuilds build_pyramid's dict on the device by
-elementwise work and casts only: no sort, no scatter, no search, no
-``nonzero``. Every table, book, row order and backward book is bit equal
+:func:`unpack_pyramid` rebuilds build_pyramid's dict (its Books in level
+order) on the device by elementwise work and casts only: no sort, no
+scatter, no search, no ``nonzero``. Every table, book, row order and
+backward book is bit equal
 to build_pyramid's on :func:`data.packing.unpack_table`'s table
 (tests/test_torch_pyramid_packing.py, tests/test_torch_packed_training.py).
 
@@ -54,7 +55,7 @@ import torch
 from detection_3d_tpu_torch.data.packing import (
     device_table, pack_table, unpack_table,
 )
-from detection_3d_tpu_torch.ops.sparse_conv import BackwardBook, RowOrder
+from detection_3d_tpu_torch.ops.sparse_conv import BackwardBook, Book, RowOrder
 
 _NP_INVALID = np.int32(np.iinfo(np.int32).max)
 
@@ -413,40 +414,39 @@ def _book(packed, prefix, v_in: int):
     return flat.to(torch.int32).transpose(0, 1).reshape(k, nb * v_out)
 
 
-def _backward_books(packed, pyr, n_scales):
-    """The four backward-book entries of build_pyramid from a
-    ``backward`` pack and the forward books of ``pyr``: submanifold books
-    read reversed, each downsample's conv and deconv books as each
-    other's transposes (the deconv side's entries column-swapped), the
-    BEV books' shipped transposes."""
+def _with_backward_books(packed, pyr):
+    """``pyr``'s Books with their backward books, from a ``backward``
+    pack and the forward books: submanifold books read reversed, each
+    downsample's conv and deconv books as each other's transposes (the
+    deconv side's entries column-swapped), the BEV books' shipped
+    transposes."""
     def lists(prefix):
         return packed[f"{prefix}_entries"], packed[f"{prefix}_starts"]
 
-    subm_bwd = [BackwardBook(idx, order, *lists(f"subm{k}"), reversed=True)
-                for k, (idx, order) in enumerate(zip(pyr["subm_idx"],
-                                                     pyr["subm_order"]))]
-    up_idx, up_order = pyr["up_rb"][::-1], pyr["up_order"][::-1]
-    down_bwd, up_bwd = [], []
-    for k in range(n_scales - 1):
+    pyr["subm"] = [b._replace(bwd=BackwardBook(b.idx, b.order,
+                                               *lists(f"subm{k}"),
+                                               reversed=True))
+                   for k, b in enumerate(pyr["subm"])]
+    down, up = pyr["down"], pyr["up"]
+    for k in range(len(down)):
         entries, starts = lists(f"down{k}")
-        down_bwd.append(BackwardBook(up_idx[k], up_order[k], entries,
-                                     starts))
-        up_bwd.append(BackwardBook(pyr["down_rb"][k], pyr["down_order"][k],
-                                   entries.flip(1), starts))
-    bev_bwd = {slot: BackwardBook(packed[f"bev{slot}_t_idx"],
-                                  _row_order(packed, f"bev{slot}_t"),
-                                  *lists(f"bev{slot}"))
-               for slot in pyr["bev"]}
-    return {"subm_bwd": subm_bwd, "down_bwd": down_bwd,
-            "up_bwd": up_bwd[::-1], "bev_bwd": bev_bwd}
+        down[k], up[k] = (
+            down[k]._replace(bwd=BackwardBook(up[k].idx, up[k].order,
+                                              entries, starts)),
+            up[k]._replace(bwd=BackwardBook(down[k].idx, down[k].order,
+                                            entries.flip(1), starts)))
+    for slot, (t, b) in pyr["bev"].items():
+        pyr["bev"][slot] = (t, b._replace(bwd=BackwardBook(
+            packed[f"bev{slot}_t_idx"], _row_order(packed, f"bev{slot}_t"),
+            *lists(f"bev{slot}"))))
+    return pyr
 
 
 def unpack_pyramid(cfg, packed, backward: bool = False) -> Dict:
     """Device side: a :func:`pack_pyramid` dict (tensors) -> the dict of
-    models/backbone.build_pyramid (tables, subm_idx, down_rb, up_rb in
-    decoder order, bev, and subm_order, down_order, up_order, bev_order;
-    with ``backward``, from a ``backward`` pack, also subm_bwd,
-    down_bwd, up_bwd and bev_bwd). ``tables[0]`` is
+    models/backbone.build_pyramid (tables, and the Books subm, down, up
+    in level order and bev; with ``backward``, from a ``backward`` pack,
+    every Book with its backward book). ``tables[0]`` is
     :func:`data.packing.unpack_table`'s table, ``true_num`` included.
     Elementwise work and casts only. A dict stacked over B buildings
     gives a unit's pyramid: stacked tables and flat books (ops/sparse.py)
@@ -461,27 +461,19 @@ def unpack_pyramid(cfg, packed, backward: bool = False) -> Dict:
         raise ValueError("unpack_pyramid: the backward books of a stacked "
                          "dict are not unpacked")
     cap = [t.capacity for t in tables]
-    down = [f"down{k}" for k in range(n_scales - 1)]
-    up = [f"up{k}" for k in range(n_scales - 2, -1, -1)]   # decoder order
-    subm = [f"subm{k}" for k in range(n_scales)]
-    bev, bev_order = {}, {}
+
+    def book(prefix, v_in):
+        return Book(_book(packed, prefix, v_in), _row_order(packed, prefix))
+
+    bev = {}
     for slot, scale in _bev_scales(cfg).items():
         X, Y, _ = dims[scale]
         bev[slot] = (device_table(packed[f"bev{slot}_vox"],
                                   packed[f"bev{slot}_num"], (X, Y, 1)),
-                     _book(packed, f"bev{slot}", cap[scale]))
-        bev_order[slot] = _row_order(packed, f"bev{slot}")
+                     book(f"bev{slot}", cap[scale]))
     pyr = {"tables": tables,
-           "subm_idx": [_book(packed, p, cap[k])
-                        for k, p in enumerate(subm)],
-           "down_rb": [_book(packed, p, cap[k]) for k, p in enumerate(down)],
-           "up_rb": [_book(packed, p, cap[n_scales - 1 - i])
-                     for i, p in enumerate(up)],
-           "bev": bev,
-           "subm_order": [_row_order(packed, p) for p in subm],
-           "down_order": [_row_order(packed, p) for p in down],
-           "up_order": [_row_order(packed, p) for p in up],
-           "bev_order": bev_order}
-    if backward:
-        pyr.update(_backward_books(packed, pyr, n_scales))
-    return pyr
+           "subm": [book(f"subm{k}", cap[k]) for k in range(n_scales)],
+           "down": [book(f"down{k}", cap[k]) for k in range(n_scales - 1)],
+           "up": [book(f"up{k}", cap[k + 1]) for k in range(n_scales - 1)],
+           "bev": bev}
+    return _with_backward_books(packed, pyr) if backward else pyr

@@ -53,11 +53,11 @@ from detection_3d_tpu_torch.data.native_packer import (
     pack_pyramid_native, pack_table_native,
 )
 from detection_3d_tpu_torch.data.packing import (
-    to_device, unpack_batch, unpack_table,
+    pad_scene, to_device, unpack_batch, unpack_table,
 )
 from detection_3d_tpu_torch.data.pyramid_packing import unpack_pyramid
 from detection_3d_tpu_torch.engine.trainer import (
-    pack_detections, pad_scene, unpack_detections)
+    pack_detections, unpack_detections)
 from detection_3d_tpu_torch.evaluation.detection_eval import (
     eval_aug_thickness, evaluate_detections,
 )

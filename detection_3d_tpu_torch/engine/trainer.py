@@ -7,9 +7,11 @@ the NaN gate (a step whose loss or any gradient is non-finite changes
 nothing), bad-scene strikes and culling, windowed metric logging, the
 min-loss checkpoint and periodic / final checkpoints.
 
-A step runs pad -> voxelize_points -> forward with gt -> sum of the
-losses (four, or four per separate-classifier group) -> backward -> one
-fused isfinite over the loss and every gradient -> the SGD update, committed on the device only where that
+A step runs pad (data/packing.pad_scene) -> the model's
+``training_losses`` (the detector's: voxelize_points -> forward with gt,
+four losses or four per separate-classifier group) -> sum of the
+losses -> backward -> one fused isfinite over the loss and every
+gradient -> the SGD update, committed on the device only where that
 isfinite holds (engine/solver.py). A packed step (``packed="pyramid"``)
 takes a host-packed pyramid with its backward books
 (data/pyramid_packing.pack_pyramid(..., backward=True)) instead of the
@@ -42,7 +44,6 @@ rank), the eval-in-train detections are gathered from every rank,
 from __future__ import annotations
 
 import json
-import logging
 import os
 import time
 from dataclasses import dataclass
@@ -52,70 +53,18 @@ import numpy as np
 import torch
 
 from detection_3d_tpu_torch.config.defaults import Config
+from detection_3d_tpu_torch.data.packing import batch_to_device, pad_scene
 from detection_3d_tpu_torch.engine.solver import Solver
 from detection_3d_tpu_torch.evaluation.detection_eval import (
     eval_aug_thickness, evaluate_detections,
 )
 from detection_3d_tpu_torch.models.detector import SparseRCNN, voxelize_points
-from detection_3d_tpu_torch.models.structures import Boxes3D
 from detection_3d_tpu_torch.parallel.mesh import (
     batched_train_step, dp_batch_size, rank_generator)
 from detection_3d_tpu_torch.utils.checkpoint import Checkpointer
 from detection_3d_tpu_torch.utils.device import resolve_device
 from detection_3d_tpu_torch.utils.metric_logger import MetricLogger
 from detection_3d_tpu_torch.utils.profiling import span
-
-_LOG = logging.getLogger(__name__)
-
-
-def pad_scene(cfg: Config, scene: Dict) -> Dict[str, np.ndarray]:
-    """Host-side: pad a scene dict to the static capacities, warning when
-    points or gt boxes exceed them (silent loss of input is never
-    acceptable). A scene with per-point ``point_labels`` (a segmentation
-    model's) gives them padded with -1. Runs in the span
-    ``data.pad_scene``."""
-    with span("data.pad_scene"):
-        n = cfg.caps.max_points
-        pts = np.zeros((n, 3), np.float32)
-        fts = np.zeros((n, cfg.in_channels), np.float32)
-        m = min(scene["points"].shape[0], n)
-        if scene["points"].shape[0] > n:
-            _LOG.warning(
-                "pad_scene: %d points exceed caps.max_points=%d — dropping "
-                "%.1f%% of the input (raise caps.max_points)",
-                scene["points"].shape[0], n,
-                100.0 * (1 - n / scene["points"].shape[0]))
-        pts[:m] = scene["points"][:m]
-        fts[:m] = scene["feats"][:m, :cfg.in_channels]
-        pvalid = np.arange(n) < m
-
-        g = cfg.caps.max_gt
-        gtb = np.zeros((g, 7), np.float32)
-        gtb[:, 3:6] = 0.1  # harmless nonzero sizes on padding rows
-        gtl = np.zeros((g,), np.int32)
-        mg = min(scene["gt_boxes"].shape[0], g)
-        gtb[:mg] = scene["gt_boxes"][:mg]
-        gtl[:mg] = scene["gt_labels"][:mg]
-        gvalid = np.arange(g) < mg
-        if scene["gt_boxes"].shape[0] > g:
-            _LOG.warning(
-                "pad_scene: %d gt boxes exceed caps.max_gt=%d — dropping %d "
-                "targets (raise caps.max_gt)",
-                scene["gt_boxes"].shape[0], g, scene["gt_boxes"].shape[0] - g)
-        out = {"points": pts, "feats": fts, "points_valid": pvalid,
-               "gt_boxes": gtb, "gt_labels": gtl, "gt_valid": gvalid}
-        if "point_labels" in scene:
-            out["point_labels"] = np.full((n,), -1, np.int32)
-            out["point_labels"][:m] = scene["point_labels"][:m]
-        return out
-
-
-def batch_to_device(batch: Dict[str, np.ndarray], dev):
-    """((points, feats, points_valid), gt Boxes3D, gt labels) of a padded
-    batch, on ``dev``."""
-    b = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
-    return (b["points"], b["feats"], b["points_valid"]), \
-        Boxes3D(b["gt_boxes"], b["gt_valid"]), b["gt_labels"]
 
 
 def check_capacities(cfg: Config, scene: Dict, logger=None, device="cuda"):
@@ -198,39 +147,6 @@ def grads_finite(total, params):
     return torch.isfinite(flat).all()
 
 
-def training_forward(cfg: Config, model, batch, device, generator=None,
-                     priorities=None, packed=False):
-    """The training forward of one building, a padded batch
-    (``packed=False``) or a pack_pyramid(..., backward=True) dict
-    (``packed="pyramid"``): (losses, the train-time detections with
-    ``cfg.eval_in_train`` else None, true_num), on the device. A model
-    with a loss method of its own (``training_losses``, taking these
-    arguments; models/minkunet.MinkUNet34C) gives them through it."""
-    own = getattr(model, "training_losses", None)
-    if own is not None:
-        return own(cfg, batch, device, generator, priorities, packed)
-    # imported here: both modules import this one (pad_scene)
-    from detection_3d_tpu_torch.data.packing import to_device
-    from detection_3d_tpu_torch.data.pyramid_packing import unpack_pyramid
-    if packed == "pyramid":
-        b = to_device(batch, device)
-        pyramid = unpack_pyramid(cfg, b, backward=True)
-        table, true_num = pyramid["tables"][0], b["true_num"]
-        gt, gt_labels = Boxes3D(b["gt_boxes"], b["gt_valid"]), b["gt_labels"]
-    elif packed is False:
-        (pts, fts, valid), gt, gt_labels = batch_to_device(batch, device)
-        table, pyramid = voxelize_points(cfg, pts, fts, valid), None
-        true_num = table.true_num
-    else:
-        raise ValueError(f"packed={packed!r}: expected False or 'pyramid'")
-    losses = model(table, gt, gt_labels, generator=generator,
-                   priorities=priorities, pyramid=pyramid)
-    dets = None
-    if cfg.eval_in_train:
-        losses, dets = losses
-    return losses, dets, true_num
-
-
 def chunk_generator(seed: int, chunk_index: int, device) -> torch.Generator:
     """The sampler generator of ``train_resident``'s chunk ``chunk_index``,
     seeded from (seed, chunk_index) alone, so a chunk draws the same
@@ -280,9 +196,9 @@ class Trainer:
     def init_state(self, example_scene: Optional[Dict] = None,
                    seed: int = 0, iters_per_epoch: int = 1,
                    model: Optional[torch.nn.Module] = None) -> TrainState:
-        """A fresh state: ``model`` (moved to the device; a SparseRCNN or
-        a model with its own ``training_losses``) or a SparseRCNN drawn
-        from ``seed``; the example scene is not needed
+        """A fresh state: ``model`` (moved to the device; any model with
+        a ``training_losses`` method, as SparseRCNN and MinkUNet34C have)
+        or a SparseRCNN drawn from ``seed``; the example scene is not needed
         (the port's modules know their shapes) and is accepted for the
         JAX trainer's signature."""
         model = (model if model is not None
@@ -312,9 +228,8 @@ class Trainer:
         ``train.update``."""
         state.solver.zero_grad()
         with span("train.forward"):
-            losses, dets, true_num = training_forward(
-                self.cfg, state.model, batch, self.device, generator,
-                priorities, packed)
+            losses, dets, true_num = state.model.training_losses(
+                self.cfg, batch, self.device, generator, priorities, packed)
             total = total_loss(losses)
         with span("train.backward"):
             total.backward()

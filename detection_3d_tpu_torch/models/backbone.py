@@ -13,12 +13,13 @@ SparseConvNet fpn_net.py:13-265):
     (ops/sparse_conv.rulebook_row_order); and, when the
     pyramid is built for a training forward, its backward book
     (ops/sparse_conv.BackwardBook: the transposed book, its row order and
-    the per-offset entry lists);
+    the per-offset entry lists). The three travel as one
+    ops/sparse_conv.Book, and every list of books is in level order;
   * a unit of B buildings (ops/sparse.py) builds one pyramid for all of
     them: stacked tables, flat books and row orders, one launch of each
     kernel a book; BN takes each building's own statistics;
-  * every sparse conv goes through kernel A (ops/sparse_conv.py), with
-    its rulebook's row order and backward book;
+  * every sparse conv goes through kernel A (ops/sparse_conv.py) over
+    its Book;
   * BN runs on batch statistics (ops/norm.py) fused with (leaky) ReLU.
 
 Module and parameter names follow the Flax modules of the JAX package, so
@@ -42,8 +43,8 @@ from detection_3d_tpu_torch.ops.sparse import (
     neighbor_match_3x3x3,
 )
 from detection_3d_tpu_torch.ops.sparse_conv import (
-    BackwardBook, backward_book, deconv, masks_row_order, nin_conv,
-    rulebook_entries, rulebook_row_order, strided_conv, submanifold_conv,
+    BackwardBook, Book, make_book, masks_row_order, nin_conv,
+    rulebook_entries, rulebook_row_order, sparse_conv,
 )
 
 
@@ -90,11 +91,12 @@ def pyramid_levels(table0: SparseTensor, kernels, strides, caps,
     (level 0 = ``table0``; ``kernels[k]`` / ``strides[k]`` / ``caps[k +
     1]`` make level k + 1):
 
-      tables; subm_idx (27, V_k) from kernel B; down_rb (K, V_{k+1}) and
-      up_rb (K, V_k), the conv and deconv books of downsample k, as
-      scatters of its dedup sort; subm_order, down_order, up_order: each
-      book's RowOrder (a submanifold book's from B's masks); with
-      ``backward`` subm_bwd, down_bwd, up_bwd: each book's BackwardBook.
+      tables; subm[k] the (27, V_k) book of level k from kernel B, with
+      its RowOrder from B's masks; down[k] (K, V_{k+1}) and up[k] (K,
+      V_k), the conv and deconv books of downsample k (level k -> k + 1
+      and back), as scatters of its dedup sort. Each is a
+      :class:`~detection_3d_tpu_torch.ops.sparse_conv.Book`, with its
+      BackwardBook when ``backward``.
 
     A unit's ``table0`` gives its stacked tables and flat books, each
     row order sorting all B * V rows of a book by mask.
@@ -116,68 +118,53 @@ def pyramid_levels(table0: SparseTensor, kernels, strides, caps,
     down_order = [rulebook_row_order(rb, cap[k], valid[k + 1])
                   for k, rb in enumerate(down_rb)]
     subm_order = [masks_row_order(masks) for _, masks in matched]
-    lv = {"tables": tables, "subm_idx": subm_idx, "down_rb": down_rb,
-          "up_rb": up_rb, "subm_order": subm_order, "down_order": down_order,
-          "up_order": up_order}
-    if not backward:
-        return lv
-    # the transposes come without a scatter where one is known (tests/
-    # test_torch_backward_books.py holds each against transpose_rulebook):
-    # a submanifold book is its own transpose with the offsets reversed
-    # (offset k is the negation of offset K - 1 - k), so dFeats reads it
-    # as it is, with its order, and W reversed; a downsample's conv and
-    # deconv books, two scatters of one mapping, are each other's, row
-    # orders and entries (columns swapped) too.
-    subm_bwd = [BackwardBook(rb, subm_order[k],
-                             *rulebook_entries(rb, cap[k], valid[k]),
-                             reversed=True)
-                for k, rb in enumerate(subm_idx)]
-    down_bwd, up_bwd = [], []
-    for k, rb in enumerate(down_rb):
-        entries, starts = rulebook_entries(rb, cap[k], valid[k + 1])
-        down_bwd.append(BackwardBook(up_rb[k], up_order[k], entries, starts))
-        up_bwd.append(BackwardBook(rb, down_order[k], entries.flip(1),
-                                   starts))
-    lv.update(subm_bwd=subm_bwd, down_bwd=down_bwd, up_bwd=up_bwd)
-    return lv
+    subm_bwd = [None] * len(tables)
+    down_bwd = up_bwd = [None] * len(down_rb)
+    if backward:
+        # the transposes come without a scatter where one is known
+        # (tests/test_torch_backward_books.py holds each against
+        # transpose_rulebook): a submanifold book is its own transpose
+        # with the offsets reversed (offset k is the negation of offset
+        # K - 1 - k), so dFeats reads it as it is, with its order, and W
+        # reversed; a downsample's conv and deconv books, two scatters of
+        # one mapping, are each other's, row orders and entries (columns
+        # swapped) too.
+        subm_bwd = [BackwardBook(rb, subm_order[k],
+                                 *rulebook_entries(rb, cap[k], valid[k]),
+                                 reversed=True)
+                    for k, rb in enumerate(subm_idx)]
+        down_bwd, up_bwd = [], []
+        for k, rb in enumerate(down_rb):
+            entries, starts = rulebook_entries(rb, cap[k], valid[k + 1])
+            down_bwd.append(BackwardBook(up_rb[k], up_order[k], entries,
+                                         starts))
+            up_bwd.append(BackwardBook(rb, down_order[k], entries.flip(1),
+                                       starts))
+    return {"tables": tables,
+            "subm": list(map(Book, subm_idx, subm_order, subm_bwd)),
+            "down": list(map(Book, down_rb, down_order, down_bwd)),
+            "up": list(map(Book, up_rb, up_order, up_bwd))}
 
 
 def build_pyramid(table0: SparseTensor, cfg: Config,
                   backward: bool = False) -> Dict[str, Any]:
-    """All tables + rulebooks for one forward pass.
-
-    Returns a dict with:
-      tables: per-scale SparseTensor (features empty for scales > 0);
-      subm_idx: per-scale (27, V) submanifold rulebooks (kernel B);
-      down_rb: per-downsample (K, V_k) conv rulebooks;
-      up_rb: per-upsample (K, V_{k-1}) deconv rulebooks, decoder order;
-      bev: {slot: (bev_table, (Z, V_bev) rulebook)} for the RPN 2D maps;
-      subm_order, down_order, up_order, bev_order: the RowOrder of each
-      rulebook above, in the same layout (kernel A's row order);
-      with ``backward`` (a forward whose gradient is wanted) also
-      subm_bwd, down_bwd, up_bwd, bev_bwd: the BackwardBook of each
-      rulebook, in the same layout (the BEV books' by the transposing
-      scatter).
+    """All tables + rulebooks for one forward pass: the
+    :func:`pyramid_levels` dict of the config's scales (tables, subm,
+    down, up; every book a Book, in level order) and ``bev``: {slot:
+    (bev_table, the Book of its (Z, V_bev) book)} for the RPN 2D maps.
+    With ``backward`` (a forward whose gradient is wanted) every Book
+    holds its BackwardBook (the BEV books' by the transposing scatter).
     """
     s3d = cfg.sparse3d
     n_scales = s3d.num_scales
     caps = cfg.caps.scale_caps(n_scales, base=table0.capacity)
     pyr = pyramid_levels(table0, s3d.kernels, s3d.strides, caps, backward)
-    tables = pyr["tables"]
-    bev, bev_order, bev_v_in = {}, {}, {}
+    pyr["bev"] = {}
     for slot, i_from_top in enumerate(cfg.rpn.rpn_scales_from_top):
-        t3d = tables[n_scales - 1 - i_from_top]
-        bev[slot] = bev_with_rulebook(t3d, t3d.capacity)
-        bev_v_in[slot] = t3d.rows
-        bev_order[slot] = rulebook_row_order(
-            bev[slot][1], t3d.rows, bev[slot][0].row_valid.reshape(-1))
-    pyr.update(bev=bev, bev_order=bev_order, up_rb=pyr["up_rb"][::-1],
-               up_order=pyr["up_order"][::-1])
-    if backward:
-        pyr.update(up_bwd=pyr["up_bwd"][::-1],
-                   bev_bwd={slot: backward_book(rb, bev_v_in[slot],
-                                                t.row_valid)
-                            for slot, (t, rb) in bev.items()})
+        t3d = pyr["tables"][n_scales - 1 - i_from_top]
+        bev_t, rb = bev_with_rulebook(t3d, t3d.capacity)
+        pyr["bev"][slot] = (bev_t, make_book(
+            rb, t3d.rows, bev_t.row_valid.reshape(-1), backward))
     return pyr
 
 
@@ -192,9 +179,8 @@ class SubmConv(nn.Module):
     def reset_parameters(self, gen):
         he_normal_(self.w, gen)
 
-    def forward(self, feats, nidx, valid, order, bwd=None, halo=None):
-        return submanifold_conv(feats, nidx, self.w.to(feats.dtype), valid,
-                                order, bwd, halo)
+    def forward(self, feats, book, valid):
+        return sparse_conv(feats, book, self.w.to(feats.dtype), valid)
 
 
 class NiN(nn.Module):
@@ -243,13 +229,10 @@ class ResidualBlock(nn.Module):
         self.bn2 = BNLeakyReLU(cout)
         self.conv2 = SubmConv(cout, cout)
 
-    def forward(self, feats, nidx, valid, order, bwd=None, halo=None,
-                group=None):
+    def forward(self, feats, book, valid, group=None):
         sc = feats if self.shortcut is None else self.shortcut(feats, valid)
-        h = self.conv1(self.bn1(feats, valid, group), nidx, valid, order, bwd,
-                       halo)
-        h = self.conv2(self.bn2(h, valid, group), nidx, valid, order, bwd,
-                       halo)
+        h = self.conv1(self.bn1(feats, valid, group), book, valid)
+        h = self.conv2(self.bn2(h, valid, group), book, valid)
         return sc + h
 
 
@@ -264,21 +247,14 @@ class DownLayer(nn.Module):
     def reset_parameters(self, gen):
         he_normal_(self.w, gen)
 
-    def forward(self, feats, rulebook, in_valid, out_valid, order, bwd=None,
-                group=None):
+    def forward(self, feats, book, in_valid, out_valid, group=None):
         h = self.bn(feats, in_valid, group)
-        return strided_conv(h, rulebook, self.w.to(h.dtype), out_valid,
-                            order, bwd)
+        return sparse_conv(h, book, self.w.to(h.dtype), out_valid)
 
 
 class UpLayer(DownLayer):
-    """BN-ReLU + deconv (fpn_net.py:86-92)."""
-
-    def forward(self, feats, rulebook, in_valid, out_valid, order, bwd=None,
-                group=None, halo=None):
-        h = self.bn(feats, in_valid, group)
-        return deconv(h, rulebook, self.w.to(h.dtype), out_valid, order,
-                      bwd, halo)
+    """BN-ReLU + deconv (fpn_net.py:86-92): a DownLayer over a deconv
+    book."""
 
 
 class BEVConv(nn.Module):
@@ -291,9 +267,8 @@ class BEVConv(nn.Module):
     def reset_parameters(self, gen):
         he_normal_(self.w, gen)
 
-    def forward(self, feats, rulebook, out_valid, order, bwd=None):
-        return strided_conv(feats, rulebook, self.w.to(feats.dtype),
-                            out_valid, order, bwd)
+    def forward(self, feats, book, out_valid):
+        return sparse_conv(feats, book, self.w.to(feats.dtype), out_valid)
 
 
 def _kernel_volume(k):
@@ -311,9 +286,9 @@ class SparseFPN(nn.Module):
 
     A spatial shard's pyramid (parallel/spatial.build_spatial_pyramid)
     also carries ``own_valid`` (the rows this shard owns: the validity
-    of every BN, conv output and map), ``subm_halo`` / ``up_halo`` (the
-    HaloExchange each submanifold / deconv book refreshes its input
-    with) and ``process_group`` (BN statistics summed over the shards).
+    of every BN, conv output and map) and ``process_group`` (BN
+    statistics summed over the shards); its submanifold and deconv Books
+    hold the HaloExchange that refreshes their input.
     """
 
     def __init__(self, cfg: Config):
@@ -351,16 +326,9 @@ class SparseFPN(nn.Module):
         s3d = cfg.sparse3d
         n = s3d.num_scales
         tables: List[SparseTensor] = pyramid["tables"]
-        subm_idx, subm_order = pyramid["subm_idx"], pyramid["subm_order"]
-        # backward books: only a pyramid built for a training forward has
-        subm_bwd = pyramid.get("subm_bwd") or [None] * n
-        down_bwd = pyramid.get("down_bwd") or [None] * (n - 1)
-        up_bwd = pyramid.get("up_bwd") or [None] * (n - 1)
-        bev_bwd = pyramid.get("bev_bwd") or {}
-        # a spatial shard's pyramid: own rows, halo exchanges, BN group
+        subm, down, up = pyramid["subm"], pyramid["down"], pyramid["up"]
+        # a spatial shard's pyramid: own rows, BN group
         valids = pyramid.get("own_valid") or [t.row_valid for t in tables]
-        subm_halo = pyramid.get("subm_halo") or [None] * n
-        up_halo = pyramid.get("up_halo") or [None] * (n - 1)
         group = pyramid.get("process_group")
         n3d = len(cfg.rpn.rpn_scales_from_top)
         sel = cfg.rpn.rpn_3d_2d_selector
@@ -368,40 +336,30 @@ class SparseFPN(nn.Module):
         used = {cfg.rpn.rpn_scales_from_top[i % n3d] for i in sel}
         used |= set(cfg.roi.pooler_scales_from_top)
 
-        h = self.conv_in(table0.feats, subm_idx[0], valids[0], subm_order[0],
-                         subm_bwd[0], subm_halo[0])
+        h = self.conv_in(table0.feats, subm[0], valids[0])
         downs = []
         for k in range(n):
             if k > 0:
-                h = getattr(self, f"down{k}")(
-                    h, pyramid["down_rb"][k - 1], valids[k - 1], valids[k],
-                    pyramid["down_order"][k - 1], down_bwd[k - 1], group)
+                h = getattr(self, f"down{k}")(h, down[k - 1], valids[k - 1],
+                                              valids[k], group)
             for r in range(s3d.block_reps):
                 if s3d.residual_block:
-                    h = getattr(self, f"block{k}_{r}")(
-                        h, subm_idx[k], valids[k], subm_order[k],
-                        subm_bwd[k], subm_halo[k], group)
+                    h = getattr(self, f"block{k}_{r}")(h, subm[k], valids[k],
+                                                       group)
                 else:
                     hh = getattr(self, f"vgg_bn{k}_{r}")(h, valids[k], group)
-                    h = getattr(self, f"vgg_conv{k}_{r}")(
-                        hh, subm_idx[k], valids[k], subm_order[k],
-                        subm_bwd[k], subm_halo[k])
+                    h = getattr(self, f"vgg_conv{k}_{r}")(hh, subm[k],
+                                                          valids[k])
             downs.append(h)
 
         net = getattr(self, f"shortcut{n - 1}")(downs[-1], valids[-1])
         ups = [net]      # ups[i] = features at scale n-1-i
-        for i, k in enumerate(range(n - 1, 0, -1)):
-            if i >= max(used):
-                break
-            j = k - 1
-            net = getattr(self, f"up{j}")(net, pyramid["up_rb"][i],
-                                          valids[k], valids[j],
-                                          pyramid["up_order"][i], up_bwd[i],
-                                          group, up_halo[i])
+        # up[j] maps level j + 1 onto j; none below the deepest map read
+        for j in range(n - 2, n - 2 - min(max(used), n - 1), -1):
+            net = getattr(self, f"up{j}")(net, up[j], valids[j + 1],
+                                          valids[j], group)
             net = net + getattr(self, f"shortcut{j}")(downs[j], valids[j])
-            net = getattr(self, f"merge{j}")(net, subm_idx[j], valids[j],
-                                             subm_order[j], subm_bwd[j],
-                                             subm_halo[j])
+            net = getattr(self, f"merge{j}")(net, subm[j], valids[j])
             ups.append(net)
 
         maps = {}
@@ -412,10 +370,9 @@ class SparseFPN(nn.Module):
             if i < n3d:
                 maps[i] = t3d.with_feats(ups[i_from_top])
             else:
-                bev_t, bev_rb = pyramid["bev"][slot]
+                bev_t, bev_book = pyramid["bev"][slot]
                 f2d = getattr(self, f"pro2d{slot}")(
-                    ups[i_from_top], bev_rb, bev_t.row_valid,
-                    pyramid["bev_order"][slot], bev_bwd.get(slot))
+                    ups[i_from_top], bev_book, bev_t.row_valid)
                 maps[i] = bev_t.with_feats(f2d)
         rpn_maps = [maps[i] for i in sel]
         roi_maps = [tables[n - 1 - i].with_feats(ups[i])

@@ -19,6 +19,8 @@ import torch
 from torch import nn
 
 from detection_3d_tpu_torch.config.defaults import Config
+from detection_3d_tpu_torch.data.packing import batch_to_device, to_device
+from detection_3d_tpu_torch.data.pyramid_packing import unpack_pyramid
 from detection_3d_tpu_torch.models.backbone import SparseFPN, build_pyramid
 from detection_3d_tpu_torch.models.roi_head import (
     ROIBoxHead, postprocess, roi_loss, subsample_proposals,
@@ -153,7 +155,7 @@ class SparseRCNN(nn.Module):
         if pyramid is None:
             with span("model.pyramid"):
                 pyramid = build_pyramid(table, cfg, backward=wants_grad)
-        elif wants_grad and "subm_bwd" not in pyramid:
+        elif wants_grad and pyramid["subm"][0].bwd is None:
             raise NotImplementedError(
                 "a training forward on a host-packed pyramid needs its "
                 "backward books: unpack it with unpack_pyramid(..., "
@@ -164,6 +166,32 @@ class SparseRCNN(nn.Module):
             rpn_maps, roi_maps = self.backbone(table, pyramid)
         return self.heads(rpn_maps, roi_maps, gt, gt_labels,
                           priorities=priorities)
+
+    def training_losses(self, cfg: Config, batch, device, generator=None,
+                        priorities=None, packed=False):
+        """The training forward of one building, a padded batch
+        (``packed=False``, data/packing.pad_scene's dict) or a
+        pack_pyramid(..., backward=True) dict (``packed="pyramid"``):
+        (losses, the train-time detections with ``cfg.eval_in_train``
+        else None, true_num), on ``device``; the samplers draw from
+        ``generator`` unless ``priorities`` hands the draws in."""
+        if packed == "pyramid":
+            b = to_device(batch, device)
+            pyramid = unpack_pyramid(cfg, b, backward=True)
+            table, true_num = pyramid["tables"][0], b["true_num"]
+            gt, gt_labels = Boxes3D(b["gt_boxes"], b["gt_valid"]), \
+                b["gt_labels"]
+        elif packed is False:
+            (pts, fts, valid), gt, gt_labels = batch_to_device(batch, device)
+            table, pyramid = voxelize_points(cfg, pts, fts, valid), None
+            true_num = table.true_num
+        else:
+            raise ValueError(f"packed={packed!r}: expected False or "
+                             "'pyramid'")
+        out = self(table, gt, gt_labels, generator=generator,
+                   priorities=priorities, pyramid=pyramid)
+        losses, dets = out if cfg.eval_in_train else (out, None)
+        return losses, dets, true_num
 
     def heads(self, rpn_maps, roi_maps, gt: Optional[Boxes3D] = None,
               gt_labels=None, *, priorities=None):

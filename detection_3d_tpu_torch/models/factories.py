@@ -49,14 +49,14 @@ def plan_levels(table0: SparseTensor, caps: Sequence[int],
     table), built as models/backbone.build_pyramid builds the detector's
     (:func:`models.backbone.pyramid_levels`).
 
-    Returns {"tables", "subm_idx", "down_rb", "up_rb", "subm_order",
-    "down_order", "up_order"} and, with ``backward`` (a forward whose
-    gradient is wanted), {"subm_bwd", "down_bwd", "up_bwd"}; every list
-    is in level order, so ``up_rb[k]`` maps level k + 1 back to level k
-    (deconv and unpool). The strided and deconv books are scatters of the
-    downsample's dedup sort, the 3x3x3 submanifold books come from kernel
-    B on the card (its column algorithm on the CPU), and every book has
-    its RowOrder for kernel A.
+    Returns {"tables", "subm", "down", "up"}: every book an
+    ops/sparse_conv.Book (with its BackwardBook when ``backward``, a
+    forward whose gradient is wanted), every list in level order, so
+    ``up[k]`` maps level k + 1 back to level k (deconv and unpool). The
+    strided and deconv books are scatters of the downsample's dedup sort,
+    the 3x3x3 submanifold books come from kernel B on the card (its
+    column algorithm on the CPU), and every book has its RowOrder for
+    kernel A.
 
     ``dense_grid_budget`` is kept for the JAX signature and unused: the
     JAX package answers submanifold lookups from a dense grid when it
@@ -67,28 +67,6 @@ def plan_levels(table0: SparseTensor, caps: Sequence[int],
     n = len(caps)
     return pyramid_levels(table0, (kernel,) * (n - 1), (stride,) * (n - 1),
                           caps, backward)
-
-
-def _level(plan, k):
-    """(book, valid, order, backward book) of level k's submanifold
-    conv."""
-    bwd = plan.get("subm_bwd")
-    return (plan["subm_idx"][k], plan["tables"][k].row_valid,
-            plan["subm_order"][k], None if bwd is None else bwd[k])
-
-
-def _down(plan, k):
-    """(book, order, backward book) of downsample k (level k -> k + 1)."""
-    bwd = plan.get("down_bwd")
-    return (plan["down_rb"][k], plan["down_order"][k],
-            None if bwd is None else bwd[k])
-
-
-def _up(plan, k):
-    """(book, order, backward book) of the deconv level k + 1 -> k."""
-    bwd = plan.get("up_bwd")
-    return (plan["up_rb"][k], plan["up_order"][k],
-            None if bwd is None else bwd[k])
 
 
 class _Initialised(nn.Module):
@@ -168,14 +146,13 @@ class SparseUNet(_Initialised):
         return cin
 
     def _blocks(self, tag, h, plan, k):
-        idx, valid, order, bwd = _level(plan, k)
+        book, valid = plan["subm"][k], plan["tables"][k].row_valid
         for r in range(self.reps):
             if self.residual:
-                h = getattr(self, f"{tag}_res{r}")(h, idx, valid, order, bwd)
+                h = getattr(self, f"{tag}_res{r}")(h, book, valid)
             else:
                 h = getattr(self, f"{tag}_bn{r}")(h, valid)
-                h = getattr(self, f"{tag}_conv{r}")(h, idx, valid, order,
-                                                    bwd)
+                h = getattr(self, f"{tag}_conv{r}")(h, book, valid)
         return h
 
     def forward(self, plan: Dict[str, Any], feats=None):
@@ -190,13 +167,11 @@ class SparseUNet(_Initialised):
             h = self._blocks(f"enc{k}", h, plan, k)
             if k == n - 1:
                 return h
-            rb, order, bwd = _down(plan, k)
-            d = getattr(self, f"down{k}")(h, rb, valids[k], valids[k + 1],
-                                          order, bwd)
+            d = getattr(self, f"down{k}")(h, plan["down"][k], valids[k],
+                                          valids[k + 1])
             d = level(k + 1, d)
-            rb, order, bwd = _up(plan, k)
-            u = getattr(self, f"up{k}")(d, rb, valids[k + 1], valids[k],
-                                        order, bwd)
+            u = getattr(self, f"up{k}")(d, plan["up"][k], valids[k + 1],
+                                        valids[k])
             h = torch.cat([h, u], dim=-1)            # JoinTable
             return self._blocks(f"dec{k}", h, plan, k)
 
@@ -242,18 +217,17 @@ class SparseVGG(_Initialised):
         lvl = 0
         for i, op in enumerate(self.ops):
             if op == "C":
-                idx, valid, order, bwd = _level(plan, lvl)
-                h = getattr(self, f"l{i}_conv")(h, idx, valid, order, bwd)
+                valid = tables[lvl].row_valid
+                h = getattr(self, f"l{i}_conv")(h, plan["subm"][lvl], valid)
                 h = getattr(self, f"l{i}_bn")(h, valid)
             elif op == "MP":
-                h = max_pool(h, plan["down_rb"][lvl],
+                h = max_pool(h, plan["down"][lvl].idx,
                              tables[lvl + 1].row_valid)
                 lvl += 1
             else:
-                rb, order, bwd = _down(plan, lvl)
                 h = getattr(self, f"l{i}_down")(
-                    h, rb, tables[lvl].row_valid, tables[lvl + 1].row_valid,
-                    order, bwd)
+                    h, plan["down"][lvl], tables[lvl].row_valid,
+                    tables[lvl + 1].row_valid)
                 lvl += 1
         return h, lvl
 
@@ -296,19 +270,16 @@ class FullyConvolutionalNet(_Initialised):
         h = tables[0].feats if feats is None else feats
         outs = []
         for k in range(n):
-            idx, valid, order, bwd = _level(plan, k)
             for r in range(self.reps):
-                h = getattr(self, f"enc{k}_bn{r}")(h, valid)
-                h = getattr(self, f"enc{k}_conv{r}")(h, idx, valid, order,
-                                                     bwd)
+                h = getattr(self, f"enc{k}_bn{r}")(h, valids[k])
+                h = getattr(self, f"enc{k}_conv{r}")(h, plan["subm"][k],
+                                                     valids[k])
             up = h
             for j in range(k - 1, -1, -1):    # deconvs back to level 0
-                rb, order_j, bwd_j = _up(plan, j)
-                up = getattr(self, f"up{k}_{j}")(up, rb, valids[j + 1],
-                                                 valids[j], order_j, bwd_j)
+                up = getattr(self, f"up{k}_{j}")(up, plan["up"][j],
+                                                 valids[j + 1], valids[j])
             outs.append(up)
             if k < n - 1:
-                rb, order_k, bwd_k = _down(plan, k)
-                h = getattr(self, f"down{k}")(h, rb, valids[k],
-                                              valids[k + 1], order_k, bwd_k)
+                h = getattr(self, f"down{k}")(h, plan["down"][k], valids[k],
+                                              valids[k + 1])
         return torch.cat(outs, dim=-1)

@@ -31,9 +31,9 @@ BN at eps 1e-5 (ME's MinkowskiBatchNorm in training), followed by a ReLU
 or, at slope 1, by nothing. Parameters are kept in float32 and cast to
 ``compute_dtype`` at use; the logits and the loss are float32.
 
-Training: :meth:`MinkUNet34C.training_losses` is the model's own loss
-method, which engine/trainer.training_forward calls. The padded points
-(engine/trainer.pad_scene with ``point_labels``) are voxelized: a
+Training: :meth:`MinkUNet34C.training_losses` is the model's loss
+method, which engine/trainer's ``Trainer`` calls. The padded points
+(data/packing.pad_scene with ``point_labels``) are voxelized: a
 voxel's features are the mean of its points' colours, and its label the
 one its points share; a voxel whose points disagree, or carry none
 (-1), is ignored. Both come from a per-voxel min and max of
@@ -60,7 +60,7 @@ from detection_3d_tpu_torch.ops.sparse import (
     SparseTensor, build_sparse_tensor, neighbor_match,
 )
 from detection_3d_tpu_torch.ops.sparse_conv import (
-    deconv, masks_row_order, nin_conv, strided_conv, weights_book,
+    Book, masks_row_order, nin_conv, sparse_conv, weights_book,
 )
 from detection_3d_tpu_torch.utils.profiling import span
 
@@ -150,22 +150,19 @@ def voxel_labels(row_map, point_labels, row_valid):
 
 
 class SampleConv(nn.Module):
-    """A 2^3 stride-2 conv over its book, or (``transposed``) its
-    transpose back onto the finer level, bias-free."""
+    """A 2^3 stride-2 conv over its book (a downsample's conv book, or its
+    deconv book back onto the finer level), bias-free."""
 
-    def __init__(self, cin: int, cout: int, transposed: bool = False):
+    def __init__(self, cin: int, cout: int):
         super().__init__()
-        self.transposed = transposed
         self.w = nn.Parameter(torch.empty(KERNEL[0] * KERNEL[1] * KERNEL[2],
                                           cin, cout))
 
     def reset_parameters(self, gen):
         he_normal_(self.w, gen)
 
-    def forward(self, feats, book, out_valid, order, bwd=None):
-        conv = deconv if self.transposed else strided_conv
-        return conv(feats, book, self.w.to(feats.dtype), out_valid, order,
-                    bwd)
+    def forward(self, feats, book, out_valid):
+        return sparse_conv(feats, book, self.w.to(feats.dtype), out_valid)
 
 
 class BasicBlock(nn.Module):
@@ -180,9 +177,9 @@ class BasicBlock(nn.Module):
         self.downsample = NiN(cin, c) if cin != c else None
         self.bn_down = BNLeakyReLU(c, 1.0, eps) if cin != c else None
 
-    def forward(self, x, book, valid, order, bwd=None):
-        y = self.bn1(self.conv1(x, book, valid, order, bwd), valid)
-        y = self.bn2(self.conv2(y, book, valid, order, bwd), valid)
+    def forward(self, x, book, valid):
+        y = self.bn1(self.conv1(x, book, valid), valid)
+        y = self.bn2(self.conv2(y, book, valid), valid)
         r = x if self.downsample is None else \
             self.bn_down(self.downsample(x, valid), valid)
         return torch.relu(y + r)
@@ -235,8 +232,7 @@ class MinkUNet34C(nn.Module):
                               eps)
         skips = (planes[2], planes[1], planes[0], init_dim)
         for j, name in enumerate(_UP):
-            self.add_module(name, SampleConv(cin, planes[4 + j],
-                                             transposed=True))
+            self.add_module(name, SampleConv(cin, planes[4 + j]))
             self.add_module(f"bntr{4 + j}", BNLeakyReLU(planes[4 + j], 0.0,
                                                         eps))
             cin = self._stage(f"block{5 + j}", planes[4 + j] + skips[j],
@@ -267,19 +263,20 @@ class MinkUNet34C(nn.Module):
         return {}
 
     def plan(self, table: SparseTensor, backward: bool) -> Dict:
-        """Every level's table and book, the stem's 5^3 book with its row
-        order and, with ``backward``, every book's backward book (span
-        ``model.plan``, whose attributes are the voxels a level and the
-        5^3 book's real entries)."""
+        """The five levels' :func:`pyramid_levels` dict (tables, subm,
+        down, up; every book an ops/sparse_conv.Book, in level order) and
+        ``stem``, the Book of the stem's 5^3 book; with ``backward`` every
+        Book holds its backward book (span ``model.plan``, whose
+        attributes are the voxels a level and the 5^3 book's real
+        entries)."""
         with span("model.plan") as sp:
             caps = self.caps or (table.capacity,) * LEVELS
             lv = pyramid_levels(table, (KERNEL,) * (LEVELS - 1),
                                 (KERNEL,) * (LEVELS - 1), caps, backward)
             idx, masks = neighbor_match(table, radius=2)
-            lv["stem_idx"], lv["stem_order"] = idx, masks_row_order(masks)
-            lv["stem_bwd"] = weights_book(
-                idx, table.rows, table.row_valid.reshape(-1)) \
-                if backward else None
+            lv["stem"] = Book(idx, masks_row_order(masks), weights_book(
+                idx, table.rows, table.row_valid.reshape(-1))
+                if backward else None)
             if sp is not None:
                 sp.attributes = {
                     "voxels": torch.stack([t.num for t in lv["tables"]]),
@@ -291,33 +288,25 @@ class MinkUNet34C(nn.Module):
         dtype."""
         lv = self.plan(table, torch.is_grad_enabled())
         valid = [t.row_valid for t in lv["tables"]]
-        subm = list(zip(lv["subm_idx"], valid, lv["subm_order"],
-                        lv.get("subm_bwd") or [None] * LEVELS))
-        down_bwd = lv.get("down_bwd") or [None] * (LEVELS - 1)
-        up_bwd = lv.get("up_bwd") or [None] * (LEVELS - 1)
         x = table.feats.to(getattr(torch, self.compute_dtype))
         with span("model.stem"):
-            h = self.bn0(self.conv0p1s1(x, lv["stem_idx"], valid[0],
-                                        lv["stem_order"], lv["stem_bwd"]),
-                         valid[0])
+            h = self.bn0(self.conv0p1s1(x, lv["stem"], valid[0]), valid[0])
         skips = [h]
         with span("model.encoder"):
             for k, name in enumerate(_DOWN, 1):
                 h = getattr(self, f"bn{k}")(getattr(self, name)(
-                    h, lv["down_rb"][k - 1], valid[k],
-                    lv["down_order"][k - 1], down_bwd[k - 1]), valid[k])
+                    h, lv["down"][k - 1], valid[k]), valid[k])
                 for block in getattr(self, f"block{k}"):
-                    h = block(h, *subm[k])
+                    h = block(h, lv["subm"][k], valid[k])
                 skips.append(h)
         with span("model.decoder"):
             for j, name in enumerate(_UP):
                 k = LEVELS - 2 - j
                 u = getattr(self, f"bntr{4 + j}")(getattr(self, name)(
-                    h, lv["up_rb"][k], valid[k], lv["up_order"][k],
-                    up_bwd[k]), valid[k])
+                    h, lv["up"][k], valid[k]), valid[k])
                 h = torch.cat([u, skips[k]], -1)
                 for block in getattr(self, f"block{5 + j}"):
-                    h = block(h, *subm[k])
+                    h = block(h, lv["subm"][k], valid[k])
         return h
 
     def forward(self, table: SparseTensor):

@@ -21,7 +21,10 @@ result does not depend on the order. A mask is one int64 word for a
 book of at most 64 offsets and two words for one of 65 to 128 (the 5^3
 stem of models/minkunet.py); the kernel is compiled once for each width.
 
-:func:`sparse_conv` launches the hand-written CUDA kernel
+A pyramid carries each rulebook as a :class:`Book`: the book, its row
+order, its backward book and its halo exchange (:func:`make_book`
+derives the rest from a book alone). :func:`sparse_conv` takes one and
+launches the hand-written CUDA kernel
 (csrc/gather_conv.cu) for tensors on the card and takes the plain
 :func:`gather_conv` for tensors on the CPU. When a gradient is wanted it
 goes through :class:`GatherConv`. Its backward reads the rulebook's
@@ -35,7 +38,7 @@ CPU the same route takes the plain versions (:func:`gather_conv_dfeats`,
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Any, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -79,6 +82,18 @@ class BackwardBook(NamedTuple):
     entries: torch.Tensor
     starts: torch.Tensor
     reversed: bool = False
+
+
+class Book(NamedTuple):
+    """A rulebook and what every conv over it reads: ``idx`` (K, V_out)
+    int32, its :class:`RowOrder` ``order``, its :class:`BackwardBook`
+    ``bwd`` (in a pyramid built for a training forward) and, on a
+    spatially sharded table, the parallel/spatial.HaloExchange ``halo``
+    that refreshes the input's halo rows before the conv."""
+    idx: torch.Tensor
+    order: Optional[RowOrder]
+    bwd: Optional[BackwardBook] = None
+    halo: Any = None
 
 
 def _real_entries(neighbor_idx, v_in: int, out_valid):
@@ -179,6 +194,16 @@ def weights_book(neighbor_idx, v_in: int, out_valid) -> BackwardBook:
     the entry lists dW reads, no transposed book and no row order."""
     return BackwardBook(None, None,
                         *rulebook_entries(neighbor_idx, v_in, out_valid))
+
+
+def make_book(idx, v_in: int, out_valid, backward: bool = False,
+              halo=None) -> Book:
+    """The :class:`Book` of a (K, V_out) rulebook over a V_in-row input:
+    its row order, with ``backward`` its backward book (by the
+    transposing scatter), and ``halo``."""
+    return Book(idx, rulebook_row_order(idx, v_in, out_valid),
+                backward_book(idx, v_in, out_valid) if backward else None,
+                halo)
 
 
 def _acc_dtype(feats):
@@ -483,58 +508,31 @@ class GatherConv(torch.autograd.Function):
         return d_feats, None, d_w, None, None, None
 
 
-def sparse_conv(feats, neighbor_idx, weights, out_valid,
-                order: Optional[RowOrder] = None,
-                bwd: Optional[BackwardBook] = None, halo=None):
+def sparse_conv(feats, book: Book, weights, out_valid):
     """Kernel A for tensors on the card, the plain version on the CPU;
-    through :class:`GatherConv` when a gradient is wanted. ``order`` is
-    the rulebook's :class:`RowOrder` (kernel A's wrapper builds one when
-    it is None), ``bwd`` its :class:`BackwardBook` (the backward builds
-    one when it is None). ``halo``, a book's
-    parallel/spatial.HaloExchange on a spatially sharded table, first
-    refreshes the input's halo rows from the neighbouring shards (JAX
-    ops/sparse_conv.py:71-81). A unit's feats (B, V_in, Cin) and
+    through :class:`GatherConv` when a gradient is wanted, over the
+    :class:`Book` ``book`` (kernel A's wrapper builds a row order when
+    ``book.order`` is None, the backward a backward book when
+    ``book.bwd`` is None). ``book.halo``, on a spatially sharded table,
+    first refreshes the input's halo rows from the neighbouring shards
+    (JAX ops/sparse_conv.py:71-81). A unit's feats (B, V_in, Cin) and
     ``out_valid`` (B, V_out) run on the flat rows over its flat book and
     give (B, V_out, Cout)."""
-    if halo is not None:
-        feats = halo.refresh(feats)
-    if out_valid.dim() == 2:    # a unit: its flat rows
-        out = sparse_conv(feats.flatten(0, 1), neighbor_idx, weights,
-                          out_valid.reshape(-1), order, bwd)
-        return out.reshape(out_valid.shape + out.shape[-1:])
+    if book.halo is not None:
+        feats = book.halo.refresh(feats)
+    unit = out_valid.shape if out_valid.dim() == 2 else None
+    if unit is not None:        # a unit: its flat rows
+        feats, out_valid = feats.flatten(0, 1), out_valid.reshape(-1)
     if torch.is_grad_enabled() and (feats.requires_grad
                                     or weights.requires_grad):
-        return GatherConv.apply(feats, neighbor_idx, weights, out_valid,
-                                order, bwd)
-    if feats.is_cuda:
-        return gather_conv_cuda(feats, neighbor_idx, weights, out_valid,
-                                order)
-    return gather_conv(feats, neighbor_idx, weights, out_valid, order)
-
-
-def submanifold_conv(table_feats, neighbor_idx, weights, out_valid,
-                     order: Optional[RowOrder] = None,
-                     bwd: Optional[BackwardBook] = None, halo=None):
-    """Submanifold conv: output sites == input sites (27-offset book)."""
-    return sparse_conv(table_feats, neighbor_idx, weights, out_valid, order,
-                       bwd, halo)
-
-
-def strided_conv(in_feats, rulebook_idx, weights, out_valid,
-                 order: Optional[RowOrder] = None,
-                 bwd: Optional[BackwardBook] = None):
-    """Strided (downsampling) or z-collapsing BEV conv over its book."""
-    return sparse_conv(in_feats, rulebook_idx, weights, out_valid, order,
-                       bwd)
-
-
-def deconv(in_feats, rulebook_idx, weights, out_valid,
-           order: Optional[RowOrder] = None,
-           bwd: Optional[BackwardBook] = None, halo=None):
-    """Transposed conv back onto a finer table: ``rulebook_idx`` (K,
-    V_fine) indexes the coarse table (the reversed strided book)."""
-    return sparse_conv(in_feats, rulebook_idx, weights, out_valid, order,
-                       bwd, halo)
+        out = GatherConv.apply(feats, book.idx, weights, out_valid,
+                               book.order, book.bwd)
+    elif feats.is_cuda:
+        out = gather_conv_cuda(feats, book.idx, weights, out_valid,
+                               book.order)
+    else:
+        out = gather_conv(feats, book.idx, weights, out_valid, book.order)
+    return out if unit is None else out.reshape(unit + out.shape[-1:])
 
 
 def nin_conv(feats, weight, out_valid):

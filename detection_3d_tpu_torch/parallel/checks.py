@@ -292,12 +292,12 @@ def spatial_pyramid_job(cfg: Config, batch: Dict, shard_caps, halo_caps,
                    "recv_lo", "recv_lo_ok", "recv_hi", "recv_hi_ok")
     return {"tables": [_table_fields(t) for t in pyr["tables"]],
             "own_valid": pyr["own_valid"],
-            "halos": [{f: getattr(h, f) for f in halo_fields}
-                      for h in pyr["subm_halo"]],
-            "subm_idx": pyr["subm_idx"], "down_rb": pyr["down_rb"],
-            "up_rb": pyr["up_rb"],
-            "bev": {slot: (_table_fields(t), rb)
-                    for slot, (t, rb) in pyr["bev"].items()},
+            "halos": [{f: getattr(b.halo, f) for f in halo_fields}
+                      for b in pyr["subm"]],
+            **{kind: [b.idx for b in pyr[kind]]
+               for kind in ("subm", "down", "up")},
+            "bev": {slot: (_table_fields(t), b.idx)
+                    for slot, (t, b) in pyr["bev"].items()},
             "overflow": pyr["halo_overflow"]}
 
 
@@ -336,19 +336,17 @@ def shard_kernels_job(cfg: Config, batch: Dict, shard_caps, halo_caps,
                             t.batch_size, t.true_num.cpu(), t.keys.cpu())
 
     s3d = cfg.sparse3d
-    n = s3d.num_scales
     tables = [cpu(t) for t in pyr["tables"]]
-    down_equal = [torch.equal(rb.cpu(), conv_rulebook_match(
-        tables[k], tables[k - 1], s3d.kernels[k - 1], s3d.strides[k - 1]))
-        for k, rb in zip(range(1, n), pyr["down_rb"])]
-    up_equal = [torch.equal(rb.cpu(), deconv_rulebook_match(
-        tables[k - 1], tables[k], s3d.kernels[k - 1], s3d.strides[k - 1]))
-        for k, rb in zip(range(n - 1, 0, -1), pyr["up_rb"])]
+    down_equal = [torch.equal(b.idx.cpu(), conv_rulebook_match(
+        tables[k + 1], tables[k], s3d.kernels[k], s3d.strides[k]))
+        for k, b in enumerate(pyr["down"])]
+    up_equal = [torch.equal(b.idx.cpu(), deconv_rulebook_match(
+        tables[k], tables[k + 1], s3d.kernels[k], s3d.strides[k]))
+        for k, b in enumerate(pyr["up"])]
     gen = torch.Generator(device=dev).manual_seed(seed)
     errs = {"dfeats": 0.0, "dw": 0.0}
-    for books, idxs in ((pyr["subm_bwd"], pyr["subm_idx"]),
-                        (pyr["up_bwd"], pyr["up_rb"])):
-        for book, idx in zip(books, idxs):
+    for kind in ("subm", "up"):
+        for idx, book in ((b.idx, b.bwd) for b in pyr[kind]):
             v_out = idx.shape[1]
             v_in = book.t_idx.shape[1]
             g = torch.randn((v_out, 16), generator=gen, device=dev)
@@ -364,6 +362,7 @@ def shard_kernels_job(cfg: Config, batch: Dict, shard_caps, halo_caps,
                                  float((got - want).abs().max()) / scale)
     return {"down_equal": down_equal, "up_equal": up_equal, "errs": errs,
             "launches": launches,
-            "halo_rows": [int(h.recv_lo_ok.sum() + h.recv_hi_ok.sum())
-                          for h in pyr["subm_halo"]],
+            "halo_rows": [int(b.halo.recv_lo_ok.sum()
+                              + b.halo.recv_hi_ok.sum())
+                          for b in pyr["subm"]],
             "overflow": pyr["halo_overflow"]}

@@ -199,7 +199,7 @@ def batched_train_step(cfg: Config, model, solver, mesh: Mesh):
 
     Returns ``step(batches, generator=None, priorities=None) -> (total,
     losses, ok, true_num, dets)``: ``batches`` are this rank's padded
-    buildings (engine/trainer.pad_scene dicts; every rank the same
+    buildings (data/packing.pad_scene dicts; every rank the same
     number), ``priorities`` optionally one sampler-draw dict per building
     (else the draws come from ``generator``). total and losses are the
     means over the step's buildings on every rank, true_num the largest
@@ -209,7 +209,7 @@ def batched_train_step(cfg: Config, model, solver, mesh: Mesh):
     valid]`` in batch order (rank-major), else None. The update is
     applied only where the reduced loss and gradients are finite."""
     from detection_3d_tpu_torch.engine.trainer import (
-        pack_detections, total_loss, training_forward)
+        pack_detections, total_loss)
 
     group, n_dp = mesh.group("dp"), mesh.size("dp")
 
@@ -218,8 +218,8 @@ def batched_train_step(cfg: Config, model, solver, mesh: Mesh):
         solver.zero_grad()
         sums, tns, dets = None, [], []
         for i, batch in enumerate(batches):
-            losses, det, true_num = training_forward(
-                cfg, model, batch, mesh.device, generator,
+            losses, det, true_num = model.training_losses(
+                cfg, batch, mesh.device, generator,
                 None if priorities is None else priorities[i])
             if det is not None:
                 dets.append(pack_detections(det))

@@ -61,7 +61,7 @@ from detection_3d_tpu_torch.ops.multi_match import (
 from detection_3d_tpu_torch.ops.sparse import (
     SparseTensor, build_sparse_tensor, downsample_table, neighbor_match_3x3x3)
 from detection_3d_tpu_torch.ops.sparse_conv import (
-    backward_book, masks_row_order, rulebook_row_order)
+    Book, backward_book, make_book, masks_row_order)
 from detection_3d_tpu_torch.parallel.collectives import (
     _gather, all_gather_rows, group_rank, group_size)
 from detection_3d_tpu_torch.parallel.mesh import Mesh, reduce_step
@@ -249,11 +249,11 @@ def build_spatial_pyramid(cfg: Config, points, feats, points_valid, group,
                           halo_caps: Sequence[int],
                           backward: bool = False) -> Dict[str, Any]:
     """This shard's pyramid over extended (own + halo) tables, in the
-    layout of models/backbone.build_pyramid (tables, subm_idx, down_rb,
-    up_rb, bev and their row orders; with ``backward`` the BackwardBooks)
-    plus ``own_valid`` (per scale), ``subm_halo`` (per scale),
-    ``up_halo`` (decoder order), ``process_group`` and
-    ``halo_overflow``.
+    layout of models/backbone.build_pyramid (tables, the Books subm,
+    down, up in level order and bev; with ``backward`` their
+    BackwardBooks; each submanifold and deconv Book with the
+    HaloExchange of its input's scale) plus ``own_valid`` (per scale),
+    ``process_group`` and ``halo_overflow``.
 
     Every shard gets the whole (padded) point cloud and voxelizes the
     points of its x-slab into a table of ``shard_caps[0]`` rows;
@@ -283,48 +283,32 @@ def build_spatial_pyramid(cfg: Config, points, feats, points_valid, group,
                                    s3d.strides[s], shard_caps[s + 1])
 
     cap = [t.capacity for t in tables]
-    matched = [neighbor_match_3x3x3(t) for t in tables]       # kernel B
-    subm_idx = [idx for idx, _ in matched]
-    subm_order = [masks_row_order(torch.where(own_m, masks, 0))
-                  for (_, masks), own_m in zip(matched, own_valid)]
+    subm = []
+    for k, (t, own_m) in enumerate(zip(tables, own_valid)):
+        idx, masks = neighbor_match_3x3x3(t)                   # kernel B
+        subm.append(Book(idx, masks_row_order(torch.where(own_m, masks, 0)),
+                         backward_book(idx, cap[k], own_m) if backward
+                         else None, halos[k]))
     # strided books: kernel D; their gathers stay inside the own slab
-    down_rb = [conv_rulebook_match(tables[k], tables[k - 1],
-                                   s3d.kernels[k - 1], s3d.strides[k - 1])
-               for k in range(1, n)]
-    down_order = [rulebook_row_order(rb, cap[k], own_valid[k + 1])
-                  for k, rb in enumerate(down_rb)]
-    # deconv books (decoder order): kernel D; they read the coarse halo
-    ks = list(range(n - 1, 0, -1))
-    up_rb = [deconv_rulebook_match(tables[k - 1], tables[k],
-                                   s3d.kernels[k - 1], s3d.strides[k - 1])
-             for k in ks]
-    up_order = [rulebook_row_order(rb, cap[k], own_valid[k - 1])
-                for k, rb in zip(ks, up_rb)]
-    bev, bev_order, bev_v_in = {}, {}, {}
+    down = [make_book(conv_rulebook_match(tables[k + 1], tables[k],
+                                          s3d.kernels[k], s3d.strides[k]),
+                      cap[k], own_valid[k + 1], backward)
+            for k in range(n - 1)]
+    # deconv books: kernel D; they read the coarse halo
+    up = [make_book(deconv_rulebook_match(tables[k], tables[k + 1],
+                                          s3d.kernels[k], s3d.strides[k]),
+                    cap[k + 1], own_valid[k], backward, halos[k + 1])
+          for k in range(n - 1)]
+    bev = {}
     for slot, i_from_top in enumerate(cfg.rpn.rpn_scales_from_top):
         sc = n - 1 - i_from_top
-        bev[slot] = bev_with_rulebook(_own_only(tables[sc], own_valid[sc]),
+        bev_t, rb = bev_with_rulebook(_own_only(tables[sc], own_valid[sc]),
                                       cap[sc])
-        bev_v_in[slot] = cap[sc]
-        bev_order[slot] = rulebook_row_order(bev[slot][1], cap[sc],
-                                             bev[slot][0].row_valid)
-    pyr = {"tables": tables, "subm_idx": subm_idx, "down_rb": down_rb,
-           "up_rb": up_rb, "bev": bev, "subm_order": subm_order,
-           "down_order": down_order, "up_order": up_order,
-           "bev_order": bev_order, "own_valid": own_valid,
-           "subm_halo": halos, "up_halo": [halos[k] for k in ks],
-           "process_group": group, "halo_overflow": overflow}
-    if backward:
-        pyr.update(
-            subm_bwd=[backward_book(rb, cap[k], own_valid[k])
-                      for k, rb in enumerate(subm_idx)],
-            down_bwd=[backward_book(rb, cap[k], own_valid[k + 1])
-                      for k, rb in enumerate(down_rb)],
-            up_bwd=[backward_book(rb, cap[k], own_valid[k - 1])
-                    for k, rb in zip(ks, up_rb)],
-            bev_bwd={slot: backward_book(rb, bev_v_in[slot], t.row_valid)
-                     for slot, (t, rb) in bev.items()})
-    return pyr
+        bev[slot] = (bev_t, make_book(rb, cap[sc], bev_t.row_valid,
+                                      backward))
+    return {"tables": tables, "subm": subm, "down": down, "up": up,
+            "bev": bev, "own_valid": own_valid, "process_group": group,
+            "halo_overflow": overflow}
 
 
 def any_over(flag, group):

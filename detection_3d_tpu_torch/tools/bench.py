@@ -253,14 +253,14 @@ def parity(cfg, scene, device="cuda", scales=3):
     Kernel A is held within 1e-2 of the plain output's largest magnitude
     (at least 1): both round an f32 sum to bf16 once, in another order,
     so an output of magnitude m may differ by one bf16 step, m / 128."""
-    from detection_3d_tpu_torch.engine.trainer import (
+    from detection_3d_tpu_torch.data.packing import (
         batch_to_device, pad_scene)
     from detection_3d_tpu_torch.models.detector import voxelize_points
     from detection_3d_tpu_torch.ops.sparse import (
         conv_rulebook, downsample_table, downsample_with_rulebooks,
         neighbor_indices, neighbor_match_3x3x3, submanifold_offsets)
     from detection_3d_tpu_torch.ops.sparse_conv import (
-        deconv_rulebook, gather_conv, masks_row_order, sparse_conv)
+        Book, deconv_rulebook, gather_conv, masks_row_order, sparse_conv)
     from detection_3d_tpu_torch.utils.device import resolve_device
     dev = resolve_device(device)
     s3d = cfg.sparse3d
@@ -289,8 +289,8 @@ def parity(cfg, scene, device="cuda", scales=3):
             w = torch.from_numpy((rng.randn(27, cin, cout) * 0.1).astype(
                 np.float32)).to(dev).to(torch.bfloat16)
             ref = gather_conv(feats, want, w, rv).float()
-            out = sparse_conv(feats, got, w, rv,
-                              masks_row_order(masks)).float()
+            out = sparse_conv(feats, Book(got, masks_row_order(masks)), w,
+                              rv).float()
             err = float((out - ref).abs().max())
             tol = 1e-2 * max(1.0, float(ref.abs().max()))
             hold(err <= tol, f"gather_conv_s{s}",

@@ -35,7 +35,7 @@ def scene_coverage(cfg, scene, device="cuda"):
     best yaw-gated quality), above (anchors at or above
     fg_iou_threshold), assigned (anchors rpn_targets matched to it)},
     and {gyaw (the last box's yaw), n_gt, anchors_valid, anchors}."""
-    from detection_3d_tpu_torch.engine.trainer import (
+    from detection_3d_tpu_torch.data.packing import (
         batch_to_device, pad_scene)
     from detection_3d_tpu_torch.models.anchors import generate_anchors
     from detection_3d_tpu_torch.models.backbone import build_pyramid

@@ -98,7 +98,7 @@ def profile(cfg, model, scene, device="cuda", iters=3):
     idle_share}
     in prefix order, and {stage: outputs of its last call}. ``model`` is
     moved to ``device`` and set to eval."""
-    from detection_3d_tpu_torch.engine.trainer import batch_to_device, pad_scene
+    from detection_3d_tpu_torch.data.packing import batch_to_device, pad_scene
     from detection_3d_tpu_torch.utils.device import resolve_device
     from detection_3d_tpu_torch.utils.profiling import device_activity
     dev = resolve_device(device)

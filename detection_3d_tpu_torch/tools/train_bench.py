@@ -61,7 +61,8 @@ def run(cfg, scene, device="cuda", iters=5, top=10, seed=0):
     first 1 + ``iters`` steps), device_s_per_step, idle_share,
     top_ms_per_step ([label, ms] by device time per step)}; the device
     fields None on the CPU."""
-    from detection_3d_tpu_torch.engine.trainer import Trainer, pad_scene
+    from detection_3d_tpu_torch.data.packing import pad_scene
+    from detection_3d_tpu_torch.engine.trainer import Trainer
     from detection_3d_tpu_torch.utils.device import resolve_device
     from detection_3d_tpu_torch.utils.profiling import device_activity
     dev = resolve_device(device)

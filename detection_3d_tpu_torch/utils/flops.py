@@ -40,20 +40,19 @@ def pyramid_pair_stats(cfg: Config, table0) -> Dict[str, list]:
     """
     pyr = build_pyramid(table0, cfg)
     tables = pyr["tables"]
-    up_by_scale = pyr["up_rb"][::-1]
     rows = [int(t.row_valid.sum()) for t in tables]
-    subm_pairs = [_pairs(idx, t.capacity, t.row_valid)
-                  for idx, t in zip(pyr["subm_idx"], tables)]
-    down_pairs = [_pairs(rb, tables[k].capacity, tables[k + 1].row_valid)
-                  for k, rb in enumerate(pyr["down_rb"])]
-    up_pairs = [_pairs(rb, tables[k + 1].capacity, tables[k].row_valid)
-                for k, rb in enumerate(up_by_scale)]
+    subm_pairs = [_pairs(b.idx, t.capacity, t.row_valid)
+                  for b, t in zip(pyr["subm"], tables)]
+    down_pairs = [_pairs(b.idx, tables[k].capacity, tables[k + 1].row_valid)
+                  for k, b in enumerate(pyr["down"])]
+    up_pairs = [_pairs(b.idx, tables[k + 1].capacity, tables[k].row_valid)
+                for k, b in enumerate(pyr["up"])]
     n = len(tables)
     bev_rows, bev_pairs = [], []
     for slot, i_from_top in enumerate(cfg.rpn.rpn_scales_from_top):
-        bev_t, brb = pyr["bev"][slot]
+        bev_t, book = pyr["bev"][slot]
         bev_rows.append(int(bev_t.row_valid.sum()))
-        bev_pairs.append(_pairs(brb, tables[n - 1 - i_from_top].capacity,
+        bev_pairs.append(_pairs(book.idx, tables[n - 1 - i_from_top].capacity,
                                 bev_t.row_valid))
     return {"rows": rows, "subm_pairs": subm_pairs,
             "down_pairs": down_pairs, "up_pairs": up_pairs,
@@ -90,9 +89,8 @@ def model_gemm_flops(cfg: Config, stats: Dict[str, list],
     f["encoder"] = enc
 
     dec = 2.0 * rows[-1] * planes[-1] * n_map       # top shortcut NiN
-    for i, k in enumerate(range(n_scales - 1, 0, -1)):
-        j = k - 1
-        dec += 2.0 * stats["up_pairs"][::-1][i] * n_map * n_map  # deconv
+    for j in range(n_scales - 2, -1, -1):
+        dec += 2.0 * stats["up_pairs"][j] * n_map * n_map        # deconv
         dec += 2.0 * rows[j] * planes[j] * n_map                 # shortcut
         dec += 2.0 * sp[j] * n_map * n_map                       # merge
     f["decoder"] = dec

@@ -30,9 +30,9 @@ from detection_3d_tpu_torch.models.backbone import build_pyramid
 from detection_3d_tpu_torch.ops import sparse_conv as tsc
 from detection_3d_tpu_torch.ops.sparse import downsample_with_rulebooks
 from detection_3d_tpu_torch.ops.sparse_conv import (
-    BackwardBook, GatherConv, backward_book, gather_conv, gather_conv_backward,
-    gather_conv_dfeats, gather_conv_dw, rulebook_entries, rulebook_row_order,
-    sparse_conv, transpose_rulebook,
+    BackwardBook, Book, GatherConv, backward_book, gather_conv,
+    gather_conv_backward, gather_conv_dfeats, gather_conv_dw,
+    rulebook_entries, rulebook_row_order, sparse_conv, transpose_rulebook,
 )
 from test_torch_common import cfg_pair, scene_tables
 
@@ -52,20 +52,22 @@ def _book(pyramid, kind):
     tables = pyr["tables"]
     n = len(tables)
     if kind == "subm":
-        return (tables[0].capacity, pyr["subm_idx"][0], tables[0].row_valid,
-                pyr["subm_bwd"][0])
-    if kind == "subm_s2":
-        return (tables[2].capacity, pyr["subm_idx"][2], tables[2].row_valid,
-                pyr["subm_bwd"][2])
-    if kind == "strided":
-        return (tables[0].capacity, pyr["down_rb"][0], tables[1].row_valid,
-                pyr["down_bwd"][0])
-    if kind == "deconv":  # decoder order: the last book maps scale 1 onto 0
-        return (tables[1].capacity, pyr["up_rb"][-1], tables[0].row_valid,
-                pyr["up_bwd"][-1])
-    bev_t, rb = pyr["bev"][0]
-    src = tables[n - 1 - tcfg.rpn.rpn_scales_from_top[0]]
-    return src.capacity, rb, bev_t.row_valid, pyr["bev_bwd"][0]
+        book, v_in, valid = pyr["subm"][0], tables[0].capacity, \
+            tables[0].row_valid
+    elif kind == "subm_s2":
+        book, v_in, valid = pyr["subm"][2], tables[2].capacity, \
+            tables[2].row_valid
+    elif kind == "strided":
+        book, v_in, valid = pyr["down"][0], tables[0].capacity, \
+            tables[1].row_valid
+    elif kind == "deconv":  # level order: up[0] maps scale 1 onto 0
+        book, v_in, valid = pyr["up"][0], tables[1].capacity, \
+            tables[0].row_valid
+    else:
+        bev_t, book = pyr["bev"][0]
+        src = tables[n - 1 - tcfg.rpn.rpn_scales_from_top[0]]
+        v_in, valid = src.capacity, bev_t.row_valid
+    return v_in, book.idx, valid, book.bwd
 
 
 def _real(idx, v_in, valid):
@@ -221,7 +223,8 @@ def test_transpose_rulebook_raises_on_a_repeated_input_row():
     # and the backward that builds its own book refuses such a book too
     feats = torch.randn((4, 2), requires_grad=True)
     w = torch.randn((2, 2, 3), requires_grad=True)
-    out = sparse_conv(feats, idx, w, torch.ones(4, dtype=torch.bool))
+    out = sparse_conv(feats, Book(idx, None), w,
+                      torch.ones(4, dtype=torch.bool))
     with pytest.raises(ValueError):
         out.sum().backward()
 
@@ -230,11 +233,14 @@ def test_serving_pyramid_builds_no_backward_books(pyramid, monkeypatch):
     from detection_3d_tpu_torch.models.detector import SparseRCNN
     tcfg, t0, _ = pyramid
     plain = build_pyramid(t0, tcfg)
-    assert not any(key.endswith("_bwd") for key in plain)
+    assert all(b.bwd is None for kind in ("subm", "down", "up")
+               for b in plain[kind])
+    assert all(b.bwd is None for _, b in plain["bev"].values())
     made = []
-    for name, fn in (("backward_book", backward_book),
-                     ("rulebook_entries", rulebook_entries)):
-        monkeypatch.setattr(tbackbone, name,
+    for module, name, fn in ((tsc, "backward_book", backward_book),
+                             (tbackbone, "rulebook_entries",
+                              rulebook_entries)):
+        monkeypatch.setattr(module, name,
                             lambda *a, _fn=fn, _n=name, **kw:
                             made.append(_n) or _fn(*a, **kw))
     model = SparseRCNN(tcfg, seed=0)
@@ -248,8 +254,8 @@ def test_serving_pyramid_builds_no_backward_books(pyramid, monkeypatch):
     n = len(books["tables"])
     assert made.count("rulebook_entries") == n + (n - 1)
     assert made.count("backward_book") == len(books["bev"])
-    assert all(isinstance(b, BackwardBook)
-               for key in ("subm_bwd", "down_bwd", "up_bwd")
+    assert all(isinstance(b.bwd, BackwardBook)
+               for key in ("subm", "down", "up")
                for b in books[key])
 
 

@@ -101,8 +101,11 @@ def _port_net(name, params):
                                    "up_rb"])
 def test_plan_levels_bit_exact(plans, field):
     jplan, tplan = plans
-    assert len(tplan[field]) == len(jplan[field])
-    for j, t in zip(jplan[field], tplan[field]):
+    # the port's Books under their kind, in JAX's level order
+    kind = {"subm_idx": "subm", "down_rb": "down", "up_rb": "up"}.get(field)
+    got = tplan["tables"] if kind is None else [b.idx for b in tplan[kind]]
+    assert len(got) == len(jplan[field])
+    for j, t in zip(jplan[field], got):
         if field == "tables":
             for attr in ("coords", "hi", "lo", "feats"):
                 np.testing.assert_array_equal(getattr(t, attr).numpy(),
@@ -120,17 +123,18 @@ def test_plan_levels_orders_and_books(plans):
         backward_book, rulebook_row_order)
     _, tplan = plans
     tables = tplan["tables"]
-    for k, idx in enumerate(tplan["subm_idx"]):
-        want = rulebook_row_order(idx, tables[k].capacity,
+    for k, book in enumerate(tplan["subm"]):
+        want = rulebook_row_order(book.idx, tables[k].capacity,
                                   tables[k].row_valid)
-        assert torch.equal(tplan["subm_order"][k].masks, want.masks)
-    for k, rb in enumerate(tplan["up_rb"]):      # level k + 1 -> level k
-        assert rb.shape == (8, tables[k].capacity)
-        want = backward_book(rb, tables[k + 1].capacity, tables[k].row_valid)
-        got = tplan["up_bwd"][k]
-        assert torch.equal(got.entries, want.entries)
-        assert torch.equal(got.starts, want.starts)
-    assert "subm_bwd" not in tfac.plan_levels(tables[0], CAPS)
+        assert torch.equal(book.order.masks, want.masks)
+    for k, book in enumerate(tplan["up"]):      # level k + 1 -> level k
+        assert book.idx.shape == (8, tables[k].capacity)
+        want = backward_book(book.idx, tables[k + 1].capacity,
+                             tables[k].row_valid)
+        assert torch.equal(book.bwd.entries, want.entries)
+        assert torch.equal(book.bwd.starts, want.starts)
+    assert all(b.bwd is None
+               for b in tfac.plan_levels(tables[0], CAPS)["subm"])
 
 
 @pytest.mark.parametrize("name", list(NETS))

@@ -18,7 +18,7 @@ import torch
 from detection_3d_tpu.ops.sparse_conv import gather_conv as j_gather_conv
 from detection_3d_tpu_torch.models.backbone import build_pyramid
 from detection_3d_tpu_torch.ops.sparse_conv import (
-    GatherConv, gather_conv_backward, sparse_conv)
+    Book, GatherConv, gather_conv_backward, sparse_conv)
 from test_torch_common import cfg_pair, scene_tables
 
 
@@ -31,18 +31,19 @@ def books():
     pyr = build_pyramid(t0, tcfg)
     tables = pyr["tables"]
     n = len(tables)
-    bev_t, bev_rb = pyr["bev"][0]
+    bev_t, bev_book = pyr["bev"][0]
     src3d = tables[n - 1 - tcfg.rpn.rpn_scales_from_top[0]]
     return {
-        "subm": (tables[0].capacity, pyr["subm_idx"][0], tables[0].row_valid),
-        "subm_s2": (tables[2].capacity, pyr["subm_idx"][2],
+        "subm": (tables[0].capacity, pyr["subm"][0].idx,
+                 tables[0].row_valid),
+        "subm_s2": (tables[2].capacity, pyr["subm"][2].idx,
                     tables[2].row_valid),
-        "strided": (tables[0].capacity, pyr["down_rb"][0],
+        "strided": (tables[0].capacity, pyr["down"][0].idx,
                     tables[1].row_valid),
-        # up_rb is in decoder order: its last book maps scale 1 onto 0
-        "deconv": (tables[1].capacity, pyr["up_rb"][-1],
+        # level order: up[0] maps scale 1 onto 0
+        "deconv": (tables[1].capacity, pyr["up"][0].idx,
                    tables[0].row_valid),
-        "bev": (src3d.capacity, bev_rb, bev_t.row_valid),
+        "bev": (src3d.capacity, bev_book.idx, bev_t.row_valid),
     }
 
 
@@ -72,7 +73,7 @@ def test_backward_matches_jax_vjp(books, kind):
 
     f_t = torch.from_numpy(feats).requires_grad_()
     w_t = torch.from_numpy(w).requires_grad_()
-    out = sparse_conv(f_t, idx, w_t, valid)
+    out = sparse_conv(f_t, Book(idx, None), w_t, valid)
     assert type(out.grad_fn).__name__ == "GatherConvBackward"
     out.backward(torch.from_numpy(g))
     np.testing.assert_allclose(f_t.grad.numpy(), want_f, atol=1e-5, rtol=0)
@@ -100,7 +101,7 @@ def test_backward_returns_input_dtypes_and_skips_index_grads(books):
     assert d_f.dtype == d_w.dtype == torch.bfloat16
     # no gradient is asked of the features: only dW is formed
     w_t = torch.from_numpy(w).requires_grad_()
-    out = sparse_conv(torch.from_numpy(feats), idx, w_t, valid)
+    out = sparse_conv(torch.from_numpy(feats), Book(idx, None), w_t, valid)
     out.sum().backward()
     assert w_t.grad is not None and w_t.grad.shape == w.shape
 
@@ -109,8 +110,8 @@ def test_no_grad_forward_skips_the_function(books):
     v_in, idx, valid = books["strided"]
     feats, w, _ = _inputs(v_in, idx.shape[0], 4, 4, idx.shape[1], seed=2)
     with torch.no_grad():
-        out = sparse_conv(torch.from_numpy(feats),
-                          idx, torch.from_numpy(w).requires_grad_(), valid)
+        out = sparse_conv(torch.from_numpy(feats), Book(idx, None),
+                          torch.from_numpy(w).requires_grad_(), valid)
     assert out.grad_fn is None
 
 

@@ -56,10 +56,11 @@ from detection_3d_tpu_torch.ops.sparse import (
     neighbor_match_columns, submanifold_offsets, subm_match_cuda,
 )
 from detection_3d_tpu_torch.ops.sparse_conv import (
-    BackwardBook, RowOrder, backward_book, gather_conv, gather_conv_backward,
-    gather_conv_cuda, gather_conv_dfeats, gather_conv_dfeats_cuda,
-    gather_conv_dw, gather_conv_dw_cuda, masks_row_order, row_masks,
-    rulebook_entries, rulebook_row_order, sparse_conv, weights_book,
+    BackwardBook, Book, RowOrder, backward_book, gather_conv,
+    gather_conv_backward, gather_conv_cuda, gather_conv_dfeats,
+    gather_conv_dfeats_cuda, gather_conv_dw, gather_conv_dw_cuda,
+    masks_row_order, row_masks, rulebook_entries, rulebook_row_order,
+    sparse_conv, weights_book,
 )
 from torch_iou_cases import adversarial_bev
 from torch_match_cases import D_TABLES, MATCH_CASES, d_queries
@@ -146,7 +147,7 @@ def test_gather_conv_matches_plain(dev, dtype, kind, cin, cout):
          * 0.2).to(dtype)
     valid = out_t.row_valid
     before = cuda_lib.launches["gather_conv"]
-    got = sparse_conv(feats, idx, w, valid)
+    got = sparse_conv(feats, Book(idx, None), w, valid)
     assert cuda_lib.launches["gather_conv"] == before + 1
     want = gather_conv(feats, idx, w, valid)
     assert got.dtype == dtype
@@ -395,7 +396,7 @@ def test_gather_conv_function_on_a_pyramid_book(dev, kind):
     order = rulebook_row_order(idx, v_in, valid)
     book = _pyramid_book(idx, v_in, valid, order, kind)
     cuda_lib.reset_launches()
-    out = sparse_conv(feats, idx, w, valid, order, book)
+    out = sparse_conv(feats, Book(idx, order, book), w, valid)
     g = torch.randn(out.shape, generator=gen, device=dev)
     out.backward(g)
     torch.cuda.synchronize()
@@ -417,7 +418,8 @@ def test_gather_conv_function_launches_both_backward_kernels(dev):
     w = (torch.randn((27, 16, 16), generator=gen, device=dev)
          * 0.1).requires_grad_()
     cuda_lib.reset_launches()
-    sparse_conv(feats, idx, w, t.row_valid).square().sum().backward()
+    sparse_conv(feats, Book(idx, None), w,
+                t.row_valid).square().sum().backward()
     torch.cuda.synchronize()
     assert cuda_lib.launches["gather_conv"] == 1
     assert cuda_lib.launches["gather_conv_dfeats"] == 1
@@ -620,20 +622,17 @@ def test_host_pyramid_on_card_matches_build_pyramid(dev):
     for a, b in zip(got["tables"], want["tables"], strict=True):
         for f in ("coords", "hi", "lo", "keys", "num"):
             assert torch.equal(getattr(a, f), getattr(b, f)), f
-    for key in ("subm_idx", "down_rb", "up_rb"):
+    for key in ("subm", "down", "up"):
         for a, b in zip(got[key], want[key], strict=True):
-            assert torch.equal(a, b), key
-    for key in ("subm_order", "down_order", "up_order"):
-        for a, b in zip(got[key], want[key], strict=True):
-            assert torch.equal(a.perm, b.perm) and torch.equal(a.masks,
-                                                               b.masks), key
-    for slot, (t, rb) in want["bev"].items():
-        gt, grb = got["bev"][slot]
-        assert torch.equal(gt.coords, t.coords) and torch.equal(grb, rb)
-        assert torch.equal(got["bev_order"][slot].perm,
-                           want["bev_order"][slot].perm)
-        assert torch.equal(got["bev_order"][slot].masks,
-                           want["bev_order"][slot].masks)
+            assert torch.equal(a.idx, b.idx), key
+            assert torch.equal(a.order.perm, b.order.perm) and torch.equal(
+                a.order.masks, b.order.masks), key
+    for slot, (t, book) in want["bev"].items():
+        gt, gbook = got["bev"][slot]
+        assert torch.equal(gt.coords, t.coords)
+        assert torch.equal(gbook.idx, book.idx)
+        assert torch.equal(gbook.order.perm, book.order.perm)
+        assert torch.equal(gbook.order.masks, book.order.masks)
 
 
 @pytest.mark.parametrize("batch_size", [1, 2])
@@ -680,9 +679,10 @@ def test_host_training_pyramid_on_card_matches_build_pyramid(dev):
     packed = to_device(pack_pyramid_native(cfg, scene, backward=True), dev)
     got = unpack_pyramid(cfg, packed, backward=True)
     want = build_pyramid(unpack_table(cfg, packed), cfg, backward=True)
-    pairs = [(a, b) for key in ("subm_bwd", "down_bwd", "up_bwd")
+    pairs = [(a.bwd, b.bwd) for key in ("subm", "down", "up")
              for a, b in zip(got[key], want[key], strict=True)]
-    pairs += [(got["bev_bwd"][s], want["bev_bwd"][s]) for s in want["bev"]]
+    pairs += [(got["bev"][s][1].bwd, want["bev"][s][1].bwd)
+              for s in want["bev"]]
     assert len(pairs) == 3 * cfg.sparse3d.num_scales - 2 + len(want["bev"])
     for a, b in pairs:
         for f in ("t_idx", "entries", "starts"):
@@ -1294,8 +1294,8 @@ def test_stem_weights_book_dw(dev, dtype):
          * 0.1).to(dtype).requires_grad_()
     g = torch.randn((t.capacity, 32), generator=gen, device=dev).to(dtype)
     before = dict(cuda_lib.launches)
-    out = sparse_conv(feats, idx, w, t.row_valid, masks_row_order(masks),
-                      book)
+    out = sparse_conv(feats, Book(idx, masks_row_order(masks), book), w,
+                      t.row_valid)
     out.backward(g)
     torch.cuda.synchronize()
     assert cuda_lib.launches["gather_conv_dw"] == before["gather_conv_dw"] + 1

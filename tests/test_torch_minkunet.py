@@ -15,8 +15,7 @@ import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile
 
 from detection_3d_tpu_torch.config.defaults import CapacityConfig
-from detection_3d_tpu_torch.engine.trainer import (
-    Trainer, pad_scene, training_forward)
+from detection_3d_tpu_torch.engine.trainer import Trainer, pad_scene
 from detection_3d_tpu_torch.models import minkunet
 from detection_3d_tpu_torch.models.minkunet import (
     MinkUNet34C, MinkUNetConfig, segmentation_loss, voxel_labels)
@@ -24,7 +23,7 @@ from detection_3d_tpu_torch.ops.sparse import (
     build_sparse_tensor, neighbor_indices, neighbor_match_3x3x3,
     neighbor_match, neighbor_match_columns, submanifold_offsets)
 from detection_3d_tpu_torch.ops.sparse_conv import (
-    gather_conv, masks_row_order, row_masks, rulebook_row_order,
+    Book, gather_conv, masks_row_order, row_masks, rulebook_row_order,
     sparse_conv, weights_book)
 from detection_3d_tpu_torch.utils.profiling import recorded_spans
 from perfbench.reference import minkunet as ref
@@ -190,14 +189,14 @@ def test_weights_book_gives_dw_alone():
     w = torch.randn((125, 3, 5), generator=gen, dtype=torch.float64)
     g = torch.randn((t.capacity, 5), generator=gen, dtype=torch.float64)
     w1 = w.clone().requires_grad_()
-    sparse_conv(x, book, w1, t.row_valid, masks_row_order(masks),
-                bwd).backward(g)
+    sparse_conv(x, Book(book, masks_row_order(masks), bwd), w1,
+                t.row_valid).backward(g)
     w2 = w.clone().requires_grad_()
     gather_conv(x, book, w2, t.row_valid).backward(g)
     torch.testing.assert_close(w1.grad, w2.grad, rtol=1e-12, atol=1e-12)
     with pytest.raises(ValueError, match="no transpose"):
-        sparse_conv(x.requires_grad_(), book, w, t.row_valid, None,
-                    bwd).backward(g)
+        sparse_conv(x.requires_grad_(), Book(book, None, bwd), w,
+                    t.row_valid).backward(g)
 
 
 # -- labels ----------------------------------------------------------------
@@ -418,26 +417,6 @@ def test_trainer_step_matches_the_reference_step(tmp_path):
         torch.testing.assert_close(p, q, rtol=0,
                                    atol=1e-5 * float(q.abs().max()) + 1e-9,
                                    msg=name)
-
-
-def test_training_forward_takes_the_model_loss_method():
-    """training_forward hands a model with its own loss method the
-    batch; a model without one is the detector's path."""
-    calls = []
-
-    class Own(torch.nn.Module):
-        def training_losses(self, *args):
-            calls.append(args)
-            return {"x": torch.zeros(())}, None, torch.tensor(1)
-
-    cfg = MinkUNetConfig()
-    out = training_forward(cfg, Own(), {"b": 1}, "cpu", None, {}, False)
-    assert out[0]["x"] == 0 and calls == [(cfg, {"b": 1}, "cpu", None, {},
-                                           False)]
-    with pytest.raises(ValueError, match="point_labels"):
-        MinkUNet34C(**{k: v for k, v in SMALL.items()
-                       if k in ("planes", "init_dim", "compute_dtype")}
-                    ).training_losses(cfg, {}, "cpu")
 
 
 def test_plan_span_attributes():

@@ -71,6 +71,21 @@ def test_every_module_imports_with_jax_blocked():
         assert f"detection_3d_tpu_torch.{mod}" in res.stdout.split(), mod
 
 
+@pytest.mark.parametrize("module", ["data.packing", "data.pyramid_packing",
+                                    "data.native_packer"])
+def test_data_formats_import_no_engine(module):
+    """The input formats sit below the engine: importing them loads no
+    module of detection_3d_tpu_torch.engine."""
+    code = (f"import sys, detection_3d_tpu_torch.{module}\n"
+            "print(sorted(m for m in sys.modules\n"
+            "      if m.startswith('detection_3d_tpu_torch.engine')))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split() == ["[]"], res.stdout
+
+
 def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch, tmp_path):
     from detection_3d_tpu_torch.config.defaults import Config
     from detection_3d_tpu_torch.engine.inference import (
@@ -198,9 +213,9 @@ def test_tensor_entry_points_run_where_their_tensors_are(monkeypatch):
         assert out.device.type == "cpu"
     t1 = plan["tables"][1]
     assert torch.equal(conv_rulebook(t1, t0, (2, 2, 2), (2, 2, 2)),
-                       plan["down_rb"][0])
+                       plan["down"][0].idx)
     assert torch.equal(deconv_rulebook(t0, t1, (2, 2, 2), (2, 2, 2)),
-                       plan["up_rb"][0])
+                       plan["up"][0].idx)
     boxes = torch.from_numpy(np.random.RandomState(0).rand(20, 7)
                              .astype(np.float32))
     keep, _ = rotate_nms_3d(boxes, torch.rand(20), torch.ones(20,

@@ -127,11 +127,13 @@ def test_unpacked_books_equal_build_pyramid(case, kind):
     want = build_pyramid(unpack_table(cfg, packed), cfg, backward=True)
     assert set(got) == set(want)
     if kind == "bev_bwd":
-        assert set(got[kind]) == set(want[kind])
-        pairs = [(got[kind][s], want[kind][s]) for s in want[kind]]
-    else:
-        assert len(got[kind]) == len(want[kind]) > 0
-        pairs = list(zip(got[kind], want[kind]))
+        assert set(got["bev"]) == set(want["bev"])
+        pairs = [(got["bev"][s][1].bwd, want["bev"][s][1].bwd)
+                 for s in want["bev"]]
+    else:       # the backward books of the kind's Books
+        key = kind[:-len("_bwd")]
+        assert len(got[key]) == len(want[key]) > 0
+        pairs = [(a.bwd, b.bwd) for a, b in zip(got[key], want[key])]
     for i, (a, b) in enumerate(pairs):
         _assert_books_equal(a, b, f"{kind}[{i}]")
 

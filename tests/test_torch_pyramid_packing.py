@@ -102,19 +102,17 @@ def test_unpack_pyramid_matches_build_pyramid(case):
     for k, (a, b) in enumerate(zip(got["tables"], want["tables"],
                                    strict=True)):
         _assert_tables_equal(a, b, f"table{k}")
-    for key in ("subm_idx", "down_rb", "up_rb"):
+    for key in ("subm", "down", "up"):
         for i, (a, b) in enumerate(zip(got[key], want[key], strict=True)):
-            _eq(a, b, f"{key}[{i}]")
-    for key in ("subm_order", "down_order", "up_order"):
-        for i, (a, b) in enumerate(zip(got[key], want[key], strict=True)):
-            _assert_orders_equal(a, b, f"{key}[{i}]")
-    assert set(got["bev"]) == set(want["bev"]) == set(got["bev_order"])
+            _eq(a.idx, b.idx, f"{key}[{i}].idx")
+            _assert_orders_equal(a.order, b.order, f"{key}[{i}].order")
+            assert a.bwd is b.bwd is None
+    assert set(got["bev"]) == set(want["bev"])
     for slot in want["bev"]:
         (ta, ra), (tb, rb) = got["bev"][slot], want["bev"][slot]
         _assert_tables_equal(ta, tb, f"bev{slot}")
-        _eq(ra, rb, f"bev{slot}.rb")
-        _assert_orders_equal(got["bev_order"][slot],
-                             want["bev_order"][slot], f"bev_order{slot}")
+        _eq(ra.idx, rb.idx, f"bev{slot}.rb")
+        _assert_orders_equal(ra.order, rb.order, f"bev{slot}.order")
 
 
 @pytest.mark.parametrize("k", [1, 8, 9, 27, 33, 64])

@@ -22,7 +22,7 @@ from detection_3d_tpu.ops.sparse_conv import gather_conv as j_gather_conv
 from detection_3d_tpu_torch.models.backbone import SparseFPN, build_pyramid
 from detection_3d_tpu_torch.ops import sparse_conv as tsc
 from detection_3d_tpu_torch.ops.sparse_conv import (
-    RowOrder, gather_conv, row_masks, rulebook_row_order, sparse_conv,
+    Book, RowOrder, gather_conv, row_masks, rulebook_row_order, sparse_conv,
 )
 from test_torch_common import cfg_pair, scene_tables
 
@@ -43,17 +43,17 @@ def _book(pyramid, kind):
     cap = [t.capacity for t in tables]
     valid = [t.row_valid for t in tables]
     if kind == "subm":
-        return cap[0], pyr["subm_idx"][0], valid[0], pyr["subm_order"][0]
+        return cap[0], pyr["subm"][0].idx, valid[0], pyr["subm"][0].order
     if kind == "subm_s2":
-        return cap[2], pyr["subm_idx"][2], valid[2], pyr["subm_order"][2]
+        return cap[2], pyr["subm"][2].idx, valid[2], pyr["subm"][2].order
     if kind == "down":
-        return cap[0], pyr["down_rb"][0], valid[1], pyr["down_order"][0]
-    if kind == "up":     # decoder order: the last book maps scale 1 onto 0
-        return cap[1], pyr["up_rb"][-1], valid[0], pyr["up_order"][-1]
+        return cap[0], pyr["down"][0].idx, valid[1], pyr["down"][0].order
+    if kind == "up":     # level order: up[0] maps scale 1 onto 0
+        return cap[1], pyr["up"][0].idx, valid[0], pyr["up"][0].order
     n = len(tables)
-    bev_t, rb = pyr["bev"][0]
+    bev_t, book = pyr["bev"][0]
     src = tables[n - 1 - tcfg.rpn.rpn_scales_from_top[0]]
-    return src.capacity, rb, bev_t.row_valid, pyr["bev_order"][0]
+    return src.capacity, book.idx, bev_t.row_valid, book.order
 
 
 @pytest.mark.parametrize("kind", KINDS)
@@ -157,7 +157,7 @@ def test_gradient_through_the_order(pyramid):
     for o in (order, None):
         tf = torch.from_numpy(feats).requires_grad_()
         tw = torch.from_numpy(w).requires_grad_()
-        out = sparse_conv(tf, idx, tw, valid, o)
+        out = sparse_conv(tf, Book(idx, o), tw, valid)
         (out * out).sum().backward()
         res.append((out.detach(), tf.grad, tw.grad))
     for a, b in zip(*res):
@@ -186,9 +186,10 @@ def test_sparse_fpn_passes_every_book_its_order(pyramid, monkeypatch):
         rpn, roi = model(t0, pyr)
     assert seen and all(isinstance(o, RowOrder) for o in seen)
     bare = dict(pyr)
-    for key in ("subm_order", "down_order", "up_order"):
-        bare[key] = [None] * len(pyr[key])
-    bare["bev_order"] = {s: None for s in pyr["bev_order"]}
+    for key in ("subm", "down", "up"):
+        bare[key] = [b._replace(order=None) for b in pyr[key]]
+    bare["bev"] = {s: (t, b._replace(order=None))
+                   for s, (t, b) in pyr["bev"].items()}
     with torch.inference_mode():
         rpn0, roi0 = model(t0, bare)
     for a, b in zip(rpn + roi, rpn0 + roi0):

@@ -24,11 +24,10 @@ from detection_3d_tpu.engine.inference import make_predict_fn as j_predict_fn
 from detection_3d_tpu.models.detector import (
     SparseRCNN as JRCNN, voxelize_points as jvox)
 from detection_3d_tpu.models.structures import Boxes3D as JBoxes3D
-from detection_3d_tpu_torch.data.packing import pack_table
+from detection_3d_tpu_torch.data.packing import batch_to_device, pack_table
 from detection_3d_tpu_torch.engine.inference import (
     make_batch_predict_fn, make_predict_fn, pad_scene)
-from detection_3d_tpu_torch.engine.trainer import (
-    Trainer, batch_to_device, total_loss)
+from detection_3d_tpu_torch.engine.trainer import Trainer, total_loss
 from detection_3d_tpu_torch.models.detector import (
     SparseRCNN, rpn_detections, voxelize_points)
 from detection_3d_tpu_torch.models.separate_classifier import (

@@ -41,12 +41,13 @@ from detection_3d_tpu.models.detector import (
 from detection_3d_tpu.models.structures import Boxes3D as JBoxes3D
 from detection_3d_tpu_torch.config import defaults as tdefaults
 from detection_3d_tpu_torch.data import pyramid_packing as tpyr
-from detection_3d_tpu_torch.data.packing import to_device, unpack_table
+from detection_3d_tpu_torch.data.packing import (
+    batch_to_device, to_device, unpack_table)
 from detection_3d_tpu_torch.data.synthetic import synthetic_building
 from detection_3d_tpu_torch.engine.inference import (
     make_predict_fn, pad_scene, run_inference)
 from detection_3d_tpu_torch.engine.trainer import (
-    Trainer, batch_to_device, grads_finite, total_loss)
+    Trainer, grads_finite, total_loss)
 from detection_3d_tpu_torch.models import separate_classifier as tsep
 from detection_3d_tpu_torch.models.detector import (
     SparseRCNN, voxelize_points)

@@ -20,7 +20,7 @@ from detection_3d_tpu_torch.ops import cuda_lib
 from detection_3d_tpu_torch.ops import sparse as tsparse
 from detection_3d_tpu_torch.ops.norm import batch_norm_leaky_relu as t_bn
 from detection_3d_tpu_torch.ops.sparse_conv import (
-    gather_conv, nin_conv, sparse_conv,
+    Book, gather_conv, nin_conv, sparse_conv,
 )
 from test_torch_common import random_coords, table_pair  # noqa: F401
 
@@ -93,7 +93,7 @@ def test_sparse_conv_on_cpu_is_the_plain_version():
     feats = torch.from_numpy(rng.randn(tt.capacity, 8).astype(np.float32))
     w = torch.from_numpy(rng.randn(27, 8, 8).astype(np.float32))
     before = dict(cuda_lib.launches)
-    got = sparse_conv(feats, idx, w, tt.row_valid)
+    got = sparse_conv(feats, Book(idx, None), w, tt.row_valid)
     torch.testing.assert_close(got, gather_conv(feats, idx, w, tt.row_valid),
                                rtol=0, atol=0)
     assert cuda_lib.launches == before    # no kernel launched on the CPU

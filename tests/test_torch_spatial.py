@@ -297,9 +297,10 @@ def test_spatial_pyramid_bit_exact_vs_jax(ref, tmp_path):
                "own_valid": pyr["own_valid"],
                "halos": [{f: getattr(e["halo"], f) for f in halo_fields}
                          for e in pyr["subm_idx"]],
-               "subm_idx": [e["idx"] for e in pyr["subm_idx"]],
-               "down_rb": [e["idx"] for e in pyr["down_rb"]],
-               "up_rb": [e["idx"] for e in pyr["up_rb"]],
+               "subm": [e["idx"] for e in pyr["subm_idx"]],
+               "down": [e["idx"] for e in pyr["down_rb"]],
+               # JAX's decoder order to the port's level order
+               "up": [e["idx"] for e in pyr["up_rb"]][::-1],
                "bev": {s: (fields(t), rb) for s, (t, rb) in
                        pyr["bev"].items()},
                "overflow": pyr["halo_overflow"]}
@@ -382,7 +383,7 @@ def test_shard_backward_books_are_not_the_reversed_book(tmp_path):
                        HALO_CAPS))
     differ = 0
     for out in res:
-        for idx, own in zip(out["subm_idx"], out["own_valid"]):
+        for idx, own in zip(out["subm"], out["own_valid"]):
             idx, own = torch.from_numpy(idx), torch.from_numpy(own)
             v = idx.shape[1]
             t, _ = transpose_rulebook(idx, v, own)

@@ -77,10 +77,9 @@ def test_pyramid_subm_order_from_masks(backward):
     _, tcfg = cfg_pair()
     _, tt = scene_tables(*cfg_pair())
     pyr = build_pyramid(tt, tcfg, backward=backward)
-    for k, (t, idx, order) in enumerate(zip(pyr["tables"], pyr["subm_idx"],
-                                            pyr["subm_order"])):
-        want = rulebook_row_order(idx, t.capacity, t.row_valid)
-        assert torch.equal(order.perm, want.perm), k
-        assert torch.equal(order.masks, want.masks), k
+    for k, (t, book) in enumerate(zip(pyr["tables"], pyr["subm"])):
+        want = rulebook_row_order(book.idx, t.capacity, t.row_valid)
+        assert torch.equal(book.order.perm, want.perm), k
+        assert torch.equal(book.order.masks, want.masks), k
         if backward:
-            assert pyr["subm_bwd"][k].t_order is order
+            assert book.bwd.t_order is book.order

@@ -25,8 +25,8 @@ from detection_3d_tpu.engine.solver import make_optimizer
 from detection_3d_tpu.models.detector import (
     SparseRCNN as JRCNN, voxelize_points as jvox)
 from detection_3d_tpu.models.structures import Boxes3D as JBoxes3D
-from detection_3d_tpu_torch.engine.trainer import (
-    Trainer, batch_to_device, pad_scene, total_loss)
+from detection_3d_tpu_torch.data.packing import batch_to_device, pad_scene
+from detection_3d_tpu_torch.engine.trainer import Trainer, total_loss
 from detection_3d_tpu_torch.models.detector import (
     SparseRCNN, voxelize_points)
 from detection_3d_tpu_torch.utils.convert import convert_jax_params
