@@ -16,9 +16,11 @@
     python3 chip_smoke.py --minkunet     # only MinkUNet34C's phase (4d)
     python3 chip_smoke.py --bn           # only the masked BN kernels at
                                          # the main paths' sites
+    python3 chip_smoke.py --roi          # only the ROI pooler's kernels
+                                         # at the main paths' shapes
 
 1. Prints the card's name and power limit (nvidia-smi).
-2. Builds the port's six CUDA sources from detection_3d_tpu_torch/csrc
+2. Builds the port's eight CUDA sources from detection_3d_tpu_torch/csrc
    (one nvcc per source, all started together) and, beside them, the C++
    pyramid packer and scene loader (g++), and prints the build time.
 3. Holds each kernel against its plain PyTorch version on the card, at
@@ -217,6 +219,16 @@
 8. Small inputs, card against CPU: one building through predict, and one
    training step with the same weights and sampler draws (losses and
    every gradient).
+8b. The masked BN kernels at the main paths' sites (--bn), then the ROI
+   pooler (csrc/roi_align.cu, --roi) at the pooler calls of one served
+   building, a unit of 4 and a 3G6c training forward: the forward
+   against the plain version on the rows in f32 (each bf16 bin within
+   one bf16 step), the backward against its autograd (f32), one forward
+   launch a pool_rois call and one backward on the training path; the
+   device ms of each kernel beside the plain version's and the bound
+   (the bytes that must move, and the corner rows read from L2). Every
+   path through the ROI head must launch the forward (a training path
+   the backward too), seg_train and rpn_only neither.
 9. Prints the card line, a JSON line of per-kernel numbers and, last,
    {"ok": true, "device": {...}}.
 
@@ -280,13 +292,20 @@ def time_ms(fn, iters=10):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, symbols, iters=10):
+def device_ms(fn, symbols, iters=10, expect=None):
     """Mean device time per call of ``fn`` spent in kernels whose names
-    hold one of ``symbols``, from torch.profiler over ``iters`` calls
-    after a warm-up call. Where those kernels are shorter than the host
-    takes to launch them, :func:`time_ms` measures the launch rate and
-    this the kernels. None when two profiles in a row record none of
-    those kernels."""
+    hold one of ``symbols`` (every device activity where ``symbols`` is
+    None), from torch.profiler over ``iters`` calls after a warm-up call.
+    Where those kernels are shorter than the host takes to launch them,
+    :func:`time_ms` measures the launch rate and this the kernels. None
+    when two profiles in a row record none of those kernels.
+
+    ``expect``: the kernels of ``symbols`` that one call launches. The
+    profile then runs one call more, first, and takes the last ``iters *
+    expect`` of them; a profile that records fewer is not taken (the
+    profiler lost activity records), a line says how many it recorded
+    and how many kernel launches the host made, and None is returned
+    when two in a row fall short: no number rather than a low one."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -294,12 +313,28 @@ def device_ms(fn, symbols, iters=10):
     for _ in range(2):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
+            for _ in range(iters + (expect is not None)):
                 fn()
             torch.cuda.synchronize()
-        evs = [e for e in prof.events()
-               if getattr(e, "device_type", None) == DeviceType.CUDA
-               and any(sym in e.name for sym in symbols)]
+        events = prof.events()
+        evs = sorted((e for e in events
+                      if getattr(e, "device_type", None) == DeviceType.CUDA
+                      and (symbols is None
+                           or any(sym in e.name for sym in symbols))),
+                     key=lambda e: e.time_range.start)
+        if expect is not None:
+            want = iters * expect
+            if len(evs) < want:
+                launched = sum(
+                    1 for e in events
+                    if getattr(e, "device_type", None) == DeviceType.CPU
+                    and e.name.startswith("cudaLaunchKernel"))
+                print(f"device_ms {symbols}: the profiler recorded "
+                      f"{len(evs)} of {want + expect} kernels over "
+                      f"{iters + 1} calls ({launched} kernel launches "
+                      "recorded on the host): not taken")
+                continue
+            evs = evs[-want:]
         if evs:
             return sum(e.time_range.elapsed_us() for e in evs) / 1e3 / iters
     return None
@@ -2392,9 +2427,9 @@ def packed_vs_table_step(cfg, packed_np, dev):
     the table form against itself. Under torch's deterministic algorithms
     (warn_only; the ops without one are listed) the table form must
     repeat its bits and the packed form must give the same bits: losses
-    and every gradient. In the default mode the bf16 index_add of the
-    backward sums through atomics, so the gradients differ from run to
-    run; their largest differences against 1e-3 of the largest entry +
+    and every gradient. In the default mode scatters sum through
+    atomics, so the gradients may differ from run to run; their largest
+    differences against 1e-3 of the largest entry +
     1e-5 (the card-vs-CPU check's tolerance) are printed, and the losses
     must agree within 1e-4 of the largest."""
     import copy
@@ -4759,6 +4794,25 @@ def main():
                          else BN_KERNELS[:2]) if counts[k] == 0]
     check(not missing, "masked BN: not launched: " + ", ".join(missing))
 
+    # ---- the ROI pooler: its shapes, and its launches on every path ----
+    t0 = time.perf_counter()
+    rep_roi = roi_path(cfg, scenes, dev)
+    torch.cuda.empty_cache()
+    print(f"ROI phase: {time.perf_counter() - t0:.1f} s")
+    # every path through the detector's ROI head launches the forward, a
+    # path that trains the backward too; MinkUNet34C and the rpn_only
+    # model have no ROI head
+    print("ROI launches by path: " + json.dumps(
+        {path: [counts[k] for k in ROI_KERNELS]
+         for path, counts in bn_paths.items()}))
+    missing = [f"{k} on {path}" for path, counts in bn_paths.items()
+               if path not in ROI_BYPASS
+               for k in (ROI_KERNELS if "train" in path or path == "dataprep"
+                         else ROI_KERNELS[:1]) if counts[k] == 0]
+    missing += [f"none on {path}" for path in ROI_BYPASS
+                if any(bn_paths[path][k] for k in ROI_KERNELS)]
+    check(not missing, "ROI: launches wrong: " + ", ".join(missing))
+
     # launches: each kernel's count on the path it serves (training for
     # A, A', B, C; a spatial shard's serving, rank 0's, for D); every
     # path's count beside
@@ -4781,6 +4835,18 @@ def main():
     spec += [(name, "masked_bn.cu",
               "detection_3d_tpu/ops/norm.py (XLA's fusion)", rep_bn, train)
              for name in BN_KERNELS]
+    rep_roi_bwd = {"max_abs_err": rep_roi["max_abs_err"],
+                   "ms": rep_roi["bwd"]["bwd_ms"],
+                   "device_ms": rep_roi["bwd"]["bwd_device_ms"],
+                   "kernels_device_ms": rep_roi["bwd"][
+                       "bwd_kernels_device_ms"],
+                   "plain_ms": rep_roi["bwd"]["plain_bwd_ms"],
+                   "bound_ms": rep_roi["bwd"]["bwd_bound_ms"],
+                   "bound_by": "bytes: the gradient read, the rows' "
+                               "gradient written", "library_ms": None}
+    spec += [(name, "roi_align.cu",
+              "detection_3d_tpu/ops/roi_align.py (XLA's fusion)", rep, train)
+             for name, rep in zip(ROI_KERNELS, (rep_roi, rep_roi_bwd))]
     kernels = []
     for name, src, replaces, rep, path in spec:
         kernels.append({
@@ -4815,7 +4881,8 @@ def main():
             "library_ms": rep.get("library_ms")})
         if "bound_all_pairs_ms" in rep:
             kernels[-1]["bound_all_pairs_ms"] = rep["bound_all_pairs_ms"]
-        for key in ("device_ms", "compare_ms"):   # E
+        for key in ("device_ms", "compare_ms",   # E
+                    "kernels_device_ms"):          # ROI'
             if key in rep:
                 kernels[-1][key] = rep[key]
         if rep.get("library_ms") is not None:
@@ -4824,6 +4891,8 @@ def main():
                 "composite queries: the lower bound only")
         if name == BN_KERNELS[0]:  # every site, once
             kernels[-1]["sites"] = rep_bn["sites"]
+        if name == ROI_KERNELS[0]:  # every shape, once
+            kernels[-1]["shapes"] = rep_roi["shapes"]
         if name == "subm_match":   # the sums over the 9 tables of a building
             kernels[-1].update(rep_b_sum)
         if name in rep_unit:       # at the shapes of a unit of buildings
@@ -5329,11 +5398,307 @@ def bn_main():
     return 0
 
 
+# the ROI pooler's launch counters and device symbols (csrc/roi_align.cu),
+# and the paths that have no ROI head
+ROI_KERNELS = ("roi_align", "roi_align_bwd")
+ROI_FWD, ROI_BWD = "roi_align_rotated_fwd", "roi_align_rotated_bwd"
+ROI_BYPASS = ("seg_train", "rpn_only")
+
+
+def _capture_pools(fn):
+    """Run ``fn`` and return the arguments of every roi_align_rotated_sparse
+    call pool_rois made in it: [(table, rois, roi_valid, out_size, sr,
+    roi_batch)]."""
+    from detection_3d_tpu_torch.models import roi_head
+    calls = []
+    pool = roi_head.roi_align_rotated_sparse
+
+    def spy(table, rois, roi_valid, out_size, sr=2, roi_batch=None):
+        calls.append((table, rois, roi_valid, tuple(out_size), sr,
+                      roi_batch))
+        return pool(table, rois, roi_valid, out_size, sr, roi_batch)
+
+    roi_head.roi_align_rotated_sparse = spy
+    try:
+        fn()
+    finally:
+        roi_head.roi_align_rotated_sparse = pool
+    return calls
+
+
+def _fresh(call):
+    """A captured pooler call with its tensors copied out of the forward
+    (an inference tensor takes no part in autograd); the table's rows
+    keep whether they took a gradient."""
+    from detection_3d_tpu_torch.ops.sparse import SparseTensor
+    t, rois, valid, out_size, sr, level = call
+    feats = t.feats.detach().clone().requires_grad_(t.feats.requires_grad)
+    t = SparseTensor(t.coords.clone(), feats, t.hi.clone(), t.lo.clone(),
+                     t.num.clone(), t.spatial_size, t.batch_size,
+                     t.true_num.clone(), t.keys.clone())
+    return (t, rois.clone(), valid.clone(), out_size, sr,
+            None if level is None else level.clone())
+
+
+def roi_pools(cfg, scenes, dev, gcfg=None):
+    """The pooler's arguments at the main paths' shapes, each with the
+    ROI launches of the path that made it: one building served (an eager
+    predict), a unit of 4 (the batched predict in table mode) and one
+    3G6c training forward (its 3 groups; ``gcfg``, by default ``cfg``
+    with the 3G6c groups; the table's rows take a gradient). Returns
+    [(name, call, launches of the path, its pool_rois calls)]."""
+    from detection_3d_tpu_torch.data.native_packer import pack_table_native
+    from detection_3d_tpu_torch.data.packing import to_device
+    from detection_3d_tpu_torch.engine.inference import (
+        make_batch_predict_fn, make_predict_fn, pad_scene)
+    from detection_3d_tpu_torch.engine.trainer import (
+        batch_to_device, total_loss)
+    from detection_3d_tpu_torch.models.detector import (
+        SparseRCNN, voxelize_points)
+    from detection_3d_tpu_torch.ops import cuda_lib
+    from detection_3d_tpu_torch.tools.overfit_check import GROUPS_3G6C
+    out = []
+    model = SparseRCNN(cfg, seed=0).to(dev).eval()
+    one = make_predict_fn(cfg, model, dev, graph=False)
+    unit = make_batch_predict_fn(cfg, model, dev, packed="table", graph=False)
+    packs = [pack_table_native(cfg, s) for s in scenes[1:5]]
+    stacked = to_device({k: np.stack([p[k] for p in packs])
+                         for k in packs[0]}, dev)
+    batch = pad_scene(cfg, scenes[0])
+    for name, fn in (("served, one building", lambda: one(batch)),
+                     ("served, unit of 4", lambda: unit(stacked))):
+        with torch.inference_mode():
+            fn()
+            cuda_lib.reset_launches()
+            calls = _capture_pools(lambda: fn()[0].cpu())
+        check(len(calls) == 1, f"ROI {name}: {len(calls)} pool_rois calls")
+        out.append((name, _fresh(calls[0]), dict(cuda_lib.launches), 1))
+    del model, one, unit
+    gcfg = gcfg or cfg.replace(separate_classes=GROUPS_3G6C)
+    model = SparseRCNN(gcfg, seed=0).to(dev).train()
+    g = torch.Generator().manual_seed(0)
+    pri = {k: torch.rand((n,), generator=g).to(dev)
+           for k, n in model.priority_shapes().items()}
+    (pts, fts, valid), gt, gtl = batch_to_device(pad_scene(gcfg, scenes[0]),
+                                                 dev)
+
+    def step():
+        losses = model(voxelize_points(gcfg, pts, fts, valid), gt, gtl,
+                       priorities=pri)
+        total_loss(losses).backward()
+
+    step()
+    model.zero_grad(set_to_none=True)
+    cuda_lib.reset_launches()
+    calls = _capture_pools(step)
+    torch.cuda.synchronize()
+    check(len(calls) == model.groups, f"ROI training: {len(calls)} "
+          f"pool_rois calls for {model.groups} groups")
+    out.append(("3g6c training forward", _fresh(calls[0]),
+                dict(cuda_lib.launches), len(calls)))
+    return out
+
+
+def roi_shape(name, call, launches, n_calls, dev):
+    """One pooler shape: the kernel against the plain version on the
+    rows in f32 (bf16: each bin within one bf16 step; the kernel on f32
+    rows within 1e-5 of the largest), the backward (where the rows take
+    a gradient) against the plain version's autograd in f32 within 1e-5
+    of the largest, the path's launches (one forward a pool_rois call, and
+    one backward on a training path), then device times by the profiler
+    and CUDA events beside the plain version's (the parent's path) and
+    the bounds: the bytes that must move (the output written, the table,
+    its keys and the rois read once) at 3.35 TB/s, and the corner rows
+    that the kernel reads from L2 (each found corner of a valid roi's
+    samples, a row of C elements, counted from the backward's pairs).
+    The forward's device time is its kernel's; the backward's is every
+    kernel of the call (the pairs and sum kernels, and plain torch's
+    sort and searchsorted between them), with the two kernels' share
+    beside. A device time the profiler under-counts reads None."""
+    from detection_3d_tpu_torch.ops import cuda_lib
+    from detection_3d_tpu_torch.ops.roi_align import (
+        roi_align_pairs_cuda, roi_align_plain, roi_align_rotated_sparse)
+    table, rois, valid, out_size, sr, level = call
+    train = table.feats.requires_grad
+    table = table.with_feats(table.feats.detach())
+    check(launches["roi_align"] == n_calls,
+          f"ROI {name}: {launches['roi_align']} forward launches for "
+          f"{n_calls} pool_rois calls")
+    check(launches["roi_align_bwd"] == (n_calls if train else 0),
+          f"ROI {name}: {launches['roi_align_bwd']} backward launches")
+    f32 = table.with_feats(table.feats.float())
+
+    def fwd():
+        return roi_align_rotated_sparse(table, rois, valid, out_size, sr,
+                                        level)
+
+    def plain():
+        return roi_align_plain(table, rois, valid, out_size, sr, level)
+
+    with torch.no_grad():
+        got = fwd()
+        ref = roi_align_plain(f32, rois, valid, out_size, sr, level)
+        check(torch.equal(fwd(), got), f"ROI {name}: two calls differ")
+        err = (got.float() - ref).abs()
+        big = ref.abs().max().clamp(min=1e-30)
+        errs = {"fwd_f32": float(((roi_align_rotated_sparse(
+            f32, rois, valid, out_size, sr, level) - ref).abs().max()
+            / big))}
+        if got.dtype == torch.bfloat16:
+            excess = (err - (ref.abs() * 2 ** -7 + 1e-5 * big)).max()
+            check(float(excess) <= 0, f"ROI {name}: a bin beyond one bf16 "
+                  f"step of the plain version in f32 by {float(excess):.3g}")
+            errs["fwd_bf16_steps"] = float((err / (ref.abs() * 2 ** -7
+                                                   + 1e-5 * big)).max())
+        check(errs["fwd_f32"] <= 1e-5, f"ROI {name}: the kernel on f32 rows "
+              f"off the plain version by {errs['fwd_f32']:.3g} of the "
+              "largest")
+        check(not got.reshape(-1, *got.shape[-4:])[
+            ~valid.reshape(-1)].any(), f"ROI {name}: an invalid roi pooled")
+        # every corner slot of a valid roi that found its row (a missing
+        # corner's and an invalid roi's slots take the row nb * V)
+        t = table.stacked()
+        keys = t.keys.reshape(t.units, -1).contiguous()
+        rows = keys.numel()
+        pair_rows, _ = roi_align_pairs_cuda(
+            keys, rois.reshape(-1, 7).contiguous(),
+            valid.reshape(-1).contiguous(),
+            None if level is None else level.reshape(-1).to(
+                torch.int32).contiguous(), t.spatial_size, out_size, sr)
+        found = int((pair_rows < rows).sum())
+        del pair_rows
+    c, esize = got.shape[-1], got.element_size()
+    n_rois = rois.numel() // 7
+    least = (got.numel() * esize + table.feats.numel() * esize
+             + table.keys.numel() * 8 + rois.numel() * 4)
+    row = {"shape": name, "rois": n_rois, "valid_rois": int(valid.sum()),
+           "table_rows": rows, "C": c, "dtype": str(got.dtype),
+           "out_size": list(out_size), "sr": sr,
+           "launches": {k: launches[k] for k in ("roi_align",
+                                                 "roi_align_bwd")},
+           "errors": {k: float(f"{e:.3g}") for k, e in errs.items()},
+           "fwd_ms": round(time_ms(fwd, 20), 4),
+           "fwd_device_ms": device_ms(fwd, [ROI_FWD], 20, expect=1),
+           "plain_ms": round(time_ms(plain, 5), 4),
+           "plain_device_ms": round(_profile(plain)["busy_ms"], 4),
+           "bound_ms": round(least / H100_BYTES_PER_S * 1e3, 4),
+           "bound_gb": round(least / 1e9, 4),
+           "found_corner_rows": found,
+           "l2_reads_gb": round(found * c * esize / 1e9, 4)}
+    if train:
+        fs = [t.feats.clone().requires_grad_() for t in (f32, f32, table)]
+        outs = [fn(table.with_feats(f), rois, valid, out_size, sr, level)
+                for fn, f in zip((roi_align_rotated_sparse, roi_align_plain,
+                                  roi_align_rotated_sparse), fs)]
+        cot = torch.randn(outs[0].shape, device=dev,
+                          generator=torch.Generator(dev).manual_seed(0))
+        before = cuda_lib.launches["roi_align_bwd"]
+        d = [torch.autograd.grad(o, f, cot.to(o.dtype), retain_graph=True)[0]
+             for o, f in zip(outs, fs)]
+        check(cuda_lib.launches["roi_align_bwd"] == before + 2,
+              f"ROI {name}: the backward did not launch once a call")
+        e = float((d[0] - d[1]).abs().max() / d[1].abs().max().clamp(
+            min=1e-30))
+        check(e <= 1e-5, f"ROI {name}: the backward off the plain "
+              f"version's autograd by {e:.3g} of the largest")
+        again = torch.autograd.grad(outs[0], fs[0], cot, retain_graph=True)
+        check(torch.equal(again[0], d[0]), f"ROI {name}: two backward "
+              "calls differ")
+        row["errors"]["bwd_f32"] = float(f"{e:.3g}")
+
+        cot_t = cot.to(outs[2].dtype)
+
+        def bwd():
+            torch.autograd.grad(outs[2], fs[2], cot_t, retain_graph=True)
+
+        plain_out = roi_align_plain(table.with_feats(fs[2]), rois, valid,
+                                    out_size, sr, level)
+
+        def plain_bwd():
+            torch.autograd.grad(plain_out, fs[2], cot.to(plain_out.dtype),
+                                retain_graph=True)
+
+        row.update({
+            "bwd_ms": round(time_ms(bwd, 20), 4),
+            "bwd_device_ms": device_ms(bwd, None, 20),
+            "bwd_kernels_device_ms": device_ms(bwd, [ROI_BWD], 20, expect=2),
+            "plain_bwd_ms": round(time_ms(plain_bwd, 5), 4),
+            # the gradient read and the rows' gradient written once
+            "bwd_bound_ms": round((got.numel() + rows * c) * esize
+                                  / H100_BYTES_PER_S * 1e3, 4)})
+        del outs, fs, d, plain_out
+    print("ROI shape " + json.dumps(row))
+    torch.cuda.empty_cache()
+    return row
+
+
+def roi_path(cfg, scenes, dev, gcfg=None):
+    """The ROI pooler (csrc/roi_align.cu) at the main paths' shapes
+    (:func:`roi_pools`, :func:`roi_shape`). Returns the kernels line's
+    report."""
+    rows = [roi_shape(*pool, dev)
+            for pool in roi_pools(cfg, scenes, dev, gcfg)]
+    first = rows[0]
+    errs = [e for r in rows for e in r["errors"].values()]
+    train = next(r for r in rows if "bwd_ms" in r)
+    return {"max_abs_err": max(errs),
+            "max_abs_err_of": "the largest |plain| (f32), in bf16 steps of "
+                              "each bin (bf16)",
+            "ms": first["fwd_ms"], "device_ms": first["fwd_device_ms"],
+            "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
+            "bound_by": "bytes: the output written, the table, keys and "
+                        "rois read once",
+            "library_ms": None, "shape": first["shape"],
+            "bwd": {k: train[k] for k in ("bwd_ms", "bwd_device_ms",
+                                          "bwd_kernels_device_ms",
+                                          "plain_bwd_ms", "bwd_bound_ms")},
+            "shapes": rows}
+
+
+def roi_main():
+    """``--roi``: only the ROI pooler's phase (:func:`roi_path`) at full
+    width, after building the kernels; prints the compiler's registers
+    and spills, one line a shape, the card line and the ok line."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    from detection_3d_tpu_torch.config.defaults import full_scale_config
+    from detection_3d_tpu_torch.data import native_packer
+    from detection_3d_tpu_torch.data.synthetic import synthetic_multiroom
+    from detection_3d_tpu_torch.ops import cuda_lib
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"card: {card_line()}")
+    t0 = time.perf_counter()
+    cuda_lib.build()
+    native_packer.library()
+    print(f"build: {time.perf_counter() - t0:.1f} s")
+    log = cuda_lib.lib_path("roi_align").with_suffix(".log")
+    for ln in log.read_text().splitlines():
+        if "registers" in ln or "spill" in ln or "Compiling" in ln:
+            print(f"  ptxas roi_align: {ln.strip()}")
+    cfg = full_scale_config()
+    scenes = [synthetic_multiroom(seed=100 + i, num_points=POINTS,
+                                  rooms_xy=(5, 5), room=8.0,
+                                  voxel_scale=cfg.sparse3d.voxel_scale)
+              for i in range(5)]
+    t0 = time.perf_counter()
+    rep = roi_path(cfg, scenes, torch.device("cuda"))
+    print(f"ROI phase: {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"roi_align": {k: v for k, v in rep.items()
+                                    if k != "shapes"}}))
+    print(card_line())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 MODES = {"--bwd-shapes": bwd_shapes_main, "--compare": compare_main,
          "--d-forms": d_forms_main,
          "--overfit": overfit_main, "--parallel": parallel_main,
          "--batched": batched_main, "--minkunet": minkunet_main,
-         "--bn": bn_main}
+         "--bn": bn_main, "--roi": roi_main}
 
 if __name__ == "__main__":
     if len(sys.argv) > 2 or sys.argv[1:] and sys.argv[1] not in MODES:

@@ -15,7 +15,10 @@ forward and dFeats entries of csrc/gather_conv.cu count apart, and dW
 (csrc/gather_conv_bwd.cu) and the greedy NMS pass (csrc/greedy_nms.cu,
 a pack and a walk) count once per call, and so do the masked BN's four
 (csrc/masked_bn.cu: statistics and the backward's sums, each a pass and
-its fold; normalise; dx). A wrapper adds one exactly where it launches its kernel; a
+its fold; normalise; dx), and so do the ROI pooler's two (csrc/
+roi_align.cu: ``roi_align`` forward, ``roi_align_bwd`` backward, a pairs
+pass and a sum pass). A
+wrapper adds one exactly where it launches its kernel; a
 run can then show that a path went through every kernel. A launch made
 while a CUDA graph captures counts like any other; a replay of that
 graph calls no wrapper and counts nothing (engine/inference's
@@ -42,13 +45,13 @@ BUILD_DIR = _PKG / "build"
 
 # one library per source file under csrc/
 KERNELS = ("gather_conv", "gather_conv_bwd", "subm_match", "rotated_iou",
-           "multi_match", "greedy_nms", "masked_bn")
+           "multi_match", "greedy_nms", "masked_bn", "roi_align")
 # one launch counter per kernel: kernel A's source runs the forward and
 # the backward's dFeats, the backward source dW
 COUNTERS = ("gather_conv", "gather_conv_dfeats", "gather_conv_dw",
             "subm_match", "rotated_iou", "multi_match", "greedy_nms",
             "masked_bn_stats", "masked_bn_normalise", "masked_bn_dsums",
-            "masked_bn_dx")
+            "masked_bn_dx", "roi_align", "roi_align_bwd")
 # each counter's kernel symbols in a device trace (kernel A's body runs
 # under the ConvForward and ConvDFeats tags; dW is a partial kernel and
 # its reduction, D one of three forms, E a pack and a walk, BN's sums a
@@ -61,12 +64,15 @@ SYMBOLS = {"gather_conv": "ConvForward", "gather_conv_dfeats": "ConvDFeats",
            "masked_bn_stats": "masked_bn_stats_",
            "masked_bn_normalise": "masked_bn_normalise",
            "masked_bn_dsums": "masked_bn_dsums_",
-           "masked_bn_dx": "masked_bn_dx"}
+           "masked_bn_dx": "masked_bn_dx",
+           "roi_align": "roi_align_rotated_fwd",
+           "roi_align_bwd": "roi_align_rotated_bwd"}
 LABELS = {"gather_conv": "A", "gather_conv_dfeats": "dFeats",
           "gather_conv_dw": "dW", "subm_match": "B", "rotated_iou": "C",
           "multi_match": "D", "greedy_nms": "E",
           "masked_bn_stats": "BN stats", "masked_bn_normalise": "BN",
-          "masked_bn_dsums": "BN' sums", "masked_bn_dx": "BN' dx"}
+          "masked_bn_dsums": "BN' sums", "masked_bn_dx": "BN' dx",
+          "roi_align": "ROI", "roi_align_bwd": "ROI'"}
 # the dynamic shared memory one block may take on an H100 (227 KB):
 # kernel B's wrapper keeps its windows under it
 SHARED_BYTES = 232448
@@ -100,6 +106,11 @@ _ENTRY_POINTS = {
          + [_P]),
         (f"masked_bn_dsums_{tag}", [_P] * 9 + [_I] * 6 + [_F] * 2 + [_P]),
         (f"masked_bn_dx_{tag}", [_P] * 8 + [_I] * 4 + [_F] * 2 + [_P]))},
+    "roi_align": {"roi_align_bwd_pairs": [_P] * 6 + [_I] * 10 + [_F] + [_P],
+                  **{f"roi_align_fwd_{tag}": [_P] * 6 + [_I] * 11 + [_F]
+                     + [_I] + [_P] for tag in ("f32", "bf16")},
+                  **{f"roi_align_bwd_sum_{tag}": [_P] * 5 + [_I] * 4 + [_P]
+                     for tag in ("f32", "bf16")}},
 }
 
 _RESTYPES = {"greedy_nms_scratch_words": ctypes.c_longlong}
