@@ -9,6 +9,9 @@ A sparse conv's operations are 2 * pairs * Cin * Cout, its pairs the
 real (input row, output row) entries of its rulebook. Bytes count each
 input and output byte of a call once: the valid input and output rows,
 the weights and the rulebook's columns of the valid output rows.
+
+A masked BN site (:func:`bn_bytes`) and a rotated ROI pooler call
+(:func:`roi_bytes`) are bound by their bytes alone.
 """
 
 from __future__ import annotations
@@ -75,3 +78,39 @@ def backward_least_seconds(convs: List[Conv], esize: int, peak: Dict,
             dfeats = rows + book + esize * c.k * c.cin * c.cout
             total += max(c.flops / peak[dtype], dfeats / peak["hbm"])
     return total
+
+
+# the passes over a masked BN site's valid rows that move its least
+# bytes: the forward reads x and writes y; a training step's backward
+# also reads x and the output's gradient and writes the input's
+BN_PASSES = {False: 2, True: 5}
+
+
+def bn_site(rows: int, c: int, train: bool) -> Dict:
+    """One masked BN site (and its activation) over ``rows`` valid rows of
+    ``c`` channels, of a forward or (``train``) a training step."""
+    return {"rows": int(rows), "c": int(c), "passes": BN_PASSES[train]}
+
+
+def bn_bytes(sites: List[Dict], esize: int) -> float:
+    """The least bytes of masked BN ``sites`` (:func:`bn_site`): each
+    pass moves its valid rows once, ``esize`` bytes an element."""
+    return float(sum(s["passes"] * esize * s["rows"] * s["c"]
+                     for s in sites))
+
+
+def roi_pool(rois: int, bins: int, c: int, rows: int) -> Dict:
+    """One call of the rotated ROI pooler: ``rois`` rois of ``bins`` bins
+    each from a merged table of ``rows`` rows (the pooled levels' valid
+    rows) and ``c`` channels."""
+    return {"rois": int(rois), "bins": int(bins), "c": int(c),
+            "rows": int(rows)}
+
+
+def roi_bytes(pools: List[Dict], esize: int) -> float:
+    """The least bytes of pooler calls (:func:`roi_pool`): each writes its
+    pooled output and reads the merged table's features, its int64 keys
+    and its rois (7 float32 numbers each) once."""
+    return float(sum(p["rois"] * p["bins"] * p["c"] * esize
+                     + p["rows"] * (p["c"] * esize + 8) + 28 * p["rois"]
+                     for p in pools))

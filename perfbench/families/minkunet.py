@@ -115,10 +115,12 @@ def building_work(ref_cfg, padded: Dict, device, train: bool = False
     """The work on one padded building (:func:`reference_pad`): ``flops``
     of the forward (``train``: of a training step, three times the
     forward's products), ``a_convs`` (counts.Conv, the stem first, the
-    convs kernel A runs) and ``b_books``: kernel B's books of a forward,
-    each {"k": offsets, "rows": the level's voxels}."""
+    convs kernel A runs), ``b_books``: kernel B's books of a forward,
+    each {"k": offsets, "rows": the level's voxels}, and ``bn_sites``
+    (counts.bn_site): the BN after every conv and every 1^3 projection,
+    over its level's voxels."""
     import torch
-    from perfbench.counts import Conv
+    from perfbench.counts import Conv, bn_site
     from perfbench.reference.minkunet import plan, voxelize
     with torch.no_grad():
         b = {k: torch.as_tensor(padded[k]).to(device)
@@ -132,7 +134,7 @@ def building_work(ref_cfg, padded: Dict, device, train: bool = False
     cube = [_pairs(book) for book in p["cube"]]
     planes, layers, c0 = ref_cfg.planes, ref_cfg.layers, ref_cfg.init_dim
     convs = [Conv("stem", 125, _pairs(p["stem"]), rows[0], rows[0], 3, c0)]
-    dense = 0.0
+    dense, projections = 0.0, []
 
     def stage(tag, k, cin, c, n):
         nonlocal dense
@@ -144,6 +146,7 @@ def building_work(ref_cfg, padded: Dict, device, train: bool = False
                               rows[k], c, c))
             if ci != c:
                 dense += 2.0 * rows[k] * ci * c
+                projections.append((rows[k], c))
 
     cin = c0
     for k in range(1, 5):
@@ -162,8 +165,10 @@ def building_work(ref_cfg, padded: Dict, device, train: bool = False
     flops = sum(c.flops for c in convs) + dense
     books = [{"k": 27, "rows": r} for r in rows] + \
         [{"k": 125, "rows": rows[0]}]
+    sites = [bn_site(c.rows_out, c.cout, train) for c in convs] + \
+        [bn_site(r, c, train) for r, c in projections]
     return {"flops": 3 * flops if train else flops, "a_convs": convs,
-            "b_books": books}
+            "b_books": books, "bn_sites": sites}
 
 
 # -- the control and the planted faults ----------------------------------

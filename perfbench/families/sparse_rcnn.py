@@ -32,8 +32,10 @@ gives:
       (train.numbers compares the two);
   building_work(ref_cfg, padded, device, train=False)  {"flops": the
       operations of a forward (``train``: of a training step),
-      "a_convs": [counts.Conv] of the forward's sparse convs}, which
-      metrics/ read;
+      "a_convs": [counts.Conv] of the forward's sparse convs, and what
+      other kernels' readers take where the family counts it:
+      "b_books", "bn_sites" (counts.bn_site), "roi_pools"
+      (counts.roi_pool)}, which metrics/ read;
   LIMIT_NAMES  the names ``limits/<cell>.json`` may give a limit;
   WIDTHS  the widths of the model, as dotted keys under the file's
       ``model``; both sides' configurations hold each at the same
@@ -270,8 +272,10 @@ def building_work(ref_cfg, padded: Dict, device, train: bool = False
                   ) -> Dict:
     """The work on one padded building (:func:`reference_pad`): ``flops``
     of the whole forward (``train``: of the forward and its backward,
-    three times the forward's products) and ``a_convs``, the sparse
-    convs of kernel A."""
+    three times the forward's products), ``a_convs``, the sparse convs
+    of kernel A, and of a served forward ``roi_pools`` (counts.roi_pool):
+    a pooler call a group, over the post-NMS proposals and the valid
+    rows of the pooled levels' merged table."""
     import torch
     from perfbench.reference.backbone import build_pyramid
     from perfbench.reference.detector import voxelize_points
@@ -283,7 +287,24 @@ def building_work(ref_cfg, padded: Dict, device, train: bool = False
         convs = forward_convs(ref_cfg, pyr)
         flops = sum(c.flops for c in convs) + dense_flops(ref_cfg, pyr,
                                                           train)
-    return {"flops": 3 * flops if train else flops, "a_convs": convs}
+    work = {"flops": 3 * flops if train else flops, "a_convs": convs}
+    if not train:
+        work["roi_pools"] = roi_pools(ref_cfg, pyr)
+    return work
+
+
+def roi_pools(cfg, pyr) -> List:
+    """The served forward's pooler calls (counts.roi_pool): one a group,
+    each over the group's post-NMS proposals (the output's rois), from
+    one table that merges the pooled levels' valid rows."""
+    from perfbench.counts import roi_pool
+    n = cfg.sparse3d.num_scales
+    rows = sum(int(pyr["tables"][n - 1 - s].row_valid.sum())
+               for s in cfg.roi.pooler_scales_from_top)
+    os0, os1, os2 = cfg.roi.pooler_resolution
+    groups = cfg.group_num if cfg.separate_classes else 1
+    return [roi_pool(cfg.rpn_post_nms_top_n_test, os0 * os1 * os2,
+                     cfg.sparse3d.nplane_map, rows)] * groups
 
 
 # -- the control and the planted faults ----------------------------------

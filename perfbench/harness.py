@@ -213,6 +213,13 @@ def run_cell(args, require_card: bool = True, root: Path = spec.ROOT,
         run.work = [fam.building_work(
             run.ref_cfg, fam.reference_pad(run.ref_cfg, b), device,
             train=trained(answers)) for b in run.pool]
+        if run.sub is not None:
+            for what, key in (("kernels recorded", "kernel_n"),
+                              ("kernel seconds", "kernel_s"),
+                              ("kernel seconds by span", "span_kernel_s")):
+                print(f"{what}: " + ", ".join(
+                    f"{k} {v!r}" for k, v in sorted(run.sub[key].items())),
+                    file=sys.stderr)
         metrics = {}
         for m in cell.per_layer:
             v = spec.metric_reader(cell.root, m["name"])(run)

@@ -1,7 +1,8 @@
 """What several per-layer readers (metrics/) compute alike from a traced
 run: the device's idle share of the sub-window, kernel launches per unit
-of work, a kernel's share of its roofline and the whole forward's share
-of the card's peak. Each returns None when the run recorded nothing to
+of work, a kernel's share of its roofline (by its symbols, or by the
+program's spans that launched it) and the whole forward's share of the
+card's peak. Each returns None when the run recorded nothing to
 read (no trace, no device activity, or a card without a row in the
 table of peaks)."""
 
@@ -50,6 +51,21 @@ def roofline_a_backward(run):
         run.work[b]["a_convs"], run.esize, run.peaks, run.cfg.compute_dtype)
         for b in run.window["sub_buildings"])
     return 100.0 * least / busy
+
+
+def roofline_by_span(run, spans, least_seconds):
+    """``least_seconds`` (a family's least time for the sub-window's work)
+    over the device seconds of the kernels launched in the program's
+    spans named ``spans`` (trace.span_kernel_seconds; spans that do not
+    open inside one another), in %; None where those spans launched
+    nothing or the run recorded no sub-window."""
+    s = run.sub
+    if s is None or least_seconds is None:
+        return None
+    busy = sum(s["span_kernel_s"].get(name, 0.0) for name in spans)
+    if not busy:
+        return None
+    return 100.0 * least_seconds / busy
 
 
 def mfu(run):

@@ -112,6 +112,48 @@ def root(tmp_path_factory):
     return tiny.make_root(tmp_path_factory.mktemp("bench"))
 
 
+def _add_mix(repo, window: str):
+    """A mix of a new name with ``window``, a cell of it in s_per_step's
+    list and a metric of its own, added to the checkout ``repo`` as a
+    file and entries."""
+    mix = json.loads((repo / "perfbench/traffic/seg_train.json").read_text())
+    (repo / "perfbench/traffic/seg_rooms.json").write_text(json.dumps(
+        dict(mix, window=window)))
+    bench = json.loads((repo / "BENCHMARK.json").read_text())
+    bench["workloads"].append({"name": "minkunet34c.seg_rooms",
+                               "config": "minkunet34c",
+                               "traffic": "seg_rooms", "chips": 1,
+                               "why": "test"})
+    for m in bench["end_to_end"]:
+        if m["name"] == "s_per_step":
+            m["workloads"].append("minkunet34c.seg_rooms")
+    bench["per_layer"].append(
+        {"name": "mfu.seg_rooms", "unit": "%", "better": "higher",
+         "source": "host_clock", "layer": "device", "moves": "s_per_step",
+         "workloads": ["minkunet34c.seg_rooms"]})
+    (repo / "BENCHMARK.json").write_text(json.dumps(bench))
+
+
+def test_a_mix_added_as_a_file_maps_by_its_window(tmp_path):
+    """make_root maps a cell of a mix it has never seen to the tiny cells
+    of the mix's window kind (labelled_train: the train cells)."""
+    repo = tiny.copy_repo_root(tmp_path / "repo")
+    _add_mix(repo, "labelled_train")
+    made = json.loads((tiny.make_root(tmp_path / "tiny", repo)
+                       / "BENCHMARK.json").read_text())
+    got = {m["name"]: m.get("workloads") for m in made["end_to_end"]
+           + made["per_layer"]}
+    assert got["mfu.seg_rooms"] == ["tiny.train", "tiny3g.train"]
+    assert got["s_per_step"] == ["tiny.train", "tiny3g.train"]
+
+
+def test_make_root_refuses_an_unknown_window(tmp_path):
+    repo = tiny.copy_repo_root(tmp_path / "repo")
+    _add_mix(repo, "no_such_window")
+    with pytest.raises(ValueError, match="no_such_window"):
+        tiny.make_root(tmp_path / "tiny", repo)
+
+
 KEYS = ["correct", "attempted", "failed", "metrics", "device", "compared"]
 
 

@@ -1,10 +1,12 @@
 """The MinkUNet family (families/minkunet.py) on the CPU: the repo's
-BENCHMARK.json is the benchmark without it plus entries appended at the
-ends of their lists; its cell runs through harness.run_cell at a small
+BENCHMARK.json is the benchmark without it plus its entries, wherever
+they sit, and so is a copy with a second family appended after it; its
+cell runs through harness.run_cell at a small
 size (a copy of the repo's root with the configuration cut to an eighth
 of its widths and its mix to small buildings); its check fails
 each planted fault of the family's FAULTS and the float8 control; the
-new readers (metrics/B_roofline.py, plan_share.py) on hand-made runs."""
+new readers (metrics/B_roofline.py, plan_share.py) on hand-made runs,
+and the BN sites the family counts."""
 
 from __future__ import annotations
 
@@ -24,44 +26,81 @@ BENCH = json.loads((spec.ROOT / "BENCHMARK.json").read_text())
 KEYS = ["correct", "attempted", "failed", "metrics", "device", "compared"]
 
 
-def _without_family(bench):
-    """``bench`` with the family's configuration, cell and the metrics
+MINK_METRICS = {f"{m}.seg_train" for m in (
+    "A_roofline", "Abwd_roofline", "B_roofline", "BN_roofline", "plan_share",
+    "syncs_per_step", "mfu", "idle_share")}
+
+
+def _without_family(bench, config, cell):
+    """``bench`` with a family's configuration, its cell and the metrics
     that only its cell reports taken out, and its cell out of every
     list."""
     out = json.loads(json.dumps(bench))
-    out["configs"] = [c for c in out["configs"] if c["name"] != CONFIG]
-    out["workloads"] = [w for w in out["workloads"] if w["name"] != CELL]
+    out["configs"] = [c for c in out["configs"] if c["name"] != config]
+    out["workloads"] = [w for w in out["workloads"] if w["name"] != cell]
     out["per_layer"] = [m for m in out["per_layer"]
-                        if m.get("workloads") != [CELL]]
+                        if m.get("workloads") != [cell]]
     for m in out["end_to_end"] + out["per_layer"]:
         if "workloads" in m:
-            m["workloads"] = [w for w in m["workloads"] if w != CELL]
+            m["workloads"] = [w for w in m["workloads"] if w != cell]
     return out
 
 
+def assert_came_as_entries(bench, config, cell, metrics, e2e):
+    """The family of ``config`` came to ``bench`` as entries alone,
+    wherever they sit: its configuration and its cell are there once,
+    the metrics that list its cell are ``metrics`` and list it alone, the
+    end-to-end metric ``e2e`` lists it, and what is left without the
+    family (every other entry as ``bench`` holds it, in the same order)
+    stands as a benchmark: each cell's configuration is there and each
+    metric lists cells that are there."""
+    assert [c["name"] for c in bench["configs"]].count(config) == 1
+    assert [w["name"] for w in bench["workloads"]].count(cell) == 1
+    mine = [m for m in bench["per_layer"] if cell in m.get("workloads", ())]
+    assert {m["name"] for m in mine} == metrics
+    assert all(m["workloads"] == [cell] for m in mine)
+    assert cell in next(m for m in bench["end_to_end"]
+                        if m["name"] == e2e)["workloads"]
+    before = _without_family(bench, config, cell)
+    cells = {w["name"] for w in before["workloads"]}
+    assert {w["config"] for w in before["workloads"]} <= {
+        c["name"] for c in before["configs"]}
+    for m in before["end_to_end"] + before["per_layer"]:
+        if "workloads" in m:
+            assert m["workloads"] and set(m["workloads"]) <= cells, m
+
+
 def test_family_came_as_appended_entries():
-    """Every list of BENCHMARK.json starts with what it held without the
-    family; the family's cell is the last entry of s_per_step's list and
-    every metric it added lists that cell alone."""
-    before = _without_family(BENCH)
-    for key in ("configs", "workloads", "per_layer"):
-        assert BENCH[key][:len(before[key])] == before[key]
-    assert [c["name"] for c in BENCH["configs"][len(before["configs"]):]] \
-        == [CONFIG]
-    assert [w["name"] for w in BENCH["workloads"]
-            [len(before["workloads"]):]] == [CELL]
-    added = BENCH["per_layer"][len(before["per_layer"]):]
-    assert {m["name"] for m in added} == {
-        f"{m}.seg_train" for m in ("A_roofline", "Abwd_roofline",
-                                   "B_roofline", "plan_share",
-                                   "syncs_per_step", "mfu", "idle_share")}
-    for got, want in zip(BENCH["end_to_end"], before["end_to_end"]):
-        if got["name"] == "s_per_step":
-            assert got["workloads"] == want["workloads"] + [CELL]
-        else:
-            assert got == want
+    """The MinkUNet family is in BENCHMARK.json as entries alone, in any
+    place of its lists (assert_came_as_entries), and its cell loads with
+    its family on one chip."""
+    assert_came_as_entries(BENCH, CONFIG, CELL, MINK_METRICS, "s_per_step")
     c = spec.load_cell(CELL)
     assert c.family().__name__.endswith("minkunet") and c.chips == 1
+
+
+def test_a_family_appended_after_it_keeps_the_property(tmp_path):
+    """A second family appended after MinkUNet (tiny.add_second_family,
+    its cell in s_per_step's list too, as a training family's would be)
+    leaves MinkUNet's property whole and has it itself; both cells load
+    by name, and make_root maps the added cell by its window."""
+    root = tiny.add_second_family(tiny.copy_repo_root(tmp_path / "repo"))
+    bench = json.loads((root / "BENCHMARK.json").read_text())
+    for m in bench["end_to_end"]:
+        if m["name"] == "s_per_step":
+            m["workloads"].append(tiny.SECOND_CELL)
+    (root / "BENCHMARK.json").write_text(json.dumps(bench))
+    assert bench["workloads"][-1]["name"] == tiny.SECOND_CELL
+    assert_came_as_entries(bench, CONFIG, CELL, MINK_METRICS, "s_per_step")
+    assert_came_as_entries(bench, "tinyunet", tiny.SECOND_CELL, {"mfu.seg"},
+                           "latency_p95_s")
+    for name in (CELL, tiny.SECOND_CELL):
+        assert spec.load_cell(name, root).family().LIMIT_NAMES
+    made = json.loads((tiny.make_root(tmp_path / "tiny", root)
+                       / "BENCHMARK.json").read_text())
+    got = {m["name"]: m.get("workloads") for m in made["per_layer"]}
+    assert got["mfu.seg"] == ["tiny.mixed", "tiny.single"]
+    assert got["BN_roofline.seg_train"] == ["tiny.train", "tiny3g.train"]
 
 
 @pytest.fixture(scope="module")
@@ -167,6 +206,28 @@ def test_work_counts_the_stem_and_the_books(root):
     assert work["b_books"][-1]["rows"] == stem.rows_in
     conv = sum(cv.flops for cv in work["a_convs"])
     assert 3 * conv < work["flops"] < 4.5 * conv   # and the dense products
+
+
+def test_work_counts_a_bn_site_after_every_conv_and_projection(root):
+    """building_work counts one BN site after each conv kernel A runs, on
+    its output rows and channels, and one after each of the 7 1^3
+    projections (blocks 2-8 change their width): 62 sites, each of 5
+    passes in a training step and 2 in a forward."""
+    c = spec.load_cell(CELL, root)
+    fam = c.family()
+    ref_cfg = fam.reference_config(c.config)
+    from perfbench.traffic.pool import make_pool
+    b = make_pool(3, tiny.BUILDINGS, ref_cfg.classes, workers=1)[0]
+    padded = fam.reference_pad(ref_cfg, b)
+    work = fam.building_work(ref_cfg, padded, "cpu", train=True)
+    convs, sites = work["a_convs"], work["bn_sites"]
+    assert len(sites) == len(convs) + 7 == 62
+    assert [(s["rows"], s["c"]) for s in sites[:len(convs)]] == [
+        (cv.rows_out, cv.cout) for cv in convs]
+    assert {s["passes"] for s in sites} == {5}
+    served = fam.building_work(ref_cfg, padded, "cpu")["bn_sites"]
+    assert [dict(s, passes=5) for s in served] == sites
+    assert {s["passes"] for s in served} == {2}
 
 
 def test_b_roofline_reader():

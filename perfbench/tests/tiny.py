@@ -22,6 +22,17 @@ LIMITS = {"unmatched": 0.12}
 TRAIN_LIMITS = {"loss": 1e-3, "grad": 1e-3, "change": 1e-3,
                 "change_q90": 1e-3}
 BUILDINGS = {"pool": 4, "num_points": 6000, "rooms_xy": [1, 1], "room": 4.0}
+# the tiny cells of each kind of window, and the kind of each window a
+# traffic mix may name: make_root maps a real cell to the tiny cells of
+# its mix's window kind, so a mix added as a file with a window named
+# here needs no edit
+TINY_CELLS = {"stream": ["tiny.stream"],
+              "single": ["tiny.single", "tiny.mixed"],
+              "train": ["tiny.train", "tiny3g.train"]}
+WINDOW_KINDS = {"stream": "stream",
+                "single": "single", "single_again": "single",
+                "segment": "single",          # second_family/segment.py
+                "train": "train", "labelled_train": "train"}
 
 
 def tiny_model():
@@ -46,13 +57,29 @@ def tiny_model():
     return model
 
 
-def make_root(root: Path) -> Path:
+def window_kind(repo: Path, traffic: str) -> str:
+    """The kind of window (WINDOW_KINDS) of the traffic mix ``traffic`` of
+    the checkout ``repo``; raises ValueError naming a window it does not
+    know."""
+    window = json.loads((repo / "perfbench" / "traffic"
+                         / f"{traffic}.json").read_text())["window"]
+    if window not in WINDOW_KINDS:
+        raise ValueError(f"traffic mix {traffic!r}: window {window!r} is "
+                         f"not one of {sorted(WINDOW_KINDS)}")
+    return WINDOW_KINDS[window]
+
+
+def make_root(root: Path, repo: Path = REPO) -> Path:
     """A checkout root under ``root`` with the tiny cells ``tiny.stream``,
     ``tiny.single``, ``tiny.mixed`` (a window file and a mix of sizes
-    added as files), ``tiny.train`` and ``tiny3g.train``; returns it."""
+    added as files), ``tiny.train`` and ``tiny3g.train``, beside the
+    readers, windows and families of the checkout ``repo`` and its
+    BENCHMARK.json's metrics, each real cell a metric lists replaced by
+    the tiny cells of its mix's window kind (:func:`window_kind`);
+    returns it."""
     pb = root / "perfbench"
     for d in ("metrics", "windows", "families"):
-        shutil.copytree(REPO / "perfbench" / d, pb / d)
+        shutil.copytree(repo / "perfbench" / d, pb / d)
     for d in ("configs", "traffic", "limits"):
         (pb / d).mkdir(parents=True)
     (pb / "configs/tiny.json").write_text(json.dumps(
@@ -85,12 +112,13 @@ def make_root(root: Path) -> Path:
     for c in ("tiny.train", "tiny3g.train"):
         (pb / f"limits/{c}.json").write_text(json.dumps(
             {"limits": TRAIN_LIMITS}))
-    bench = json.loads((REPO / "BENCHMARK.json").read_text())
+    bench = json.loads((repo / "BENCHMARK.json").read_text())
+    kinds = {w["name"]: window_kind(repo, w["traffic"])
+             for w in bench["workloads"]}
     bench["configs"] = [{"name": n, "source": "test",
                          "file": f"perfbench/configs/{n}.json",
                          "reduced": [], "why": "test"}
                         for n in ("tiny", "tiny3g")]
-    kinds = {w["name"]: w["traffic"] for w in bench["workloads"]}
     bench["workloads"] = [
         {"name": "tiny.stream", "config": "tiny", "traffic": "tiny_stream",
          "chips": 1, "why": "test"},
@@ -102,13 +130,10 @@ def make_root(root: Path) -> Path:
          "chips": 1, "why": "test"},
         {"name": "tiny3g.train", "config": "tiny3g", "traffic": "tiny_train",
          "chips": 1, "why": "test"}]
-    tiny = {"stream_b4": ["tiny.stream"],
-            "single": ["tiny.single", "tiny.mixed"],
-            "train": ["tiny.train", "tiny3g.train"]}
     for m in bench["end_to_end"] + bench["per_layer"]:
         if "workloads" in m:
             m["workloads"] = sorted({c for w in m["workloads"]
-                                     for c in tiny[kinds[w]]})
+                                     for c in TINY_CELLS[kinds[w]]})
     (root / "BENCHMARK.json").write_text(json.dumps(bench))
     return root
 
